@@ -1,27 +1,58 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's main paths once on one NVIDIA card.
 
     python3 chip_smoke.py
 
 1. Refuses to run without a CUDA device; prints the card's name and power
    limit as nvidia-smi reports them.
-2. Builds the kernels (lora_tpu_torch/csrc, nvcc for sm_90a) and prints the
-   build time.
-3. Holds each kernel against its plain PyTorch version on the card, at the
-   shapes the flagship bank gives it: integer outputs equal (except windows
-   whose plain spectrum at the kernel's bin is within 1e-5 relative of the
-   peak: float32 FFTs of another order may order a near tie the other
-   way), dB values, f_index and fine_total within 1e-3.
-4. Runs the slice: a 4096-channel SF10 CR 4/8 bank (32-byte payloads,
-   per-channel delay, CFO and phase, AWGN sigma 0.1) through
-   demodulate(fused="auto") and decode.  Every frame must decode
-   byte-exact, with the frame fields equal to fused="off" on the card;
-   then a 4096-channel bank whose CFOs span the whole bin (half-bin
-   offsets included) and 512 channels at the reference noise point
-   (sigma 4.0) must each give the same frames and payloads on both
-   routes.  Every kernel must have launched in the fused="auto" run.
-5. Times each stage and the whole demodulate, kernel against plain (CUDA
-   events, one warm-up, median of 7 runs).
+2. Builds the kernels (lora_tpu_torch/csrc, one nvcc per source for
+   sm_90a) and prints the build time.
+3. Flagship bank (4096 channels, SF10 CR 4/8, 32-byte payloads):
+   a. holds kernels A (detect), B (track) and C (payload) against their
+      plain PyTorch versions on the card at the shapes the bank gives
+      them: integer outputs equal (except windows whose plain spectrum at
+      the kernel's bin is within 1e-5 relative of the peak: float32 FFTs
+      of another order may order a near tie the other way), dB values,
+      f_index and fine_total within 1e-3;
+   b. runs demodulate(fused="auto") and decode: every frame byte-exact,
+      frame fields equal to fused="off", kernels A, B, C launched; then a
+      4096-channel bank whose CFOs span the whole bin (half-bin offsets
+      included) and 512 channels at the reference noise point (sigma 4.0)
+      must each give the same frames and payloads on both routes;
+   c. times each stage and the whole demodulate, kernel against plain.
+4. Config-3 wideband bank (256 streams x 64 channels = 16,384 channels,
+   SF7 CR 4/8, mtu 50, 10,240 samples per channel, 1.34 GB in):
+   a. holds kernel D (channelize) against its plain version, the block-
+      Toeplitz matrix product, with a random state: the full-width bank and
+      16 streams at K = 16, 32 and 192; max |y_D - y_plain| <= 1e-4 of
+      max |y_plain| (float32 sums over 8K terms in another order),
+      new_state equal;
+   b. runs channelized_demodulate(fused="auto") and decode over frames on
+      every even channel (16-byte payloads, delay in [0, N), CFO k + u bins
+      with |u| < 0.4, random phase; merged by the synthesis bank; AWGN
+      0.01 at the wideband rate): all 8,192 frames found and byte-exact,
+      kernels D, A, B, C launched;
+   c. against fused="off": on the 8,192 occupied channels found,
+      payloads, t_sync, consumed, freq_error equal and symbols equal except
+      at near ties (counted); the two banks within 1e-4 of their max.  An
+      empty channel holds its neighbours' transition-band leakage, whose
+      spectra sit at near ties, so the routes may differ there, on at most
+      EMPTY_DIFFER of the empty channels, and neither may decode anything
+      there but nothing, an empty packet or a neighbour's payload.  The
+      difference has two parts, each shown on its own: kernels A, B, C
+      against their plain versions on kernel D's bank, decision by decision
+      (A and C by the rules of 3a; kernel B must equal the plain sync scan
+      run over kernel A, every step of which is held against the plain
+      detector on the same input), changing found on at most SAME_DIFFER
+      of the empty channels and only where a decision parts; and kernel D's
+      rounding under the plain route, on at most EMPTY_DIFFER, counted
+      beside a control: the plain route against itself with complex noise
+      of that rounding's rms added to the plain bank.  No comparison may
+      differ on an occupied channel;
+   d. times kernel D against its plain version and the path on both
+      routes, with the peak device memory above the input.
+   Times are CUDA events, the median of 7 after a warm-up, the better of
+   two interleaved sets (plain, kernel, kernel, plain).
 
 Prints the kernels' JSON line, then {"ok": true, "device": {...}} last.
 Any failure raises and exits non-zero.  Imports no jax.
@@ -30,6 +61,7 @@ Any failure raises and exits non-zero.  Imports no jax.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -43,6 +75,23 @@ SIGMA_NOISY = 4.0  # the reference's verified operating point (BASELINE.md)
 TOL = 1e-3
 TIE_RTOL = 1e-5
 RUNS = 7
+# config 3 (tools/bench_config3_stages.py:80-84): K channels per stream
+C3_STREAMS = 256
+C3_K = 64
+C3_SIGMA = 0.01
+# kernel D parity shapes (K, streams): the full-width bank, then each
+# geometry the JAX package gives its other kernels, and K = 192
+C3_PARITY = ((C3_K, C3_STREAMS), (16, 16), (32, 16), (192, 16))
+D_RTOL = 1e-4
+# Empty config-3 channels hold their neighbours' leakage, on which the sync
+# scan's decisions may go either way.  Shares of the 8,192 empty channels on
+# which they may: found changed by the demod kernels on kernel D's bank
+# (seen on the card: 12 and 27 at AWGN 0.01 and 0.1), and found or payload
+# changed between the routes (seen: 36 and 56) or by kernel D's rounding
+# under the plain route (seen: 46 at AWGN 0.01; 49 for noise of that
+# rounding's rms on the plain bank).
+SAME_DIFFER = 0.005
+EMPTY_DIFFER = 0.01
 
 
 def card_line() -> str:
@@ -61,6 +110,44 @@ def flagship_cfg():
     return cfg.replace(mtu=cfg.num_symbols(32) + 4)
 
 
+def config3_cfg():
+    from lora_tpu_torch import LoRaConfig
+
+    cfg = LoRaConfig(sf=7, cr="4/8", ampl=1.0)
+    return cfg.replace(mtu=cfg.num_symbols(16) + 2)
+
+
+def impair(frames, T: int, N: int, g, max_delay: int, u_max: float):
+    """Frames [B, Lf] placed in buffers of T samples at a random delay in
+    [0, max_delay), with a CFO of k + u bins (k in -2..2, |u| < u_max) and
+    a random phase."""
+    import torch
+
+    B, Lf = frames.shape
+    dev = frames.device
+    delay = torch.randint(0, max_delay, (B, 1), generator=g, device=dev)
+    src = torch.arange(T, device=dev) - delay
+    valid = (src >= 0) & (src < Lf)
+    bank = torch.take_along_dim(frames, src.clamp(0, Lf - 1), dim=1)
+    bank = torch.where(valid, bank, 0)
+    del src, valid
+    cfo = (torch.randint(-2, 3, (B, 1), generator=g, device=dev)
+           + (torch.rand((B, 1), generator=g, device=dev) * 2 - 1) * u_max)
+    phase = torch.rand((B, 1), generator=g, device=dev) * 6.2831855
+    n = torch.arange(T, device=dev, dtype=torch.float32)
+    ang = cfo * (6.2831855 / N) * n + phase
+    return bank * torch.polar(torch.ones_like(ang), ang)
+
+
+def awgn(shape, sigma: float, g, dev):
+    import torch
+
+    return sigma * torch.complex(
+        torch.randn(shape, generator=g, device=dev),
+        torch.randn(shape, generator=g, device=dev),
+    )
+
+
 def make_bank(api, cfg, B: int, sigma: float, seed: int, dev,
               u_max: float = 0.4):
     """B channels, one frame each at a random delay in [0, 3N), a random
@@ -73,31 +160,38 @@ def make_bank(api, cfg, B: int, sigma: float, seed: int, dev,
     import torch
 
     g = torch.Generator(device=dev).manual_seed(seed)
-    N = cfg.N
     payload = torch.randint(0, 256, (B, 32), generator=g, device=dev,
                             dtype=torch.int64).to(torch.uint8)
     iq = api.modulate(api.encode(payload, cfg), cfg)
-    L = iq.shape[-1]
     T = api.required_samples(cfg)
-    delay = torch.randint(0, 3 * N, (B, 1), generator=g, device=dev)
-    src = torch.arange(T, device=dev) - delay
-    valid = (src >= 0) & (src < L)
-    bank = torch.take_along_dim(iq, src.clamp(0, L - 1), dim=1)
-    bank = torch.where(valid, bank, 0)
-    del iq, src, valid
-    cfo = (torch.randint(-2, 3, (B, 1), generator=g, device=dev)
-           + (torch.rand((B, 1), generator=g, device=dev) * 2 - 1) * u_max)
-    phase = torch.rand((B, 1), generator=g, device=dev) * 6.2831855
-    n = torch.arange(T, device=dev, dtype=torch.float32)
-    ang = cfo * (6.2831855 / N) * n + phase
-    bank = bank * torch.polar(torch.ones_like(ang), ang)
-    del ang
-    noise = torch.complex(
-        torch.randn((B, T), generator=g, device=dev),
-        torch.randn((B, T), generator=g, device=dev),
-    )
-    bank = (bank + sigma * noise).contiguous()
+    bank = impair(iq, T, cfg.N, g, 3 * cfg.N, u_max)
+    del iq
+    bank = (bank + awgn(bank.shape, sigma, g, dev)).contiguous()
     return bank, payload
+
+
+def make_wideband(api, chz, cfg, S: int, K: int, sigma: float, seed: int,
+                  dev):
+    """S wideband streams of K channels with a frame (16-byte payload,
+    delay in [0, N), CFO k + u bins with |u| < 0.4, random phase) on every
+    even channel, merged by the synthesis bank, plus AWGN at the wideband
+    rate; made on the card.  -> (wide [S, M*K], payload [S, K/2, 16])."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    M = api.required_samples(cfg)
+    F = S * (K // 2)
+    payload = torch.randint(0, 256, (F, 16), generator=g, device=dev,
+                            dtype=torch.int64).to(torch.uint8)
+    frames = impair(api.modulate(api.encode(payload, cfg), cfg), M, cfg.N,
+                    g, cfg.N, 0.4)
+    u = torch.zeros((S, K, M), dtype=torch.complex64, device=dev)
+    u[:, 0::2] = frames.reshape(S, K // 2, M)
+    del frames
+    wide, _ = chz.synthesize(u)
+    del u
+    wide = (wide + awgn(wide.shape, sigma, g, dev)).contiguous()
+    return wide, payload.reshape(S, K // 2, 16)
 
 
 class Check:
@@ -118,6 +212,16 @@ class Check:
             raise AssertionError(
                 f"{self.name}: {what} differs by {err} > {tol}"
             )
+
+    def close_rel(self, what, got, want, rtol):
+        """Complex outputs: max |got - want| <= rtol * max |want|."""
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        self.max_abs_err = max(self.max_abs_err, err)
+        if not err <= rtol * scale:
+            raise AssertionError(f"{self.name}: {what} differs by {err} > "
+                                 f"{rtol} * {scale}")
+        return err / scale
 
     def equal(self, what, got, want):
         bad = int((got != want).sum())
@@ -165,6 +269,24 @@ def check_detect(chk, det_ops, cuda_detect, x, down, fe, want_findex):
     chk.close("noise", k.noise, p.noise, mask=ok)
     if want_findex:
         chk.close("f_index", k.f_index, p.f_index, mask=ok)
+    return k, ok
+
+
+def payload_spectra(det_ops, bank, ds, fine, N: int, mtu: int):
+    """Plain |X|^2 of payload windows (flat index b * mtu + w) of buffers
+    bank [B, T] from data starts ds [B], derotated by fine [B]."""
+    import torch
+
+    def spectra(idx):
+        b = idx // mtu
+        start = ds.long()[b] + (idx % mtu) * N
+        xw = torch.take_along_dim(
+            bank[b], start[:, None] + torch.arange(N, device=bank.device),
+            dim=1)
+        return det_ops.dechirp_detect(xw, ferr=fine[b][:, None],
+                                      want_mag2=True).mag2
+
+    return spectra
 
 
 def timed(fn, sync):
@@ -186,31 +308,46 @@ def timed(fn, sync):
     return times[len(times) // 2]
 
 
-def main() -> int:
+def interleaved(kern, plain, sync):
+    """(kernel ms, plain ms): the better of two interleaved sets, in the
+    order plain, kernel, kernel, plain, so that the two orders cancel
+    drift."""
+    p1 = timed(plain, sync)
+    k1 = timed(kern, sync)
+    k2 = timed(kern, sync)
+    p2 = timed(plain, sync)
+    return min(k1, k2), min(p1, p2)
+
+
+def peak_above(fn, sync) -> float:
+    """GB of device memory a call allocates at its peak above what is
+    allocated before it (its inputs)."""
     import torch
 
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: no CUDA device; the port's kernels "
-                         "run only on the card")
-    repo = os.path.dirname(os.path.abspath(__file__))
-    sys.path.insert(0, repo)
+    sync()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    sync()
+    return (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
+def count_launches(wrappers, fn, sync):
+    """Run fn with every wrapper's launch count set to 0 just before it;
+    return fn's result and the counts read just after."""
+    for w in wrappers.values():
+        w.launches = 0
+    out = fn()
+    sync()
+    return out, {k: w.launches for k, w in wrappers.items()}
+
+
+def flagship(torch, dev, card, sync):
+    """Step 3: the SF10 flagship bank.  -> (checks, launches, ms)."""
     from lora_tpu_torch import api
     from lora_tpu_torch.models import demodulator as dm
-    from lora_tpu_torch.ops import _cuda, cuda_demod, cuda_detect
+    from lora_tpu_torch.ops import cuda_demod, cuda_detect
     from lora_tpu_torch.ops import detect as det_ops
-
-    card = card_line()
-    print(card, flush=True)
-    dev = torch.device("cuda", 0)
-    sync = torch.cuda.synchronize
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
-          f"{torch.cuda.get_device_name(0)}", flush=True)
-
-    # ---- 1. build ------------------------------------------------------
-    t = time.perf_counter()
-    _cuda.library()
-    print(f"build: {time.perf_counter() - t:.1f} s "
-          f"({_cuda.library_path().name})", flush=True)
 
     cfg = flagship_cfg()
     N, mtu = cfg.N, cfg.mtu
@@ -221,15 +358,12 @@ def main() -> int:
     print(f"bank: B={B} T={T} ({W} windows of N={N}), mtu={mtu}, "
           f"{bank.numel() * 8 / 1e9:.2f} GB complex64", flush=True)
 
-    # ---- 2. kernels vs plain at the flagship shapes -----------------------
+    # ---- a. kernels vs plain at the flagship shapes ----------------------
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     chk_a = Check("detect")
     check_detect(chk_a, det_ops, cuda_detect, win, False, None, False)
     for n_win in (1024, 128):
-        rnd = torch.complex(
-            torch.randn((65536, n_win), generator=gen, device=dev),
-            torch.randn((65536, n_win), generator=gen, device=dev),
-        )
+        rnd = awgn((65536, n_win), 1.0, gen, dev)
         fe = torch.rand(65536, generator=gen, device=dev) - 0.5
         for down in ((False, True) if n_win == 1024 else (False,)):
             check_detect(chk_a, det_ops, cuda_detect, rnd, down, fe, True)
@@ -256,36 +390,25 @@ def main() -> int:
     chk_c = Check("payload")
     kc = cuda_demod.payload_detect(bank, ds, fine_total, mtu, N)
     pc = cuda_demod.payload_detect_plain(bank, ds, fine_total, mtu, N)
-
-    def payload_spectra(idx):
-        b = idx // mtu
-        w = idx % mtu
-        start = ds.long()[b] + w * N
-        xw = torch.take_along_dim(
-            bank[b], start[:, None] + torch.arange(N, device=dev), dim=1)
-        return det_ops.dechirp_detect(xw, ferr=fine_total[b][:, None],
-                                      want_mag2=True).mag2
-
-    ok = chk_c.values(kc[0], pc[0], payload_spectra)
+    ok = chk_c.values(kc[0], pc[0],
+                      payload_spectra(det_ops, bank, ds, fine_total, N, mtu))
     chk_c.close("power", kc[1], pc[1], mask=ok)
     chk_c.close("noise", kc[2], pc[2], mask=ok)
     sync()
     print(f"kernel C parity: ok, {chk_c.ties} near-tie windows, "
           f"max |err| {chk_c.max_abs_err:.3g}", flush=True)
 
-    # ---- 3. the slice through the kernels --------------------------------
+    # ---- b. the slice through the kernels --------------------------------
     wrappers = {
         "detect": cuda_detect.dechirp_detect,
         "track": cuda_demod.track,
         "payload": cuda_demod.payload_detect,
     }
-    for w in wrappers.values():
-        w.launches = 0
-    dem = api.demodulate(bank, cfg, fused="auto")
+    dem, launches = count_launches(
+        wrappers, lambda: api.demodulate(bank, cfg, fused="auto"), sync)
     dec = api.decode(dem.symbols, cfg)
-    sync()
-    launches = {k: w.launches for k, w in wrappers.items()}
-    print(f"launches in the fused='auto' run: {launches}", flush=True)
+    print(f"launches in the demodulate(fused='auto') run: {launches}",
+          flush=True)
     for k, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {k} was not launched on the path")
@@ -330,7 +453,7 @@ def main() -> int:
               "payloads byte-exact", flush=True)
         del other, dems
 
-    # ---- 4. times ---------------------------------------------------------
+    # ---- c. times ---------------------------------------------------------
     stages = {
         "detect": (
             lambda: cuda_detect.dechirp_detect(win, want_f_index=False),
@@ -348,12 +471,7 @@ def main() -> int:
     }
     ms = {}
     for name, (kern, plain) in stages.items():
-        # plain, kernel, kernel, plain: the two orders cancel drift
-        p1 = timed(plain, sync)
-        k1 = timed(kern, sync)
-        k2 = timed(kern, sync)
-        p2 = timed(plain, sync)
-        ms[name] = (min(k1, k2), min(p1, p2))
+        ms[name] = interleaved(kern, plain, sync)
         print(f"time {name}: kernel {ms[name][0]:.3f} ms, plain "
               f"{ms[name][1]:.3f} ms (B={B}, N={N}) [{card}]", flush=True)
     e2e = {}
@@ -364,6 +482,363 @@ def main() -> int:
         rate = B * T / (e2e[route] * 1e-3) / 1e6
         print(f"time demodulate fused={route!r}: {e2e[route]:.3f} ms, "
               f"{rate:.1f} Msamples/s (B={B}, T={T}) [{card}]", flush=True)
+    checks = {"detect": chk_a, "track": chk_b, "payload": chk_c}
+    return checks, launches, ms
+
+
+def coarse_marginal(v, snr0, pwr, cfg):
+    """Channels [B] of the coarse search [B, W] with a decision within
+    4 * TOL dB of its threshold: a pair's SNR (power less noise, each within
+    TOL) against cfg.thresh, or its score against the 6 dB window of
+    _align_frame (a difference of two such SNRs)."""
+    import torch
+    from lora_tpu_torch.models import demodulator as dm
+
+    agree, pair_snr = dm._coarse(v, snr0, pwr, cfg)
+    score = torch.where(agree, pair_snr, float("-inf"))
+    edge = score.amax(-1, keepdim=True) - 6.0
+    near = ((pair_snr - cfg.thresh).abs() <= 4 * TOL) | (
+        agree & ((score - edge).abs() <= 4 * TOL))
+    return near.any(-1)
+
+
+def scan_parts(what, a, b, occupied):
+    """Channels [B] on which two sync scans from the same starts part
+    (synced, k_sync or freq_error); none may be occupied."""
+    import torch
+
+    part = torch.zeros_like(occupied)
+    for f in ("synced", "k_sync", "freq_error"):
+        part |= a[f] != b[f]
+    if bool((part & occupied).any()):
+        raise AssertionError(f"{what}: the scans part on "
+                             f"{int((part & occupied).sum())} occupied "
+                             "channels")
+    return part
+
+
+def logged(detect, log):
+    """`detect`, recording each call's CFO state, bins and squelch metric
+    (the first window's power less noise) in `log`."""
+
+    def run(x, down=False, ferr=None, want_f_index=True):
+        d = detect(x, down, ferr, want_f_index=want_f_index)
+        log.append((ferr[:, 0].clone(), d.value.clone(),
+                    d.power[:, 0] - d.noise[:, 0]))
+        return d
+
+    return run
+
+
+def first_parting(log_a, log_b, part, thresh):
+    """Where two logged sync scans part: per channel of `part`, the CFO
+    states' drift |ferr_a - ferr_b| (bins) at the first scan step whose
+    bins or squelch decision differ.  -> (drifts [n], channels whose scan
+    steps never differ, so that only the downchirp pair parts them)."""
+    import torch
+
+    f_a, v_a, s_a = (torch.stack(t) for t in zip(*log_a[:-1]))  # [steps, B]
+    f_b, v_b, s_b = (torch.stack(t) for t in zip(*log_b[:-1]))
+    squelch = (s_a < thresh) != (s_b < thresh)
+    differs = ((v_a != v_b).any(-1) | squelch) & part
+    first = torch.argmax(differs.to(torch.int32), dim=0)
+    has = differs.any(0)
+    drift = (f_a - f_b).abs().gather(0, first[None])[0]
+    return drift[has], int((part & ~has).sum())
+
+
+def hold_demod_on_bank(checks, bank, cfg, occupied):
+    """Step 4c: kernels A, B, C against their plain versions on kernel D's
+    config-3 bank [B, M], B and C from the plain route's starts, by the
+    rules of step 3a.  Kernel B's scan runs kernel A's detect routine
+    (csrc/detect.cuh): replayed over kernel A, it must give kernel B's
+    outputs on every channel, with each step's detections held against
+    the plain detector on the same windows and CFO state.  -> (channels
+    whose decisions part, plain track outputs, plain found_pre)."""
+    import torch
+    from lora_tpu_torch.models import demodulator as dm
+    from lora_tpu_torch.ops import cuda_demod, cuda_detect
+    from lora_tpu_torch.ops import detect as det_ops
+
+    N, mtu = cfg.N, cfg.mtu
+    B, M = bank.shape
+    W = M // N
+    chk_a, chk_b, chk_c = checks["detect"], checks["track"], checks["payload"]
+    _, ok = check_detect(chk_a, det_ops, cuda_detect,
+                         bank[:, : W * N].reshape(B, W, N), False, None, False)
+    coarse = dm._coarse_detect(bank, cfg, False)
+    t_cand, t0, fp = dm._align_frame(*coarse, cfg, M)
+    _, t0k, fpk = dm._align_frame(*dm._coarse_detect(bank, cfg, True), cfg, M)
+    moved = (t0k != t0) | (fpk != fp)
+    marginal = ~ok.all(-1) | coarse_marginal(*coarse, cfg)
+    if bool((moved & ~marginal).any()):
+        raise AssertionError("kernel A's coarse search moves a frame start "
+                             "without a near tie")
+
+    def kernel_step(x, down=False, ferr=None, want_f_index=True):
+        return check_detect(chk_a, det_ops, cuda_detect, x, down, ferr,
+                            want_f_index)[0]
+
+    log_k, log_p = [], []
+    trk = cuda_demod.track(bank, t0, cfg.sync, cfg.thresh, N)
+    replay = cuda_demod.track_plain(bank, t0, cfg.sync, cfg.thresh, N,
+                                    detect=logged(kernel_step, log_k))
+    for f in ("synced", "k_sync", "freq_error"):
+        chk_b.equal(f"{f} of the scan over kernel A", replay[f], trk[f])
+    for f in ("fine_total", "power", "snr"):
+        chk_b.close(f"{f} of the scan over kernel A", replay[f], trk[f])
+    trp = cuda_demod.track_plain(bank, t0, cfg.sync, cfg.thresh, N,
+                                 detect=logged(det_ops.dechirp_detect, log_p))
+    part = scan_parts("kernel B", trk, trp, occupied)
+    for f in ("fine_total", "power", "snr"):
+        chk_b.close(f, trk[f], trp[f], mask=occupied)
+    drift, late = first_parting(log_k, log_p, part, cfg.thresh)
+    head, fine = dm._head(trp, cfg, t0, t_cand, fp, M)
+    ds = head.consumed
+    kc = cuda_demod.payload_detect(bank, ds, fine, mtu, N)
+    pc = cuda_demod.payload_detect_plain(bank, ds, fine, mtu, N)
+    ok = chk_c.values(kc[0], pc[0],
+                      payload_spectra(det_ops, bank, ds, fine, N, mtu))
+    chk_c.close("power", kc[1], pc[1], mask=ok)
+    chk_c.close("noise", kc[2], pc[2], mask=ok)
+    print(f"kernels A, B, C on kernel D's bank (B={B}, N={N}): ok, "
+          f"{int(moved.sum())} frame starts moved, {chk_a.ties + chk_c.ties} "
+          f"near-tie windows in all; kernel B equals the plain scan over "
+          f"kernel A on every channel, each step held against the plain "
+          f"detector on the same input.  The scans part on {int(part.sum())} "
+          f"empty channels: {int((drift == 0).sum())} at a step with the "
+          f"same CFO state, {int((drift > 0).sum())} after the states "
+          f"drifted apart (at most "
+          f"{float(drift.max()) if drift.numel() else 0.0:.3g} bins, median "
+          f"{float(drift.median()) if drift.numel() else 0.0:.3g}), {late} "
+          "in the downchirp pair only", flush=True)
+    return part | moved, trp, fp
+
+
+def outcome(api, dem, cfg):
+    """(found [B] as a list, payloads [B]) of a demodulator result."""
+    mtu = cfg.mtu
+    found = dem.found.reshape(-1).tolist()
+    return found, api.extract_payloads(api.decode(
+        dem.symbols.reshape(-1, mtu), cfg))
+
+
+def differing(what, a, b, occupied):
+    """Channels whose found or payload differ between two outcomes; none
+    may be occupied."""
+    out = [i for i in range(len(a[0]))
+           if a[0][i] != b[0][i] or a[1][i] != b[1][i]]
+    if any(occupied[i] for i in out):
+        raise AssertionError(f"{what}: {sum(occupied[i] for i in out)} "
+                             "occupied channels differ in found or payload")
+    return out
+
+
+def config3(torch, dev, card, sync, checks):
+    """Step 4: the config-3 wideband bank.  -> (check, launches, ms)."""
+    from lora_tpu_torch import api
+    from lora_tpu_torch.ops import channelizer as chz
+    from lora_tpu_torch.ops import cuda_channelize, cuda_demod, cuda_detect
+    from lora_tpu_torch.ops import detect as det_ops
+
+    cfg = config3_cfg()
+    N, mtu = cfg.N, cfg.mtu
+    S, K = C3_STREAMS, C3_K
+    M = api.required_samples(cfg)
+    L = 8
+    hist = L * K - 1
+
+    # ---- a. kernel D vs plain --------------------------------------------
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    chk_d = Check("channelize")
+    for k, s in C3_PARITY:
+        x = awgn((s, k * M), 1.0, gen, dev)
+        st = awgn((s, L * k - 1), 1.0, gen, dev)
+        yk, sk = chz.channelize(x, k, state=st)
+        yp, sp = chz.channelize(x, k, state=st, impl="xla")
+        rel = chk_d.close_rel(f"K={k}", yk, yp, D_RTOL)
+        if not torch.equal(sk, sp):
+            raise AssertionError(f"channelize: new_state differs at K={k}")
+        print(f"kernel D parity K={k} S={s} M={M}: max |y_D - y_plain| = "
+              f"{rel:.3g} of max |y_plain|, new_state equal", flush=True)
+        del x, st, yk, yp
+    sync()
+
+    # ---- b. the path through the kernels ---------------------------------
+    wide, payload = make_wideband(api, chz, cfg, S, K, C3_SIGMA, SEED + 11,
+                                  dev)
+    T = wide.shape[1]
+    print(f"wideband: S={S} streams x K={K} channels, T={T} "
+          f"({M} per channel), {S * K // 2} frames on even channels, "
+          f"{wide.numel() * 8 / 1e9:.2f} GB complex64", flush=True)
+    wrappers = {
+        "channelize": cuda_channelize.filterbank,
+        "detect": cuda_detect.dechirp_detect,
+        "track": cuda_demod.track,
+        "payload": cuda_demod.payload_detect,
+    }
+    (dem, _), launches = count_launches(
+        wrappers,
+        lambda: api.channelized_demodulate(wide, K, cfg, fused="auto"),
+        sync)
+    print(f"launches in the channelized_demodulate(fused='auto') run: "
+          f"{launches}", flush=True)
+    for k, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {k} was not launched on the path")
+    if dem.found.shape != (S, K):
+        raise AssertionError(f"found has shape {tuple(dem.found.shape)}")
+    for f in ("power", "snr", "fine_freq"):
+        if not bool(torch.isfinite(getattr(dem, f)).all()):
+            raise AssertionError(f"non-finite {f}")
+    lost = (~dem.found[:, 0::2]).sum().item()
+    if lost:
+        raise AssertionError(f"{lost} of {S * K // 2} frames not found")
+    auto = outcome(api, dem, cfg)
+    got = auto[1]
+    want = payload.cpu().numpy()
+    bad = [(s, k) for s in range(S) for k in range(0, K, 2)
+           if got[s * K + k] != bytes(want[s, k // 2])]
+    if bad:
+        raise AssertionError(f"{len(bad)} of {S * K // 2} payloads not "
+                             f"byte-exact: {bad[:20]}")
+    print(f"path: {S * K // 2}/{S * K // 2} frames found and byte-exact; "
+          f"{int(dem.found[:, 1::2].sum())} of {S * K // 2} empty channels "
+          "report a frame", flush=True)
+
+    # ---- c. against fused="off" ------------------------------------------
+    ref, _ = api.channelized_demodulate(wide, K, cfg, fused="off")
+    plain = outcome(api, ref, cfg)
+    occupied = torch.zeros((S, K), dtype=torch.bool, device=dev)
+    occupied[:, 0::2] = True
+    occupied = occupied.reshape(-1)
+    occ = occupied.tolist()
+    sel = occupied.nonzero().reshape(-1)
+    pick = lambda d, f: getattr(d, f).reshape(S * K, -1)[sel]
+    routes = differing("the routes", auto, plain, occ)  # found and payloads
+    for f in ("t_sync", "consumed", "freq_error"):
+        if not torch.equal(pick(dem, f), pick(ref, f)):
+            raise AssertionError(f"fused='auto' and 'off' differ in {f}")
+    # the routes' banks: kernel D's (the path's) and the plain product's
+    bank = chz.channelize(wide, K)[0].reshape(S * K, M)
+    pbank = chz.channelize(wide, K, impl="xla")[0].reshape(S * K, M)
+    rel = chk_d.close_rel("the path's bank", bank, pbank, D_RTOL)
+    chk_sym = Check("symbols")
+    ds = (pick(ref, "consumed") - pick(ref, "count") * N)[:, 0]
+    chk_sym.values(pick(dem, "symbols"), pick(ref, "symbols"),
+                   payload_spectra(det_ops, pbank[sel], ds,
+                                   pick(ref, "fine_freq")[:, 0], N, mtu))
+    print(f"routes, occupied channels: found, payloads, t_sync, consumed, "
+          f"freq_error equal on {sel.numel()}; symbols equal but for "
+          f"{chk_sym.ties} near-tie windows; the banks differ by {rel:.3g} "
+          "of their max", flush=True)
+    # An empty channel holds its neighbours' transition-band leakage (a
+    # LoRa frame fills its channel and the bank is critically sampled):
+    # partial chirps about 25 dB down, whose spectra sit at near ties.  The
+    # routes part there in two steps: the demod kernels against their
+    # plain versions on kernel D's bank, held decision by decision, and
+    # kernel D's rounding under the plain route, set beside a control: the
+    # plain route against itself with noise of that rounding's rms added.
+    part_k, trp, fp = hold_demod_on_bank(checks, bank, cfg, occupied)
+    n_empty = len(occ) - sum(occ)
+    same_differ = (fp & trp["synced"]) != dem.found.reshape(-1)
+    if bool((same_differ & ~part_k).any()):
+        raise AssertionError("the demod kernels change found where their "
+                             "decisions do not part")
+    if int(same_differ.sum()) > SAME_DIFFER * n_empty:
+        raise AssertionError(f"the demod kernels change found on "
+                             f"{int(same_differ.sum())} empty channels")
+    del trp
+    sigma_d = float((bank - pbank).abs().square().mean().sqrt())
+    plain_on = lambda x: outcome(api, api.demodulate(x, cfg, fused="off"),
+                                 cfg)
+    rounding = differing("kernel D's rounding", plain_on(bank), plain, occ)
+    del bank
+    g = torch.Generator(device=dev).manual_seed(SEED + 12)
+    noisy = pbank + awgn(pbank.shape, sigma_d / math.sqrt(2), g, dev)
+    del pbank
+    control = differing("the control", plain_on(noisy), plain, occ)
+    del noisy
+    for i in range(len(occ)):
+        if occ[i]:
+            continue
+        s, k = divmod(i, K)
+        allowed = {None, b"", bytes(want[s, (k - 1) // 2]),
+                   bytes(want[s, (k + 1) % K // 2])}
+        if got[i] not in allowed or plain[1][i] not in allowed:
+            raise AssertionError(f"empty channel {k} of stream {s} decodes "
+                                 f"{got[i]!r} / {plain[1][i]!r}")
+    for what, n in (("the routes differ", len(routes)),
+                    ("kernel D's rounding changes the plain route",
+                     len(rounding))):
+        if n > EMPTY_DIFFER * n_empty:
+            raise AssertionError(f"{what} on {n} of {n_empty} empty channels")
+    print(f"routes, empty channels: {len(routes)} of {n_empty} differ in "
+          f"found or payload (bound {EMPTY_DIFFER * n_empty:.0f}).  The demod "
+          f"kernels on kernel D's bank change found on "
+          f"{int(same_differ.sum())} (bound {SAME_DIFFER * n_empty:.0f}), "
+          f"each where a decision parts; kernel D's rounding (rms "
+          f"{sigma_d:.3g}) changes the plain route on {len(rounding)}; noise "
+          f"of that rms on the plain bank changes it on {len(control)} "
+          "(control).  None decodes a payload other than a neighbour's",
+          flush=True)
+    del ref
+
+    # ---- d. times ---------------------------------------------------------
+    xp = torch.cat([wide.new_zeros((S, hist)), wide], -1)
+    ms = interleaved(lambda: cuda_channelize.filterbank(xp, K, L, M),
+                     lambda: cuda_channelize.filterbank_plain(xp, K, L, M),
+                     sync)
+    print(f"time channelize: kernel {ms[0]:.3f} ms, plain {ms[1]:.3f} ms "
+          f"(S={S}, K={K}, M={M}) [{card}]", flush=True)
+    del xp
+    e2e = {}
+    for route in ("off", "auto", "auto", "off"):
+        t_ms = timed(lambda: api.channelized_demodulate(wide, K, cfg,
+                                                        fused=route), sync)
+        e2e[route] = min(e2e.get(route, t_ms), t_ms)
+    for route in ("auto", "off"):
+        rate = S * T / (e2e[route] * 1e-3) / 1e6
+        peak = peak_above(
+            lambda: api.channelized_demodulate(wide, K, cfg, fused=route),
+            sync)
+        print(f"time channelized_demodulate fused={route!r}: "
+              f"{e2e[route]:.3f} ms, {rate:.1f} wide Msamples/s, "
+              f"{S * K} channels, peak {peak:.2f} GB above the "
+              f"{wide.numel() * 8 / 1e9:.2f} GB input (S={S}, T={T}) "
+              f"[{card}]", flush=True)
+    return chk_d, launches, ms
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device; the port's kernels "
+                         "run only on the card")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, repo)
+    from lora_tpu_torch.ops import _cuda
+
+    card = card_line()
+    print(card, flush=True)
+    dev = torch.device("cuda", 0)
+    sync = torch.cuda.synchronize
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+
+    # ---- 2. build ----------------------------------------------------------
+    t = time.perf_counter()
+    _cuda.library()
+    print(f"build: {time.perf_counter() - t:.1f} s "
+          f"({_cuda.library_path().name})", flush=True)
+
+    checks, launches, ms = flagship(torch, dev, card, sync)
+    torch.cuda.empty_cache()
+    checks["channelize"], c3_launches, ms["channelize"] = config3(
+        torch, dev, card, sync, checks)
+    for k, n in c3_launches.items():  # both paths' runs
+        launches[k] = launches.get(k, 0) + n
 
     sources = {
         "detect": ("lora_tpu_torch/csrc/detect.cu",
@@ -375,8 +850,10 @@ def main() -> int:
                     "lora_tpu/ops/pallas_demod.py:465, "
                     "lora_tpu/ops/pallas_demod.py:792, "
                     "lora_tpu/ops/pallas_demod.py:627"),
+        "channelize": ("lora_tpu_torch/csrc/channelize.cu",
+                       "lora_tpu/ops/pallas_channelize.py:376, "
+                       "lora_tpu/ops/pallas_channelize.py:187"),
     }
-    checks = {"detect": chk_a, "track": chk_b, "payload": chk_c}
     kernels = [
         {
             "name": name,
@@ -388,7 +865,7 @@ def main() -> int:
             "ms": ms[name][0],
             "plain_ms": ms[name][1],
         }
-        for name in ("detect", "track", "payload")
+        for name in ("detect", "track", "payload", "channelize")
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

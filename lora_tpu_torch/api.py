@@ -1,7 +1,10 @@
 """Top-level PHY API of the port: encode / modulate / demodulate / decode
-(lora_tpu/api.py, hard-decision single-frame slice)."""
+and the wideband front end channelized_demodulate (lora_tpu/api.py,
+hard-decision single-frame slice)."""
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -9,9 +12,13 @@ import torch
 from lora_tpu.config import LoRaConfig
 
 from .models.decoder import OK, STATUS_NAMES, DecodeResult, decode
-from .models.demodulator import DemodResult, demodulate, required_samples
+from .models.demodulator import (DemodResult, check_options, demodulate,
+                                 required_samples)
 from .models.encoder import encode
 from .models.modulator import modulate
+from .ops import channelizer as chz
+from .ops import cplx
+from .roadmap import not_ported
 
 __all__ = [
     "LoRaConfig",
@@ -25,6 +32,7 @@ __all__ = [
     "OK",
     "STATUS_NAMES",
     "extract_payloads",
+    "channelized_demodulate",
     "loopback",
 ]
 
@@ -45,18 +53,51 @@ def extract_payloads(result: DecodeResult) -> list[bytes | None]:
     return out
 
 
+def channelized_demodulate(wide, K: int, cfg: LoRaConfig,
+                           taps_per_phase: int = 8, max_frames: int = 1,
+                           state=None, fused: str = "auto",
+                           spectra: bool = False):
+    """Wideband front end (BASELINE.json config 3): polyphase-channelize
+    [S, T] (or [T]) at rate K*BW into K channels and demodulate every
+    channel.  Returns (DemodResult with leading [S, K] axes, or [K] for a
+    1-D input; the channelizer state [S, taps_per_phase*K - 1] to pass as
+    `state` with the next block).
+
+    fused="auto" runs kernel D then the demod kernels for a CUDA tensor,
+    and their plain versions for a CPU tensor; "off" runs the plain
+    channelizer and demodulator on any device."""
+    if spectra:
+        raise not_ported("spectra=True", 14)
+    check_options(max_frames=max_frames, fused=fused)
+    wide = cplx.as_iq(wide)
+    squeeze = wide.dim() == 1
+    wb = wide[None] if squeeze else wide
+    y, new_state = chz.channelize(
+        wb, K, taps_per_phase, state=state,
+        impl="auto" if fused == "auto" else "xla")
+    S, _, M = y.shape
+    dem = demodulate(y.reshape(S * K, M), cfg, fused=fused)
+    lead = (K,) if squeeze else (S, K)
+
+    def split(t):  # [S*K, ...] -> [*lead, ...]
+        return None if t is None else t.reshape(*lead, *t.shape[1:])
+
+    dem = DemodResult(**{f.name: split(getattr(dem, f.name))
+                         for f in dataclasses.fields(dem)})
+    return dem, new_state
+
+
 def loopback(payload, cfg: LoRaConfig, noise_amplitude: float = 0.0,
              phase: float = 0.0, cfo_bins: float = 0.0, delay: int = 0,
-             seed: int = 0, device=None, fused: str = "auto",
-             soft: bool = False):
+             seed: int = 0, debug: bool = False, device=None,
+             fused: str = "auto", soft: bool = False):
     """encode -> modulate -> channel -> demodulate -> decode on `device`.
     payload uint8 [B, L] (or [L]).  Returns (DecodeResult, DemodResult)."""
     from .sim import channel as ch
 
     if soft:
-        raise NotImplementedError(
-            "soft=True is not ported yet (ROADMAP.md, queue 1: soft-decision "
-            "RX)")
+        raise not_ported("soft=True", 14)
+    check_options(debug=debug, fused=fused)
     payload = torch.atleast_2d(torch.as_tensor(payload, dtype=torch.uint8,
                                                device=device))
     iq = modulate(encode(payload, cfg), cfg)

@@ -30,6 +30,7 @@ from ..ops import cuda_demod, cuda_detect
 from ..ops import detect as det_ops
 from ..ops.cuda_demod import trunc_half
 from ..ops.tables import TRACK_ROWS, payload_rows
+from ..roadmap import not_ported
 
 
 @dataclasses.dataclass
@@ -178,10 +179,18 @@ def _payload_epilogue(head: DemodResult, value, power, noise, t0,
                                consumed=consumed.to(torch.int32))
 
 
-_NOT_IN_SLICE = (
-    "{} is not ported yet (ROADMAP.md, queue 1: {}); the port runs "
-    "max_frames=1, hard decisions, fused='auto' or 'off'"
-)
+def check_options(max_frames: int = 1, debug: bool = False,
+                  spectra: bool = False, fused: str = "auto") -> None:
+    """Raise for an option outside the port's slice: it runs
+    max_frames=1, hard decisions, fused='auto' or 'off'."""
+    if max_frames != 1:
+        raise not_ported("max_frames > 1", 11)
+    if debug:
+        raise not_ported("debug=True", 12)
+    if spectra:
+        raise not_ported("spectra=True", 14)
+    if fused not in ("auto", "off"):
+        raise not_ported(f"fused={fused!r}", 13)
 
 
 def demodulate(x, cfg: LoRaConfig, debug: bool = False, max_frames: int = 1,
@@ -192,18 +201,7 @@ def demodulate(x, cfg: LoRaConfig, debug: bool = False, max_frames: int = 1,
 
     fused="auto" runs the CUDA kernels for a CUDA tensor and their plain
     versions for a CPU tensor; "off" runs the plain versions anywhere."""
-    if max_frames != 1:
-        raise NotImplementedError(
-            _NOT_IN_SLICE.format("max_frames > 1", "multi-frame tracking"))
-    if debug:
-        raise NotImplementedError(
-            _NOT_IN_SLICE.format("debug=True", "debug taps"))
-    if spectra:
-        raise NotImplementedError(
-            _NOT_IN_SLICE.format("spectra=True", "soft-decision RX"))
-    if fused not in ("auto", "off"):
-        raise NotImplementedError(_NOT_IN_SLICE.format(
-            f"fused={fused!r}", "bf16 and interpret routes"))
+    check_options(max_frames, debug, spectra, fused)
     use_kernels = fused == "auto"
     x = cplx.as_iq(x)
     squeeze = x.dim() == 1

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (csrc/*.cu).
 
-The sources are compiled with nvcc for sm_90a into one shared library with
-a plain C interface, at first use, under build/lora_tpu_torch/ at the root
+The sources are compiled with nvcc for sm_90a (one process per source, all
+started together) and linked into one shared library with a plain C
+interface, at first use, under build/lora_tpu_torch/ at the root
 of the checkout, and loaded with ctypes.  The library's name carries a hash
 of the sources and flags, so an edited source is rebuilt.  Nothing here
 runs at import time: the CPU tests import every module of the port.
@@ -27,12 +28,12 @@ from .chirp import dechirp_table
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "lora_tpu_torch"
-SOURCES = ("detect.cu", "track.cu", "payload.cu")
+SOURCES = ("detect.cu", "track.cu", "payload.cu", "channelize.cu")
 HEADERS = ("detect.cuh",)
 # no --use_fast_math: full-precision sincosf/log10f/sqrtf keep the dB values
 # and the derotation on the plain version's float32 rounding
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -45,6 +46,8 @@ _ARGTYPES = {
                    _P, _P, _P, _P, _P, _P, _P],
     "lora_payload": [_P, _L, _L, _L, _I, _I, _P, _P, _P, _P, _F, _F, _P, _P,
                      _P, _P],
+    "lora_channelize": [_P, _L, _L, _I, _I, _L, _P, _P, _P, _P],
+    "lora_channelize_tile": [_I, _I],
 }
 
 
@@ -66,8 +69,21 @@ def library_path() -> pathlib.Path:
     return BUILD_DIR / f"liblora_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_together(cmds) -> None:
+    """Start every nvcc command at once and wait for all; raise with the
+    output of the first that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for cmd, p, (out, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): "
+                               f"{' '.join(cmd)}\n{out}{err}")
+
+
 def build() -> pathlib.Path:
-    """Compile the kernels unless the library for these sources exists."""
+    """Compile the kernels unless the library for these sources exists: one
+    nvcc per source, all started together, then one link."""
     so = library_path()
     if so.exists():
         return so
@@ -75,13 +91,12 @@ def build() -> pathlib.Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-            )
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
+            objs = [os.path.join(objdir, s + ".o") for s in SOURCES]
+            _run_together([[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(CSRC / s)]
+                           for s, o in zip(SOURCES, objs)])
+            _run_together([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
         os.replace(tmp, so)  # atomic: concurrent builders never see half a file
     finally:
         if os.path.exists(tmp):

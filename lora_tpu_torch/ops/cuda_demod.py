@@ -36,10 +36,15 @@ def _signed(v: torch.Tensor, N: int) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 def track_plain(x: torch.Tensor, t0: torch.Tensor, sync: int, thresh: float,
-                N: int) -> dict:
+                N: int, detect=det_ops.dechirp_detect) -> dict:
     """Sync scan + downchirp CFO from aligned starts t0 [B] in buffers
     x [B, T] (t0 <= T - TRACK_ROWS*N).  Returns synced, k_sync, freq_error,
-    fine_total, power, snr [B] (lora_tpu/models/demodulator.py:198-278)."""
+    fine_total, power, snr [B] (lora_tpu/models/demodulator.py:198-278).
+
+    `detect` is the detector of each step's window pair and of the
+    downchirp pair, called as detect(windows [B, 2, N], down=, ferr=,
+    want_f_index=); kernel A's wrapper (cuda_detect.dechirp_detect) runs
+    the scan over kernel B's own detect routine."""
     B = x.shape[0]
     dev = x.device
     t0 = t0.to(torch.int64)
@@ -53,7 +58,7 @@ def track_plain(x: torch.Tensor, t0: torch.Tensor, sync: int, thresh: float,
     prev_q = torch.full((B,), 999, dtype=torch.int32, device=dev)
     k_sync = torch.zeros(B, dtype=torch.int32, device=dev)
     for k in range(N_SCAN):
-        d2 = det_ops.dechirp_detect(xs[:, k : k + 2], ferr=ferr[:, None])
+        d2 = detect(xs[:, k : k + 2], down=False, ferr=ferr[:, None])
         squelched = (d2.power[:, 0] - d2.noise[:, 0]) < thr
         q = (d2.value[:, 0] + 4) // 8
         q1 = (d2.value[:, 1] + 4) // 8
@@ -70,8 +75,7 @@ def track_plain(x: torch.Tensor, t0: torch.Tensor, sync: int, thresh: float,
         prev_q = torch.where(searching, q, prev_q)
     idx = k_sync.long()[:, None] + torch.arange(2, 4, device=dev)
     rows_dc = torch.take_along_dim(xs, idx[:, :, None], dim=1)
-    ddc = det_ops.dechirp_detect(rows_dc, down=True, ferr=ferr[:, None],
-                                 want_f_index=False)
+    ddc = detect(rows_dc, down=True, ferr=ferr[:, None], want_f_index=False)
     freq_error = trunc_half(_signed(ddc.value[:, 0], N)
                             + _signed(ddc.value[:, 1], N)).to(torch.int32)
     return {

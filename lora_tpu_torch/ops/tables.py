@@ -1,7 +1,8 @@
 """Constant tables of the PHY, in numpy only.
 
 The JAX package builds these tables inside modules that import jax
-(`lora_tpu/ops/codes.py`, `chirp.py`, `fft.py`, `pallas_demod.py`); the port
+(`lora_tpu/ops/codes.py`, `chirp.py`, `fft.py`, `pallas_demod.py`,
+`channelizer.py`, `pallas_channelize.py`); the port
 rebuilds the same values here so that neither it nor the machines it runs on
 need jax.  The scalar bit-level codecs come from `lora_tpu/ops/_bitref.py`,
 which is pure Python, loaded by file path: importing it through its package
@@ -187,3 +188,80 @@ def payload_rows(N: int, mtu: int) -> int:
     if flat is not None:
         return flat[0]
     return payload_geometry(N, mtu)[2]
+
+
+# --------------------------------------------------------------------------
+# polyphase channelizer constants (lora_tpu/ops/channelizer.py:38-140,
+# pallas_channelize.py:263-293)
+# --------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def prototype(K: int, taps_per_phase: int = 8, beta: float = 8.0) -> np.ndarray:
+    """Kaiser lowpass prototype, length K*taps_per_phase, passband 0.5/K
+    of the wideband rate, unit DC gain per channel."""
+    L = K * taps_per_phase
+    n = np.arange(L) - (L - 1) / 2
+    h = np.sinc(n / K) * np.kaiser(L, beta)
+    return (h / h.sum()).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def idft_k(K: int) -> tuple[np.ndarray, np.ndarray]:
+    """(cos, sin) float32 [K, K] of e^{+2 pi i p k / K}, rounded from
+    float64."""
+    p = np.arange(K)
+    ang = 2 * np.pi / K * np.outer(p, p)
+    return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def fir_idft_matrix(K: int, taps_per_phase: int,
+                    G: int) -> tuple[np.ndarray, np.ndarray]:
+    """[(L+G-1)*K, G*K] analysis-bank matrix giving G consecutive channel
+    samples per grouped row: WB[(r, p), (j, k)] = H[j+L-1-r, p] * W[p, k]
+    for 0 <= j+L-1-r < L."""
+    L = taps_per_phase
+    H = prototype(K, taps_per_phase).reshape(L, K).astype(np.float64)
+    wre, wim = idft_k(K)
+    W = wre.astype(np.float64) + 1j * wim.astype(np.float64)  # [p, k]
+    R = L + G - 1
+    wb = np.zeros((R, K, G, K), np.complex128)
+    for r in range(R):
+        for j in range(G):
+            l = j + L - 1 - r
+            if 0 <= l < L:
+                wb[r, :, j, :] = H[l][:, None] * W
+    wb = wb.reshape(R * K, G * K)
+    return wb.real.astype(np.float32), wb.imag.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def fir_dft_syn_matrix(K: int, taps_per_phase: int,
+                       G: int) -> tuple[np.ndarray, np.ndarray]:
+    """[(L+G-1)*K, G*K] synthesis-bank matrix giving G*K consecutive
+    wideband samples per grouped row of channel samples:
+    WS[(r, k), (j, p)] = E[k, p] * K*h[(j-r+L-1)*K + p] for
+    0 <= j-r+L-1 < L."""
+    L = taps_per_phase
+    Gh = (prototype(K, taps_per_phase).astype(np.float64) * K).reshape(L, K)
+    ere, eim = idft_k(K)
+    E = ere.astype(np.float64) + 1j * eim.astype(np.float64)  # [k, p]
+    R = L + G - 1
+    ws = np.zeros((R, K, G, K), np.complex128)
+    for r in range(R):
+        for j in range(G):
+            l = j - r + L - 1
+            if 0 <= l < L:
+                ws[r, :, j, :] = E * Gh[l][None, :]
+    ws = ws.reshape(R * K, G * K)
+    return ws.real.astype(np.float32), ws.imag.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def fir_taps_flipped(K: int, taps_per_phase: int) -> np.ndarray:
+    """float32 [L, K] polyphase taps with the commutator's lane flip folded
+    in: hp[l, q] = h[l*K + K-1-q] (the `hp` rows of
+    pallas_channelize._fir_idft_consts, without its zero padding)."""
+    H = prototype(K, taps_per_phase).reshape(taps_per_phase, K)
+    return np.ascontiguousarray(H[:, ::-1])

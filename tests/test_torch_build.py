@@ -4,6 +4,7 @@ argument checks refuse what the kernels do not take, and the constants
 the kernels receive are the plain version's."""
 
 import math
+import sys
 
 import numpy as np
 import pytest
@@ -33,6 +34,55 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
         _cuda.build()
     # the failed build leaves no half-written library behind
     assert list(tmp_path.rglob("*.so")) == []
+
+
+FAKE_NVCC = """#!{python}
+import sys
+args = sys.argv[1:]
+with open({log!r}, "a") as f:
+    f.write(" ".join(args) + "\\n")
+if {fail!r} and any(a.endswith({fail!r}) for a in args):
+    sys.exit("nvcc: error in " + {fail!r})
+with open(args[args.index("-o") + 1], "w") as f:
+    f.write("object")
+"""
+
+
+def fake_nvcc(tmp_path, fail=""):
+    log = tmp_path / "calls.txt"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(FAKE_NVCC.format(python=sys.executable, log=str(log),
+                                     fail=fail))
+    nvcc.chmod(0o755)
+    return str(nvcc), log
+
+
+def test_build_compiles_each_source_then_links(monkeypatch, tmp_path):
+    nvcc, log = fake_nvcc(tmp_path)
+    monkeypatch.setattr(_cuda, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_cuda, "_nvcc", lambda: nvcc)
+    so = _cuda.build()
+    assert so.exists() and so.parent == tmp_path / "build"
+    calls = [c.split() for c in log.read_text().splitlines()]
+    compiles, link = calls[:-1], calls[-1]
+    assert "channelize.cu" in _cuda.SOURCES
+    assert sorted(c[-1].rsplit("/", 1)[-1] for c in compiles) == \
+        sorted(_cuda.SOURCES)
+    assert all("-c" in c and "-shared" not in c for c in compiles)
+    assert "-shared" in link
+    assert sorted(link[link.index("-o") + 2:]) == sorted(
+        c[c.index("-o") + 1] for c in compiles)
+    assert _cuda.build() == so  # built once per set of sources
+
+
+def test_failed_compile_raises_with_its_output(monkeypatch, tmp_path):
+    nvcc, _ = fake_nvcc(tmp_path, fail="channelize.cu")
+    monkeypatch.setattr(_cuda, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_cuda, "_nvcc", lambda: nvcc)
+    with pytest.raises(RuntimeError, match="error in channelize.cu"):
+        _cuda.build()
+    assert list((tmp_path / "build").rglob("*.so")) == []
+    assert list((tmp_path / "build").rglob("*.o")) == []
 
 
 @pytest.mark.parametrize("N", [32, 100, 8192])

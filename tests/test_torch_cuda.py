@@ -1,6 +1,6 @@
-"""The port's three CUDA kernels against their plain PyTorch versions on the
-card, at small shapes and at every window size the kernels take, plus the
-whole demodulator on both routes.  Marked `cuda`: each test asks the `dev`
+"""The port's CUDA kernels against their plain PyTorch versions on the card,
+at small shapes and at every window size or channel count the kernels
+take, plus the demodulator and the channelized front end on both routes.  Marked `cuda`: each test asks the `dev`
 fixture for the card and skips without one (the kernels have no CPU mode).
 The machine with the card has no jax, and tests/conftest.py imports it, so
 run them there without the conftest:
@@ -9,7 +9,9 @@ run them there without the conftest:
 
 Integer outputs must be equal; dB values, f_index and fine_total agree
 within 1e-3 (float32 FFTs of another order).  The inputs are tones and
-chirps with clear peaks, so no window sits on a near tie.
+chirps with clear peaks, so no window sits on a near tie.  Kernel D's
+channels agree with the plain block-Toeplitz product within 1e-4 of the
+largest output (float32 sums over 8K terms in another order).
 """
 
 import numpy as np
@@ -20,7 +22,8 @@ import lora_tpu
 from lora_tpu_torch import api
 from lora_tpu_torch.models import demodulator as dm
 from lora_tpu_torch.models import modulator as tmod
-from lora_tpu_torch.ops import cuda_demod, cuda_detect, tables
+from lora_tpu_torch.ops import channelizer as chz
+from lora_tpu_torch.ops import cuda_channelize, cuda_demod, cuda_detect, tables
 from lora_tpu_torch.ops import detect as det_ops
 
 pytestmark = pytest.mark.cuda
@@ -28,6 +31,7 @@ pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
 
 TOL = 1e-3
+D_RTOL = 1e-4
 
 
 @pytest.fixture
@@ -201,3 +205,123 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
                                      device=dev), t0, 0x12, -10.0, 64)
     with pytest.raises(ValueError):  # one data_start per channel
         cuda_demod.payload_detect(x, t0[:3], torch.zeros(4, device=dev), 2, 64)
+
+
+def crandn(rng, shape, dev):
+    x = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+    return torch.as_tensor(x.astype(np.complex64), device=dev)
+
+
+@pytest.mark.parametrize("K", [16, 32, 64, 128, 192, 256])
+@pytest.mark.parametrize("L", [4, 8, 12])
+def test_channelize_kernel_matches_plain(dev, K, L):
+    """Kernel D against the plain product with a random state, over a tile
+    seam and a ragged last tile, for one and three streams."""
+    rng = np.random.default_rng(K * 100 + L)
+    M = 2 * cuda_channelize.tile_m(K, L) + 5
+    for S in (1, 3):
+        x = crandn(rng, (S, K * M), dev)
+        st = crandn(rng, (S, L * K - 1), dev)
+        before = cuda_channelize.filterbank.launches
+        y, s = chz.channelize(x, K, L, state=st)
+        torch.cuda.synchronize()
+        assert cuda_channelize.filterbank.launches == before + 1
+        yp, sp = chz.channelize(x, K, L, state=st, impl="xla")
+        assert y.shape == (S, K, M) and y.is_contiguous()
+        assert torch.equal(s, sp)
+        err = (y - yp).abs().max().item()
+        assert err <= D_RTOL * yp.abs().max().item(), (S, err)
+
+
+def test_channelize_tile_fits_every_width(dev):
+    """The kernel's own tile choice: a power of two in [2, 512] for every
+    width from 8 to 1024 channels; none for 4096."""
+    for L in (4, 8, 12):
+        for K in range(8, 1025, 8):
+            TM = cuda_channelize.tile_m(K, L)
+            assert TM & (TM - 1) == 0 and 2 <= TM <= 512, (K, L, TM)
+    assert cuda_channelize.tile_m(64, 8) == 64
+    assert cuda_channelize.tile_m(16, 8) == 256
+    with pytest.raises(ValueError, match="no tile fits"):
+        cuda_channelize.tile_m(4096, 8)
+
+
+def test_channelize_kernel_streaming_continuity(dev):
+    """Two chunks through the kernel with carried state equal one shot."""
+    rng = np.random.default_rng(9)
+    K, M = 64, 200
+    x = crandn(rng, (2, K * M), dev)
+    y_full, s_full = chz.channelize(x, K)
+    y1, st = chz.channelize(x[:, : K * M // 2], K)
+    y2, s2 = chz.channelize(x[:, K * M // 2 :], K, state=st)
+    assert (torch.cat([y1, y2], -1) - y_full).abs().max().item() <= 1e-6
+    assert torch.equal(s2, s_full)
+
+
+def test_channelized_demodulate_routes_agree_on_card(dev):
+    """fused='auto' (kernels D, A, B, C, one launch each) against
+    fused='off' on a 16-channel grid with a frame on every even channel:
+    frame fields equal, payloads byte-exact."""
+    rng = np.random.default_rng(10)
+    K = 16
+    cfg = lora_tpu.LoRaConfig(sf=7, cr="4/8", ampl=1.0)
+    cfg = cfg.replace(mtu=cfg.num_symbols(16) + 2)
+    N, M = cfg.N, api.required_samples(cfg)
+    S = 2
+    payload = rng.integers(0, 256, (S, K // 2, 16)).astype(np.uint8)
+    frames = api.modulate(api.encode(payload.reshape(-1, 16), cfg), cfg)
+    frames = frames.numpy().reshape(S, K // 2, -1)
+    u = np.zeros((S, K, M), np.complex64)
+    for s in range(S):
+        for i in range(K // 2):
+            d = int(rng.integers(0, N))
+            u[s, 2 * i, d : d + frames.shape[-1]] = frames[s, i, : M - d]
+    cfo = rng.integers(-2, 3, (S, K, 1)) + rng.uniform(-0.4, 0.4, (S, K, 1))
+    u *= np.exp(2j * np.pi * cfo * np.arange(M) / N)
+    wide, _ = chz.synthesize(torch.as_tensor(u, device=dev))
+    wide = wide + 0.01 * crandn(rng, wide.shape, dev)
+    wrappers = (cuda_channelize.filterbank, cuda_detect.dechirp_detect,
+                cuda_demod.track, cuda_demod.payload_detect)
+    before = [w.launches for w in wrappers]
+    auto, _ = api.channelized_demodulate(wide, K, cfg, fused="auto")
+    assert [w.launches - n for w, n in zip(wrappers, before)] == [1] * 4
+    off, _ = api.channelized_demodulate(wide, K, cfg, fused="off")
+    assert auto.found.shape == (S, K)
+    assert bool(auto.found[:, 0::2].all())
+    for f in ("found", "symbols", "count", "t_sync", "consumed", "freq_error",
+              "payload_complete"):
+        assert torch.equal(getattr(auto, f), getattr(off, f)), f
+    for f in ("power", "snr", "fine_freq"):
+        d = (getattr(auto, f) - getattr(off, f)).abs().max().item()
+        assert d <= TOL, (f, d)
+    got = api.extract_payloads(api.decode(auto.symbols.reshape(-1, cfg.mtu),
+                                          cfg))
+    assert got == api.extract_payloads(
+        api.decode(off.symbols.reshape(-1, cfg.mtu), cfg))
+    for s in range(S):
+        for i in range(K // 2):
+            assert got[s * K + 2 * i] == bytes(payload[s, i]), (s, i)
+
+
+def test_out_of_slice_options_raise_on_card(dev):
+    cfg = lora_tpu.LoRaConfig(sf=7, mtu=8)
+    wide = torch.zeros((1, 16 * api.required_samples(cfg)),
+                       dtype=torch.complex64, device=dev)
+    for kw, item in ((dict(spectra=True), 14), (dict(max_frames=2), 11),
+                     (dict(fused="bf16"), 13)):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md item {item}"):
+            api.channelized_demodulate(wide, 16, cfg, **kw)
+    for kw in (dict(bf16=True), dict(impl="fir-interpret"),
+               dict(impl="pallas-interpret")):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md item 13"):
+            chz.channelize(wide, 16, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item 12"):
+        api.loopback(np.zeros(4, np.uint8), cfg, debug=True, device=dev)
+    # a width kernel D does not take raises; it never takes the plain route
+    with pytest.raises(ValueError, match="no tile fits"):
+        chz.channelize(torch.zeros((1, 4096 * 4), dtype=torch.complex64,
+                                   device=dev), 4096)
+    with pytest.raises(TypeError):
+        cuda_channelize.filterbank(wide.real.contiguous(), 16, 8, 8)
+    with pytest.raises(ValueError):  # fewer samples than (M + L - 1) * K
+        cuda_channelize.filterbank(wide[:, :100], 16, 8, 8)

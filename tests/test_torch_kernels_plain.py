@@ -150,6 +150,35 @@ def test_plain_track_matches_pallas(entry):
     _assert_track_close(routed, want)
 
 
+def test_plain_track_over_another_detector():
+    """The scan calls its detector once per step on the step's window pair
+    and once on the downchirp pair, with the CFO state it carries; kernel
+    A's wrapper (the plain detector on the CPU) gives the same scan."""
+    N, B, W = 128, 8, 32
+    cfg, x, t0 = _track_bank(np.random.default_rng(9), N, B, W)
+    x, t0 = torch.as_tensor(x), torch.as_tensor(t0)
+    calls = []
+
+    def detect(w, down=False, ferr=None, want_f_index=True):
+        calls.append((tuple(w.shape), down, ferr.clone(), want_f_index))
+        return tdet.dechirp_detect(w, down, ferr, want_f_index=want_f_index)
+
+    want = cuda_demod.track_plain(x, t0, cfg.sync, -12.0, N)
+    got = cuda_demod.track_plain(x, t0, cfg.sync, -12.0, N, detect=detect)
+    routed = cuda_demod.track_plain(x, t0, cfg.sync, -12.0, N,
+                                    detect=cuda_detect.dechirp_detect)
+    for k, v in want.items():
+        assert torch.equal(got[k], v) and torch.equal(routed[k], v), k
+    assert len(calls) == tables.N_SCAN + 1
+    assert all(c[:2] == ((B, 2, N), False) and c[3] for c in calls[:-1])
+    assert calls[-1][1] and not calls[-1][3]
+    assert torch.equal(calls[0][2], torch.zeros(B, 1))
+    torch.testing.assert_close(calls[-1][2][:, 0],
+                               want["fine_total"] - torch.div(
+                                   want["freq_error"], 2,
+                                   rounding_mode="trunc").float())
+
+
 # --------------------------------------------------------------------------
 # kernel C
 # --------------------------------------------------------------------------

@@ -14,6 +14,8 @@ from lora_tpu_torch import api
 for m in pkgutil.walk_packages(lora_tpu_torch.__path__, "lora_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
+for name in ("ops.channelizer", "ops.cuda_channelize", "roadmap"):
+    assert "lora_tpu_torch." + name in sys.modules, name
 bad = sorted(k for k in sys.modules if k == "jax" or k.startswith("jax."))
 assert not bad, bad
 print("NO_JAX_OK")

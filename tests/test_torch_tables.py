@@ -11,14 +11,16 @@ import torch
 
 import lora_tpu
 from lora_tpu.models import demodulator as jdemod
+from lora_tpu.ops import channelizer as jchz
 from lora_tpu.ops import chirp as jchirp
 from lora_tpu.ops import codes as jcodes
 from lora_tpu.ops import fft as jfft
+from lora_tpu.ops import pallas_channelize as jpc
 from lora_tpu.ops import pallas_demod
 
 from lora_tpu_torch.models import demodulator as tdemod
 from lora_tpu_torch.models.encoder import encode
-from lora_tpu_torch.ops import chirp, codes, cplx, detect, tables
+from lora_tpu_torch.ops import chirp, codes, cplx, cuda_channelize, detect, tables
 
 torch.set_num_threads(1)
 
@@ -94,6 +96,33 @@ def test_geometry_helpers_equal_jax():
                 pallas_demod.payload_flat_geometry(N, mtu)
             assert tables.payload_rows(N, mtu) == \
                 pallas_demod.payload_rows(N, mtu)
+
+
+@pytest.mark.parametrize("K", [16, 32, 64, 128, 192])
+def test_channelizer_tables_equal_jax(K):
+    """Prototype, IDFT, analysis and synthesis matrices and the kernel's
+    flip-folded taps, bit for bit (lora_tpu/ops/channelizer.py:38-140,
+    pallas_channelize.py:263-293)."""
+    for L in (4, 8):
+        np.testing.assert_array_equal(tables.prototype(K, L),
+                                      jchz.prototype(K, L))
+    for mine, theirs in zip(tables.idft_k(K), jchz._idft_k(K)):
+        np.testing.assert_array_equal(mine, theirs)
+    for G in (1, 8):
+        for mine, theirs in zip(tables.fir_idft_matrix(K, 8, G),
+                                jchz._fir_idft_matrix(K, 8, G)):
+            np.testing.assert_array_equal(mine, theirs)
+        for mine, theirs in zip(tables.fir_dft_syn_matrix(K, 8, G),
+                                jchz._fir_dft_syn_matrix(K, 8, G)):
+            np.testing.assert_array_equal(mine, theirs)
+    hp, _ = jpc._fir_idft_consts(K, 8)
+    np.testing.assert_array_equal(tables.fir_taps_flipped(K, 8), hp)
+    # kernel D's constants: those taps, and row 1 of the IDFT table
+    taps, wk = cuda_channelize.consts(K, 8, torch.device("cpu"))
+    np.testing.assert_array_equal(taps.numpy(), hp)
+    wre, wim = jchz._idft_k(K)
+    np.testing.assert_array_equal(wk.real.numpy(), wre[1])
+    np.testing.assert_array_equal(wk.imag.numpy(), wim[1])
 
 
 @pytest.mark.parametrize("sf", range(6, 13))
