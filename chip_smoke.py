@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main paths once on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
 1. Refuses to run without a CUDA device; prints the card's name and power
    limit as nvidia-smi reports them.
@@ -51,11 +51,45 @@
       differ on an occupied channel;
    d. times kernel D against its plain version and the path on both
       routes, with the peak device memory above the input.
+5. The receive options on the flagship bank (4096 channels, SF10, mtu 68):
+   a. holds kernel E (the sub-window shift) against its plain version,
+      bit-equal (it is a copy), at the payload geometry (mtu + 1 rows, the
+      bank's own data starts, with r = 0, 1 and N - 1 among them) and at
+      the track geometry (18 rows, 17 windows), and times it against
+      torch.take_along_dim over the same windows;
+   b. holds kernel C's |X|^2 output against the plain version: value,
+      power and noise by the rules of 3a, mag2 within 1e-4 of each
+      window's peak, argmax(mag2) equal to value except at near ties;
+   c. runs demodulate(debug=True, fused="auto"): kernels A, B, E launched,
+      raw equal to the fused="off" route's, dec and fft_mag2 within 1e-4
+      of their window's largest value, the frame fields equal, payloads
+      byte-exact;
+   d. runs demodulate(spectra=True) and decode_soft on both routes:
+      kernels A, B, C launched, statuses and payload bytes equal between
+      the routes, every frame byte-exact; on the 512-channel bank at sigma
+      4.0 soft decoding must recover at least as many frames as hard
+      decoding (both counts printed);
+   e. on buffers of 2 * required_samples with a second frame after the
+      first's end: holds kernels B and C (with mag2) against their plain
+      versions at the [B, 2] candidate offsets the path gives them, by the
+      rules of 3a and 5b; runs demodulate(max_frames=2): both frames found
+      and byte-exact, fields equal between the routes, kernels A, B, C
+      launched once each (not once per candidate);
+   f. times kernel C with and without mag2 and each of these paths on
+      both routes, with the debug route's peak device memory above the
+      bank.
    Times are CUDA events, the median of 7 after a warm-up, the better of
-   two interleaved sets (plain, kernel, kernel, plain).
+   two interleaved sets (plain, kernel, kernel, plain).  With the option
+   --profile, step 5 also prints each path's device time by kernel
+   (torch.profiler over three warm calls) and the device's idle share.
 
-Prints the kernels' JSON line, then {"ok": true, "device": {...}} last.
-Any failure raises and exits non-zero.  Imports no jax.
+Prints the kernels' JSON line (kernels A to E: launches summed over the
+driven paths and, in launches_by_path, of each path's run alone, every
+kernel counted from 0 on every path; the error against the plain version, the kernel's, the plain
+version's and, for kernel E, one PyTorch call's time, and the bound: the
+larger of the bytes each input and output must move over 3.35 TB/s and the
+float32 operations over 67 TFLOP/s), then {"ok": true, "device": {...}}
+last.  Any failure raises and exits non-zero.  Imports no jax.
 """
 
 from __future__ import annotations
@@ -92,6 +126,28 @@ D_RTOL = 1e-4
 # rounding's rms on the plain bank).
 SAME_DIFFER = 0.005
 EMPTY_DIFFER = 0.01
+# step 5: taps and spectra, as a share of each window's largest value
+TAP_RTOL = 1e-4
+# the card's published peaks (H100 SXM data sheet): device memory bytes/s
+# and float32 operations/s outside the tensor cores
+HBM_RATE = 3.35e12
+F32_RATE = 67e12
+
+
+def window_flops(N: int, rotate: bool) -> float:
+    """Float32 operations of one dechirp -> FFT -> peak window: 5 N log2 N
+    for the transform, 6 N for the dechirp product, 8 N more for the
+    derotation (angle, product), 4 N for |X|^2 and its sum."""
+    return N * (5 * math.log2(N) + 6 + (8 if rotate else 0) + 4)
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take: each input read once and each
+    output written once at the memory rate, or the operations at the
+    float32 rate, whichever is larger."""
+    by_bytes, by_ops = nbytes / HBM_RATE * 1e3, flops / F32_RATE * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
 def card_line() -> str:
@@ -332,14 +388,48 @@ def peak_above(fn, sync) -> float:
     return (torch.cuda.max_memory_allocated() - base) / 1e9
 
 
-def count_launches(wrappers, fn, sync):
-    """Run fn with every wrapper's launch count set to 0 just before it;
-    return fn's result and the counts read just after."""
+def kernel_wrappers() -> dict:
+    """The wrapper of each kernel, A to E, by the name of its JSON row."""
+    from lora_tpu_torch.ops import cuda_channelize, cuda_demod, cuda_detect
+    from lora_tpu_torch.ops import shift as shift_ops
+
+    return {
+        "detect": cuda_detect.dechirp_detect,
+        "track": cuda_demod.track,
+        "payload": cuda_demod.payload_detect,
+        "channelize": cuda_channelize.filterbank,
+        "shift": shift_ops.shift_windows,
+    }
+
+
+def count_launches(what, fn, sync, expect, exactly=None):
+    """Drive one path: run fn with every wrapper's launch count set to 0
+    just before it and read the counts just after.  Every kernel of
+    `expect` must have been launched (`exactly` that many times, if given)
+    and no other kernel at all.  -> (fn's result, {kernel: launches})."""
+    wrappers = kernel_wrappers()
     for w in wrappers.values():
         w.launches = 0
     out = fn()
     sync()
-    return out, {k: w.launches for k, w in wrappers.items()}
+    launches = {k: w.launches for k, w in wrappers.items()}
+    print(f"launches in the {what} run: {launches}", flush=True)
+    for k, n in launches.items():
+        if k in expect and (n <= 0 or (exactly is not None and n != exactly)):
+            raise AssertionError(f"{what}: kernel {k} launched {n} times")
+        if k not in expect and n:
+            raise AssertionError(f"{what}: kernel {k} is not on this path "
+                                 f"and was launched {n} times")
+    return out, launches
+
+
+def both_routes(run, sync):
+    """{route: ms} of run(route): the better of two interleaved sets."""
+    ms = {}
+    for route in ("off", "auto", "auto", "off"):
+        t_ms = timed(lambda: run(route), sync)
+        ms[route] = min(ms.get(route, t_ms), t_ms)
+    return ms
 
 
 def flagship(torch, dev, card, sync):
@@ -399,19 +489,11 @@ def flagship(torch, dev, card, sync):
           f"max |err| {chk_c.max_abs_err:.3g}", flush=True)
 
     # ---- b. the slice through the kernels --------------------------------
-    wrappers = {
-        "detect": cuda_detect.dechirp_detect,
-        "track": cuda_demod.track,
-        "payload": cuda_demod.payload_detect,
-    }
     dem, launches = count_launches(
-        wrappers, lambda: api.demodulate(bank, cfg, fused="auto"), sync)
+        "demodulate(fused='auto')",
+        lambda: api.demodulate(bank, cfg, fused="auto"), sync,
+        ("detect", "track", "payload"))
     dec = api.decode(dem.symbols, cfg)
-    print(f"launches in the demodulate(fused='auto') run: {launches}",
-          flush=True)
-    for k, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {k} was not launched on the path")
     lost = (~dem.found).nonzero().reshape(-1).tolist()
     if lost:
         raise AssertionError(f"{len(lost)} of {B} frames not found: {lost}")
@@ -474,16 +556,22 @@ def flagship(torch, dev, card, sync):
         ms[name] = interleaved(kern, plain, sync)
         print(f"time {name}: kernel {ms[name][0]:.3f} ms, plain "
               f"{ms[name][1]:.3f} ms (B={B}, N={N}) [{card}]", flush=True)
-    e2e = {}
-    for route in ("off", "auto", "auto", "off"):
-        t_ms = timed(lambda: api.demodulate(bank, cfg, fused=route), sync)
-        e2e[route] = min(e2e.get(route, t_ms), t_ms)
+    e2e = both_routes(lambda route: api.demodulate(bank, cfg, fused=route),
+                      sync)
     for route in ("auto", "off"):
         rate = B * T / (e2e[route] * 1e-3) / 1e6
         print(f"time demodulate fused={route!r}: {e2e[route]:.3f} ms, "
               f"{rate:.1f} Msamples/s (B={B}, T={T}) [{card}]", flush=True)
     checks = {"detect": chk_a, "track": chk_b, "payload": chk_c}
-    return checks, launches, ms
+    n_track = dm.TRACK_ROWS - 1  # windows a channel's track stage reads
+    bounds = {
+        "detect": bound(B * W * (N * 8 + 12), B * W * window_flops(N, False)),
+        "track": bound(B * (n_track * N * 8 + 24),
+                       B * 28 * window_flops(N, True)),
+        "payload": bound(B * mtu * (N * 8 + 12),
+                         B * mtu * window_flops(N, True)),
+    }
+    return checks, launches, ms, bounds
 
 
 def coarse_marginal(v, snr0, pwr, cfg):
@@ -638,7 +726,7 @@ def config3(torch, dev, card, sync, checks):
     """Step 4: the config-3 wideband bank.  -> (check, launches, ms)."""
     from lora_tpu_torch import api
     from lora_tpu_torch.ops import channelizer as chz
-    from lora_tpu_torch.ops import cuda_channelize, cuda_demod, cuda_detect
+    from lora_tpu_torch.ops import cuda_channelize
     from lora_tpu_torch.ops import detect as det_ops
 
     cfg = config3_cfg()
@@ -671,21 +759,10 @@ def config3(torch, dev, card, sync, checks):
     print(f"wideband: S={S} streams x K={K} channels, T={T} "
           f"({M} per channel), {S * K // 2} frames on even channels, "
           f"{wide.numel() * 8 / 1e9:.2f} GB complex64", flush=True)
-    wrappers = {
-        "channelize": cuda_channelize.filterbank,
-        "detect": cuda_detect.dechirp_detect,
-        "track": cuda_demod.track,
-        "payload": cuda_demod.payload_detect,
-    }
     (dem, _), launches = count_launches(
-        wrappers,
+        "channelized_demodulate(fused='auto')",
         lambda: api.channelized_demodulate(wide, K, cfg, fused="auto"),
-        sync)
-    print(f"launches in the channelized_demodulate(fused='auto') run: "
-          f"{launches}", flush=True)
-    for k, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {k} was not launched on the path")
+        sync, ("channelize", "detect", "track", "payload"))
     if dem.found.shape != (S, K):
         raise AssertionError(f"found has shape {tuple(dem.found.shape)}")
     for f in ("power", "snr", "fine_freq"):
@@ -792,11 +869,9 @@ def config3(torch, dev, card, sync, checks):
     print(f"time channelize: kernel {ms[0]:.3f} ms, plain {ms[1]:.3f} ms "
           f"(S={S}, K={K}, M={M}) [{card}]", flush=True)
     del xp
-    e2e = {}
-    for route in ("off", "auto", "auto", "off"):
-        t_ms = timed(lambda: api.channelized_demodulate(wide, K, cfg,
-                                                        fused=route), sync)
-        e2e[route] = min(e2e.get(route, t_ms), t_ms)
+    e2e = both_routes(
+        lambda route: api.channelized_demodulate(wide, K, cfg, fused=route),
+        sync)
     for route in ("auto", "off"):
         rate = S * T / (e2e[route] * 1e-3) / 1e6
         peak = peak_above(
@@ -807,7 +882,334 @@ def config3(torch, dev, card, sync, checks):
               f"{S * K} channels, peak {peak:.2f} GB above the "
               f"{wide.numel() * 8 / 1e9:.2f} GB input (S={S}, T={T}) "
               f"[{card}]", flush=True)
-    return chk_d, launches, ms
+    # each sample in and out once; per output sample 4L flop for the FIR
+    # and 5 log2 K for the K-point IDFT, the fewest a fast transform needs
+    # (kernel D's direct sum spends 8K there; the bound is the function's)
+    bound_d = bound(2 * S * K * M * 8,
+                    S * K * M * (5 * math.log2(K) + 4 * L))
+    return chk_d, launches, ms, bound_d
+
+
+def windows_close(what, got, want, rtol=TAP_RTOL) -> float:
+    """max |got - want| over each window's largest |want| must be <= rtol;
+    returns it."""
+    peak = want.abs().amax(-1, keepdim=True).clamp_min(1e-30)
+    err = float(((got - want).abs() / peak).max())
+    if not err <= rtol:
+        raise AssertionError(f"{what} differs by {err} > {rtol} of its "
+                             "window's largest value")
+    return err
+
+
+def routes_equal(torch, what, a, b, fields=("found", "symbols", "t_sync",
+                                            "consumed", "freq_error")):
+    for f in fields:
+        if not torch.equal(getattr(a, f), getattr(b, f)):
+            raise AssertionError(f"{what}: fused='auto' and 'off' differ in "
+                                 f"{f}")
+
+
+def byte_exact(api, what, dec, payload):
+    """Every decoded packet equals its payload row; returns the count."""
+    got = api.extract_payloads(dec)
+    want = [bytes(p) for p in payload.cpu().numpy().tolist()]
+    bad = [i for i in range(len(want)) if got[i] != want[i]]
+    if bad:
+        raise AssertionError(f"{what}: {len(bad)} of {len(want)} payloads "
+                             f"not byte-exact: {bad[:20]}")
+    return len(want)
+
+
+def device_breakdown(what, fn, e2e_ms: float, sync, calls: int = 3,
+                     top: int = 8):
+    """With --profile: the device time of `calls` warm calls of fn by kernel
+    (torch.profiler), per call, beside the path's CUDA-event time e2e_ms;
+    what is left of that is the device's idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        sync()
+    rows = sorted(((e.self_device_time_total / 1e3 / calls, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), reverse=True)
+    busy = sum(t for t, _ in rows)
+    print(f"profile {what}: device busy {busy:.3f} ms of {e2e_ms:.3f} ms per "
+          f"call ({100 * (1 - busy / e2e_ms):.0f}% idle), {len(rows)} kernels",
+          flush=True)
+    for t, key in rows[:top]:
+        print(f"profile   {t:8.3f} ms  {key[:90]}", flush=True)
+
+
+def receive_options(torch, dev, card, sync, checks, profile=False):
+    """Step 5: debug taps (kernel E), soft-decision RX (kernel C's mag2
+    output) and multi-frame tracking on the flagship bank; kernel B's and
+    C's comparisons go into `checks`.  -> (kernel E's check, {path:
+    launches} of the three paths, kernel E's (ms, plain ms), its library
+    ms, its bound)."""
+    from lora_tpu_torch import api
+    from lora_tpu_torch.models import demodulator as dm
+    from lora_tpu_torch.ops import cuda_demod
+    from lora_tpu_torch.ops import shift as shift_ops
+    from lora_tpu_torch.ops.tables import N_TRACK_WIN, TRACK_ROWS
+
+    chk_b, chk_c = checks["track"], checks["payload"]
+    cfg = flagship_cfg()
+    N, mtu = cfg.N, cfg.mtu
+    bank, payload = make_bank(api, cfg, B_FLAGSHIP, SIGMA, SEED, dev)
+    B, T = bank.shape
+    v, snr0, pwr = dm._coarse_detect(bank, cfg, True)
+    t_cand, t0, found_pre = dm._align_frame(v, snr0, pwr, cfg, T)
+    tr = cuda_demod.track(bank, t0, cfg.sync, cfg.thresh, N)
+    head, fine = dm._head(tr, cfg, t0, t_cand, found_pre, T)
+    ds = head.consumed
+
+    # ---- a. kernel E vs plain, bit-equal ----------------------------------
+    chk_e = Check("shift")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    g_track = shift_ops.gather_rows(bank, t0.long() // N, TRACK_ROWS, N)
+    for r in (t0 % N, torch.randint(0, N, (B,), generator=gen, device=dev)):
+        chk_e.equal("track geometry",
+                    shift_ops.shift_windows(g_track, r, N_TRACK_WIN),
+                    shift_ops.shift_windows_plain(g_track, r, N_TRACK_WIN))
+    del g_track
+    g = shift_ops.gather_rows(bank, ds.long() // N, mtu + 1, N)
+    r = (ds % N).clone()
+    r[:3] = torch.tensor([0, 1, N - 1], device=dev)
+    odd = int((r % 2).sum())
+    chk_e.equal("payload geometry", shift_ops.shift_windows(g, r, mtu),
+                shift_ops.shift_windows_plain(g, r, mtu))
+    # lead [B/2, 2]: the candidate axis of max_frames = 2
+    chk_e.equal("lead [B, K]",
+                shift_ops.shift_windows(g.reshape(B // 2, 2, mtu + 1, N),
+                                        r.reshape(B // 2, 2), mtu),
+                shift_ops.shift_windows_plain(g, r, mtu).reshape(
+                    B // 2, 2, mtu, N))
+    sync()
+    print(f"kernel E parity: bit-equal to the plain version at the payload "
+          f"geometry ([{B}, {mtu + 1}, {N}] rows, {odd} odd shifts, r = 0, 1, "
+          f"{N - 1} among them), with a [B, K] lead, and at the track "
+          f"geometry ([{B}, {TRACK_ROWS}, {N}] rows)", flush=True)
+    ms_e = interleaved(lambda: shift_ops.shift_windows(g, r, mtu),
+                       lambda: shift_ops.shift_windows_plain(g, r, mtu), sync)
+    idx = torch.arange(mtu * N, device=dev) + r.long()[:, None]
+    flat = g.reshape(B, (mtu + 1) * N)
+    lib_e = timed(lambda: torch.take_along_dim(flat, idx, dim=1), sync)
+    del idx, flat
+    bound_e = bound(2 * B * mtu * N * 8 + B * 4, 0.0)
+    print(f"time shift: kernel {ms_e[0]:.3f} ms, plain {ms_e[1]:.3f} ms, "
+          f"torch.take_along_dim alone {lib_e:.3f} ms, bound "
+          f"{bound_e['bound_ms']:.3f} ms by {bound_e['bound_by']} (B={B}, "
+          f"mtu={mtu}, N={N}) [{card}]", flush=True)
+    del g
+
+    # ---- b. kernel C's mag2 output vs plain --------------------------------
+    kc = cuda_demod.payload_detect(bank, ds, fine, mtu, N, want_mag2=True)
+    pc = cuda_demod.payload_detect_plain(bank, ds, fine, mtu, N,
+                                         want_mag2=True)
+    ok = chk_c.values(kc[0], pc[0], lambda i: pc[3].reshape(-1, N)[i])
+    chk_c.close("power", kc[1], pc[1], mask=ok)
+    chk_c.close("noise", kc[2], pc[2], mask=ok)
+    err = windows_close("kernel C's mag2", kc[3], pc[3])
+    # value is the lowest bin of the largest mag2 the kernel wrote
+    top = kc[3].amax(-1)
+    at_value = torch.gather(kc[3], -1, kc[0].long()[..., None])[..., 0]
+    first = (kc[3] == top[..., None]).to(torch.int8).argmax(-1)
+    if not torch.equal(at_value, top) or not torch.equal(first, kc[0].long()):
+        raise AssertionError("kernel C: value is not the lowest bin of the "
+                             "largest mag2 it wrote")
+    sync()
+    print(f"kernel C mag2 parity: ok, within {err:.3g} of each window's "
+          f"peak (bound {TAP_RTOL}), {chk_c.ties} near-tie windows in all; "
+          "value is the lowest bin of the largest mag2 written", flush=True)
+    del kc, pc, ok, top, at_value, first
+    ms_c = interleaved(
+        lambda: cuda_demod.payload_detect(bank, ds, fine, mtu, N,
+                                          want_mag2=True),
+        lambda: cuda_demod.payload_detect(bank, ds, fine, mtu, N), sync)
+    bound_c2 = bound(B * mtu * (N * 12 + 12), B * mtu * window_flops(N, True))
+    print(f"time payload with mag2: kernel {ms_c[0]:.3f} ms, without "
+          f"{ms_c[1]:.3f} ms, bound with mag2 {bound_c2['bound_ms']:.3f} ms "
+          f"by {bound_c2['bound_by']} (B={B}, mtu={mtu}, N={N}) [{card}]",
+          flush=True)
+
+    by_path = {}
+
+    def drive(what, fn, expect, exactly=None):
+        out, by_path[what] = count_launches(what, fn, sync, expect, exactly)
+        return out
+
+    # ---- c. debug taps ------------------------------------------------------
+    dem = drive("demodulate(debug=True, fused='auto')",
+                lambda: api.demodulate(bank, cfg, debug=True, fused="auto"),
+                ("detect", "track", "shift"))
+    ref = api.demodulate(bank, cfg, debug=True, fused="off")
+    routes_equal(torch, "debug", dem, ref)
+    if not torch.equal(dem.raw, ref.raw):
+        raise AssertionError("debug: raw differs between the routes")
+    e_dec = windows_close("debug: dec", dem.dec, ref.dec)
+    e_m2 = windows_close("debug: fft_mag2", dem.fft_mag2, ref.fft_mag2)
+    if not bool(dem.found.all()):
+        raise AssertionError("debug: frames not found")
+    n = byte_exact(api, "debug", api.decode(dem.symbols, cfg), payload)
+    print(f"debug taps: {n}/{B} frames byte-exact; raw equal to "
+          f"fused='off', dec within {e_dec:.3g} and fft_mag2 within "
+          f"{e_m2:.3g} of each window's largest value; found, symbols, "
+          "t_sync, consumed, freq_error equal", flush=True)
+    del dem, ref
+    torch.cuda.empty_cache()
+
+    # ---- d. soft-decision RX --------------------------------------------------
+    def soft(x, route):
+        d = api.demodulate(x, cfg, spectra=True, fused=route)
+        return d, api.decode_soft(d.fft_mag2, cfg)
+
+    dem, dec = drive("demodulate(spectra=True, fused='auto') + decode_soft",
+                     lambda: soft(bank, "auto"),
+                     ("detect", "track", "payload"))
+    ref, rdec = soft(bank, "off")
+    routes_equal(torch, "soft", dem, ref)
+    e_m2 = windows_close("soft: fft_mag2", dem.fft_mag2, ref.fft_mag2)
+    if not torch.equal(dec.status, rdec.status):
+        raise AssertionError("soft: statuses differ between the routes")
+    if api.extract_payloads(dec) != api.extract_payloads(rdec):
+        raise AssertionError("soft: payloads differ between the routes")
+    n = byte_exact(api, "soft", dec, payload)
+    print(f"soft RX: {n}/{B} frames byte-exact through decode_soft on both "
+          f"routes, statuses equal; fft_mag2 within {e_m2:.3g} of each "
+          "window's peak", flush=True)
+    del dem, dec, ref, rdec
+    noisy, npay = make_bank(api, cfg, B_NOISY, SIGMA_NOISY, SEED + 2, dev)
+    want = [bytes(p) for p in npay.cpu().numpy().tolist()]
+    counts = {}
+    for route in ("auto", "off"):
+        d, sdec = soft(noisy, route)
+        hdec = api.decode(d.symbols, cfg)
+        counts[route] = tuple(
+            sum(g == w for g, w in zip(api.extract_payloads(x), want))
+            for x in (sdec, hdec))
+        guarded = api.guard_soft_status(sdec, hdec)
+        print(f"reference noise point (sigma={SIGMA_NOISY}), fused={route!r}: "
+              f"B={B_NOISY}, {int(d.found.sum())} found, soft decoding "
+              f"recovers {counts[route][0]}, hard decoding "
+              f"{counts[route][1]}; {int((guarded == api.SOFT_UNVERIFIED).sum())} "
+              "soft results unverified", flush=True)
+        if counts[route][0] < counts[route][1]:
+            raise AssertionError("soft decoding recovers fewer frames than "
+                                 "hard decoding")
+    if counts["auto"] != counts["off"]:
+        raise AssertionError(f"soft: the routes recover {counts}")
+    del noisy, d, sdec, hdec
+
+    # ---- f. times of the debug and soft paths (the bank is still here) ----
+    ms_debug = both_routes(
+        lambda route: api.demodulate(bank, cfg, debug=True, fused=route), sync)
+    ms_soft = both_routes(lambda route: soft(bank, route), sync)
+    spectra = api.demodulate(bank, cfg, spectra=True).fft_mag2
+    ms_dec = timed(lambda: api.decode_soft(spectra, cfg), sync)
+    del spectra
+    for what, ms in (("demodulate(debug=True)", ms_debug),
+                     ("demodulate(spectra=True) + decode_soft", ms_soft)):
+        for route in ("auto", "off"):
+            print(f"time {what} fused={route!r}: {ms[route]:.3f} ms "
+                  f"(B={B}, T={T}) [{card}]", flush=True)
+    for route in ("auto", "off"):
+        peak = peak_above(
+            lambda: api.demodulate(bank, cfg, debug=True, fused=route), sync)
+        print(f"memory demodulate(debug=True) fused={route!r}: peak "
+              f"{peak:.2f} GB above the {bank.numel() * 8 / 1e9:.2f} GB bank, "
+              f"taps returned included (B={B}, T={T}) [{card}]", flush=True)
+        torch.cuda.empty_cache()
+    print(f"time decode_soft alone: {ms_dec:.3f} ms (spectra [{B}, {mtu}, "
+          f"{N}]) [{card}]", flush=True)
+    if profile:
+        device_breakdown("demodulate(debug=True, fused='auto')",
+                         lambda: api.demodulate(bank, cfg, debug=True),
+                         ms_debug["auto"], sync)
+        device_breakdown("demodulate(spectra=True) + decode_soft",
+                         lambda: soft(bank, "auto"), ms_soft["auto"], sync)
+    del bank
+    torch.cuda.empty_cache()
+
+    # ---- e. multi-frame tracking ----------------------------------------------
+    halves = [make_bank(api, cfg, B, SIGMA, SEED + 21 + i, dev)
+              for i in range(2)]
+    two = torch.cat([h[0] for h in halves], dim=1)
+    pay2 = torch.stack([h[1] for h in halves], dim=1)  # [B, 2, 32]
+    del halves
+    # kernels B and C against their plain versions with [B, 2] candidate
+    # offsets (candidate m reads channel m // 2), by the rules of 3a
+    T2 = two.shape[1]
+    t_cand, t0, found_pre = dm._align_multi(
+        *dm._coarse_detect(two, cfg, True), cfg, 2, T2)
+    kb = cuda_demod.track(two, t0, cfg.sync, cfg.thresh, N)
+    pb = cuda_demod.track_plain(two, t0, cfg.sync, cfg.thresh, N)
+    for f in ("synced", "k_sync", "freq_error"):
+        chk_b.equal(f"{f} with [B, 2] candidates", kb[f], pb[f])
+    for f in ("fine_total", "power", "snr"):
+        chk_b.close(f"{f} with [B, 2] candidates", kb[f], pb[f])
+    head, fine = dm._head(pb, cfg, t0, t_cand, found_pre, T2)
+    ds = head.consumed
+    if tuple(ds.shape) != (B, 2):
+        raise AssertionError(f"multi-frame: data starts {tuple(ds.shape)}")
+    del kb, pb
+    kc = cuda_demod.payload_detect(two, ds, fine, mtu, N, want_mag2=True)
+    pc = cuda_demod.payload_detect_plain(two, ds, fine, mtu, N,
+                                         want_mag2=True)
+    ties = chk_c.ties
+    ok = chk_c.values(kc[0], pc[0], lambda i: pc[3].reshape(-1, N)[i])
+    chk_c.close("power with [B, 2] candidates", kc[1], pc[1], mask=ok)
+    chk_c.close("noise with [B, 2] candidates", kc[2], pc[2], mask=ok)
+    err = windows_close("kernel C's mag2 with [B, 2] candidates", kc[3],
+                        pc[3])
+    sync()
+    print(f"kernels B and C parity with [B, 2] candidates (B={B}, "
+          f"T={T2}): ok; B's synced, k_sync, freq_error equal and "
+          f"fine_total, power, snr within {TOL}; C's values equal but for "
+          f"{chk_c.ties - ties} near-tie windows, power and noise within "
+          f"{TOL}, mag2 within {err:.3g} of each window's peak", flush=True)
+    del kc, pc, ok, head, fine, ds, t0, t_cand, found_pre
+    torch.cuda.empty_cache()
+    dem = drive("demodulate(max_frames=2, fused='auto')",
+                lambda: api.demodulate(two, cfg, max_frames=2, fused="auto"),
+                ("detect", "track", "payload"), exactly=1)
+    if dem.found.shape != (B, 2) or dem.symbols.shape != (B, 2, mtu):
+        raise AssertionError(f"multi-frame: found {tuple(dem.found.shape)}, "
+                             f"symbols {tuple(dem.symbols.shape)}")
+    lost = int((~dem.found).sum())
+    if lost:
+        raise AssertionError(f"multi-frame: {lost} of {2 * B} frames not found")
+    if not bool((dem.t_sync[:, 1] > dem.t_sync[:, 0]).all()):
+        raise AssertionError("multi-frame: candidates not in time order")
+    n = byte_exact(api, "multi-frame",
+                   api.decode(dem.symbols.reshape(2 * B, mtu), cfg),
+                   pay2.reshape(2 * B, -1))
+    ref = api.demodulate(two, cfg, max_frames=2, fused="off")
+    routes_equal(torch, "multi-frame", dem, ref)
+    print(f"multi-frame: {n}/{2 * B} frames of {B} buffers (T={two.shape[1]}) "
+          "found in time order and byte-exact; found, symbols, t_sync, "
+          "consumed, freq_error equal to fused='off'; one launch of each "
+          "of kernels A, B, C", flush=True)
+    del dem, ref
+    torch.cuda.empty_cache()
+    ms_multi = both_routes(
+        lambda route: api.demodulate(two, cfg, max_frames=2, fused=route),
+        sync)
+    for route in ("auto", "off"):
+        rate = two.numel() / (ms_multi[route] * 1e-3) / 1e6
+        print(f"time demodulate(max_frames=2) fused={route!r}: "
+              f"{ms_multi[route]:.3f} ms, {rate:.1f} Msamples/s (B={B}, "
+              f"T={two.shape[1]}) [{card}]", flush=True)
+    if profile:
+        device_breakdown("demodulate(max_frames=2, fused='auto')",
+                         lambda: api.demodulate(two, cfg, max_frames=2),
+                         ms_multi["auto"], sync)
+    return chk_e, by_path, ms_e, lib_e, bound_e
 
 
 def main() -> int:
@@ -833,12 +1235,17 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t:.1f} s "
           f"({_cuda.library_path().name})", flush=True)
 
-    checks, launches, ms = flagship(torch, dev, card, sync)
+    checks, launches, ms, bounds = flagship(torch, dev, card, sync)
     torch.cuda.empty_cache()
-    checks["channelize"], c3_launches, ms["channelize"] = config3(
-        torch, dev, card, sync, checks)
-    for k, n in c3_launches.items():  # both paths' runs
-        launches[k] = launches.get(k, 0) + n
+    (checks["channelize"], c3_launches, ms["channelize"],
+     bounds["channelize"]) = config3(torch, dev, card, sync, checks)
+    torch.cuda.empty_cache()
+    (checks["shift"], by_path, ms["shift"], lib_shift,
+     bounds["shift"]) = receive_options(torch, dev, card, sync, checks,
+                                        "--profile" in sys.argv[1:])
+    # every driven path's run, each counted from 0
+    by_path = {"demodulate(fused='auto')": launches,
+               "channelized_demodulate(fused='auto')": c3_launches, **by_path}
 
     sources = {
         "detect": ("lora_tpu_torch/csrc/detect.cu",
@@ -853,19 +1260,27 @@ def main() -> int:
         "channelize": ("lora_tpu_torch/csrc/channelize.cu",
                        "lora_tpu/ops/pallas_channelize.py:376, "
                        "lora_tpu/ops/pallas_channelize.py:187"),
+        "shift": ("lora_tpu_torch/csrc/shift.cu", "lora_tpu/ops/shift.py:68"),
     }
+    # the one PyTorch call that computes a kernel's function, where there is
+    # one: torch.take_along_dim for the shift; the others fuse a dechirp, a
+    # transform and reductions, or a polyphase FIR and an IDFT
+    library = {"shift": lib_shift}
     kernels = [
         {
             "name": name,
             "route": "cuda",
             "source": sources[name][0],
             "replaces": sources[name][1],
-            "launches": launches[name],
+            "launches": sum(n[name] for n in by_path.values()),
+            "launches_by_path": {p: n[name] for p, n in by_path.items()},
             "max_abs_err": checks[name].max_abs_err,
             "ms": ms[name][0],
             "plain_ms": ms[name][1],
+            **bounds[name],
+            "library_ms": library.get(name),
         }
-        for name in ("detect", "track", "payload", "channelize")
+        for name in ("detect", "track", "payload", "channelize", "shift")
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

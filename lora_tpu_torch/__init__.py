@@ -3,11 +3,11 @@
 The hard-decision receive path (encode, modulate, demodulate, decode) and
 the wideband channelized front end (channelized_demodulate) run on an
 NVIDIA Hopper card through hand-written CUDA kernels (csrc/) and on the CPU
-through their plain PyTorch versions.  The configuration type is
-shared with the JAX package (`lora_tpu.config.LoRaConfig`, which imports no
-jax).  The package imports torch and numpy, never jax.
+through their plain PyTorch versions.  The package imports torch and
+numpy: never jax, and nothing of the JAX package (`config.py` and
+`ops/_bitref.py` are its own copies).
 """
 
-from lora_tpu.config import CODING_RATES, LoRaConfig
+from .config import CODING_RATES, LoRaConfig
 
 __all__ = ["LoRaConfig", "CODING_RATES"]

@@ -1,6 +1,10 @@
-"""Top-level PHY API of the port: encode / modulate / demodulate / decode
-and the wideband front end channelized_demodulate (lora_tpu/api.py,
-hard-decision single-frame slice)."""
+"""Top-level PHY API of the port: encode / modulate / demodulate / decode /
+decode_soft and the wideband front end channelized_demodulate (port of
+lora_tpu/api.py).
+
+Every entry point works where its tensor argument lies; host data (numpy,
+lists) goes to the `device` argument, and device=None means the card:
+nothing here picks the CPU by itself (ops/cplx.as_tensor)."""
 
 from __future__ import annotations
 
@@ -9,27 +13,32 @@ import dataclasses
 import numpy as np
 import torch
 
-from lora_tpu.config import LoRaConfig
+from .config import LoRaConfig
 
-from .models.decoder import OK, STATUS_NAMES, DecodeResult, decode
+from .models.decoder import (OK, SOFT_UNVERIFIED, STATUS_NAMES, DecodeResult,
+                             decode)
 from .models.demodulator import (DemodResult, check_options, demodulate,
                                  required_samples)
 from .models.encoder import encode
 from .models.modulator import modulate
+from .models.softdec import decode_soft, guard_soft_status, soft_symbols
 from .ops import channelizer as chz
 from .ops import cplx
-from .roadmap import not_ported
 
 __all__ = [
     "LoRaConfig",
     "encode",
     "decode",
+    "decode_soft",
+    "soft_symbols",
+    "guard_soft_status",
     "modulate",
     "demodulate",
     "DecodeResult",
     "DemodResult",
     "required_samples",
     "OK",
+    "SOFT_UNVERIFIED",
     "STATUS_NAMES",
     "extract_payloads",
     "channelized_demodulate",
@@ -56,27 +65,29 @@ def extract_payloads(result: DecodeResult) -> list[bytes | None]:
 def channelized_demodulate(wide, K: int, cfg: LoRaConfig,
                            taps_per_phase: int = 8, max_frames: int = 1,
                            state=None, fused: str = "auto",
-                           spectra: bool = False):
+                           spectra: bool = False, device=None):
     """Wideband front end (BASELINE.json config 3): polyphase-channelize
     [S, T] (or [T]) at rate K*BW into K channels and demodulate every
     channel.  Returns (DemodResult with leading [S, K] axes, or [K] for a
-    1-D input; the channelizer state [S, taps_per_phase*K - 1] to pass as
-    `state` with the next block).
+    1-D input, then the candidate axis when max_frames > 1; the channelizer
+    state [S, taps_per_phase*K - 1] to pass as `state` with the next
+    block).  spectra=True carries the payload |FFT|^2 windows in fft_mag2
+    [S, K, mtu, N] for decode_soft.  A tensor is processed where it lies;
+    host data goes to `device` (the card when None).
 
     fused="auto" runs kernel D then the demod kernels for a CUDA tensor,
     and their plain versions for a CPU tensor; "off" runs the plain
     channelizer and demodulator on any device."""
-    if spectra:
-        raise not_ported("spectra=True", 14)
-    check_options(max_frames=max_frames, fused=fused)
-    wide = cplx.as_iq(wide)
+    check_options(fused)
+    wide = cplx.as_iq(wide, device)
     squeeze = wide.dim() == 1
     wb = wide[None] if squeeze else wide
     y, new_state = chz.channelize(
         wb, K, taps_per_phase, state=state,
         impl="auto" if fused == "auto" else "xla")
     S, _, M = y.shape
-    dem = demodulate(y.reshape(S * K, M), cfg, fused=fused)
+    dem = demodulate(y.reshape(S * K, M), cfg, max_frames=max_frames,
+                     fused=fused, spectra=spectra)
     lead = (K,) if squeeze else (S, K)
 
     def split(t):  # [S*K, ...] -> [*lead, ...]
@@ -91,15 +102,15 @@ def loopback(payload, cfg: LoRaConfig, noise_amplitude: float = 0.0,
              phase: float = 0.0, cfo_bins: float = 0.0, delay: int = 0,
              seed: int = 0, debug: bool = False, device=None,
              fused: str = "auto", soft: bool = False):
-    """encode -> modulate -> channel -> demodulate -> decode on `device`.
-    payload uint8 [B, L] (or [L]).  Returns (DecodeResult, DemodResult)."""
+    """encode -> modulate -> channel -> demodulate -> decode.  payload
+    uint8 [B, L] (or [L]): a tensor stays where it lies, host data goes to
+    `device` (the card when None).  soft=True decodes the demodulator's
+    spectra with decode_soft; debug=True carries the raw/dec/fft_mag2 taps.
+    Returns (DecodeResult, DemodResult)."""
     from .sim import channel as ch
 
-    if soft:
-        raise not_ported("soft=True", 14)
-    check_options(debug=debug, fused=fused)
-    payload = torch.atleast_2d(torch.as_tensor(payload, dtype=torch.uint8,
-                                               device=device))
+    check_options(fused)
+    payload = torch.atleast_2d(cplx.as_tensor(payload, device, torch.uint8))
     iq = modulate(encode(payload, cfg), cfg)
     # pad to the demod window plus the delay, rounded up to a 4096 block
     need = -(-(required_samples(cfg) + delay) // 4096) * 4096
@@ -113,5 +124,8 @@ def loopback(payload, cfg: LoRaConfig, noise_amplitude: float = 0.0,
     if noise_amplitude:
         gen = torch.Generator(device=iq.device).manual_seed(seed)
         iq = ch.awgn(iq, noise_amplitude, gen)
-    dem = demodulate(iq, cfg, fused=fused)
+    dem = demodulate(iq, cfg, debug=debug, fused=fused,
+                     spectra=soft and not debug)
+    if soft:
+        return decode_soft(dem.fft_mag2, cfg), dem
     return decode(dem.symbols, cfg), dem

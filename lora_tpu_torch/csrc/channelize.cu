@@ -23,8 +23,10 @@
 // the IDFT 8K (544 flop at K = 64, L = 8), while the sample moves 16 bytes
 // (8 in, 8 out).  At the config-3 bank (256 streams x 64 channels x 10,240
 // samples) that is 91 GFLOP against 2.7 GB: about 1.4 ms at the 67 TFLOP/s
-// float32 rate and 0.8 ms at 3.35 TB/s.  A SIMT kernel is therefore bound by
-// its float32 arithmetic, and the design feeds the FMA pipes: each thread
+// float32 rate and 0.8 ms at 3.35 TB/s.  This direct sum is therefore bound by
+// its float32 arithmetic (the function itself is not: a fast K-point transform
+// needs about 5 log2 K = 30 flop per sample, which leaves the 0.8 ms of
+// traffic as the bound), and the design feeds the FMA pipes: each thread
 // keeps a register tile of kKB channels x kMB samples, so one u value loaded
 // from shared memory serves kKB complex multiply-adds and one twiddle serves
 // kMB; the twiddle index steps by -k per q with one conditional wrap, no

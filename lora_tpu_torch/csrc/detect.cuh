@@ -97,11 +97,14 @@ __device__ __forceinline__ float to_db(float a, float scale) {
 // threads `lane` = 0..tpw-1, working in the team's shared buffer s
 // (team_smem(N) float2).
 // rotate=false skips the derotation (the coarse search has no fine CFO).
-template <bool kFindex>
+// kMag2 with a non-null `mag2` also writes the window's |X|^2 there, N
+// floats in natural bin order: the values the peak search compared, so
+// `value` is the lowest bin of the largest one written.
+template <bool kFindex, bool kMag2 = false>
 __device__ DetectOut detect_window(const float2* __restrict__ win,
                                    const DetectConsts& c, float fe,
                                    bool rotate, float2* s, int lane,
-                                   int tpw) {
+                                   int tpw, float* __restrict__ mag2 = nullptr) {
   __shared__ float red_best[kMaxWarps];
   __shared__ float red_sum[kMaxWarps];
   __shared__ int red_idx[kMaxWarps];
@@ -155,7 +158,7 @@ __device__ DetectOut detect_window(const float2* __restrict__ win,
   // last pass (L = 4: radix-2^2 with unit twiddles; L = 2 when log2(N) is
   // odd: one radix-2 stage) fused with the peak (lowest bin on ties) and
   // total of |X|^2; the spectrum goes back to shared memory only for the
-  // fractional bin's neighbours
+  // fractional bin's neighbours, or as |X|^2 for the mag2 output
   float best = -1.0f, sum = 0.0f;
   int bi = 0;
   auto visit = [&](int p, float2 v) {
@@ -167,6 +170,8 @@ __device__ DetectOut detect_window(const float2* __restrict__ win,
     }
     sum += m2;
     if (kFindex) s[pad(p)] = v;
+    // the thread that read position p is the only one that writes it
+    if (kMag2 && !kFindex) s[pad(p)].x = m2;
   };
   if (L == 4) {
     for (int g = lane; g < q0; g += tpw) {
@@ -200,6 +205,14 @@ __device__ DetectOut detect_window(const float2* __restrict__ win,
     red_idx[warp] = bi;
   }
   __syncthreads();
+  if (kMag2 && mag2 != nullptr) {
+    // the spectrum lies bit-reversed in shared memory: gather it so that
+    // consecutive threads store consecutive bins
+    for (int k = lane; k < N; k += tpw) {
+      const float2 v = s[pad(bin_of(k, c.log2n))];
+      mag2[k] = kFindex ? v.x * v.x + v.y * v.y : v.x;
+    }
+  }
   // every thread of the team folds its team's warps in the same order
   const int w0 = (threadIdx.x - lane) >> 5;
   const int nw = tpw >> 5;

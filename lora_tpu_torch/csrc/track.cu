@@ -1,4 +1,4 @@
-// Kernel B: the tracking stage, one block per channel.
+// Kernel B: the tracking stage, one block per candidate.
 //
 // Replaces lora_tpu/ops/pallas_demod.py:_track_flat (entry `track`) and
 // _track_direct (entry `track_direct`), both built by
@@ -16,7 +16,9 @@
 // channel, its two teams detecting a step's window pair at once.  Window k
 // is read at its own sample offset, x[b, t0 + k*N : t0 + (k+1)*N], so the
 // Pallas kernels' row gather, sub-window roll or blend and 8-row alignment
-// have no counterpart here; the state lives in shared memory.
+// have no counterpart here; the state lives in shared memory.  With
+// max_frames = K a channel has K candidates (frame slots), each with its
+// own t0: block m reads channel m / K of the same buffers.
 
 #include "detect.cuh"
 
@@ -27,7 +29,8 @@ constexpr int kTrackWindows = 17;  // scan + 2 downchirps + quarter margin
 
 __global__ void __launch_bounds__(512)
 track_kernel(const float2* __restrict__ x, long long sB, long long T,
-             const int* __restrict__ t0, int sync0, int sync1, float thresh,
+             int K, const int* __restrict__ t0, int sync0, int sync1,
+             float thresh,
              DetectConsts up, DetectConsts down, int* __restrict__ o_state,
              int* __restrict__ o_ksync, int* __restrict__ o_freq,
              float* __restrict__ o_fine, float* __restrict__ o_power,
@@ -48,7 +51,7 @@ track_kernel(const float2* __restrict__ x, long long sB, long long T,
   long long start = t0[b];
   const long long hi = T - (long long)kTrackWindows * N;
   start = start < 0 ? 0 : (start > hi ? hi : start);
-  const float2* xb = x + b * sB + start;
+  const float2* xb = x + (b / K) * sB + start;
   float2* s = smem + team * team_smem(N);
 
   if (threadIdx.x == 0) {
@@ -116,9 +119,10 @@ track_kernel(const float2* __restrict__ x, long long sB, long long T,
 
 }  // namespace lora
 
-// x: complex64 channel buffers, channel b at x + b*sB, T samples each;
+// x: complex64 channel buffers, channel c at x + c*sB, T samples each;
+// B candidates, K per channel (candidate m belongs to channel m / K);
 // t0 int32 [B].  up/down: complex64 dechirp tables [N]; tw [N/2].
-extern "C" int lora_track(const void* x, long long sB, long long B,
+extern "C" int lora_track(const void* x, long long sB, long long B, int K,
                           long long T, int N, const void* t0, int sync0,
                           int sync1, float thresh, const void* up,
                           const void* down, const void* tw, float rot_scale,
@@ -127,6 +131,7 @@ extern "C" int lora_track(const void* x, long long sB, long long B,
                           void* snr, void* stream) {
   using namespace lora;
   if (B == 0) return 0;
+  if (K < 1) return (int)cudaErrorInvalidValue;
   const int lg = log2_int(N);
   const DetectConsts cu{static_cast<const float2*>(up),
                         static_cast<const float2*>(tw), N, lg, rot_scale,
@@ -139,7 +144,7 @@ extern "C" int lora_track(const void* x, long long sB, long long B,
   cudaError_t err = allow_smem(track_kernel, smem);
   if (err != cudaSuccess) return (int)err;
   track_kernel<<<(unsigned)B, threads, smem, (cudaStream_t)stream>>>(
-      static_cast<const float2*>(x), sB, T, static_cast<const int*>(t0),
+      static_cast<const float2*>(x), sB, T, K, static_cast<const int*>(t0),
       sync0, sync1, thresh, cu, cd, static_cast<int*>(state),
       static_cast<int*>(k_sync), static_cast<int*>(freq_error),
       static_cast<float*>(fine_total), static_cast<float*>(power),

@@ -14,10 +14,10 @@ import dataclasses
 
 import torch
 
-from lora_tpu.config import (HEADER_RDD, N_HEADER_CODEWORDS,
+from ..config import (HEADER_RDD, N_HEADER_CODEWORDS,
                              N_HEADER_SYMBOLS, LoRaConfig)
 
-from ..ops import codes
+from ..ops import codes, cplx
 
 OK = 0
 DROP_HEADER_FEC = 1
@@ -25,6 +25,9 @@ DROP_HEADER_RDD = 2
 DROP_LENGTH = 3
 DROP_FEC = 4
 DROP_CRC = 5
+# soft-decision only: a CRC-less frame whose soft decode the hard decode of
+# the same frame does not confirm (models/softdec.guard_soft_status)
+SOFT_UNVERIFIED = 6
 
 STATUS_NAMES = {
     OK: "ok",
@@ -33,6 +36,7 @@ STATUS_NAMES = {
     DROP_LENGTH: "drop_length",
     DROP_FEC: "drop_fec",
     DROP_CRC: "drop_crc",
+    SOFT_UNVERIFIED: "soft_unverified",
 }
 
 
@@ -73,8 +77,10 @@ def _pad_last(x: torch.Tensor, n: int) -> torch.Tensor:
 def decode(symbols, cfg: LoRaConfig, num_symbols: int | None = None,
            device=None):
     """symbols int [B, S] (or [S]) -> DecodeResult; with
-    cfg.interleaving=False the Gray-mapped symbols pass through."""
-    sym = torch.as_tensor(symbols, device=device)
+    cfg.interleaving=False the Gray-mapped symbols pass through.  A tensor
+    is decoded where it lies; host data goes to `device` (the card when
+    None)."""
+    sym = cplx.as_tensor(symbols, device)
     if num_symbols is None:
         num_symbols = sym.shape[-1]
     squeeze = sym.dim() == 1

@@ -1,5 +1,5 @@
 """Batched LoRa frame demodulator: complex baseband -> symbols (port of
-lora_tpu/models/demodulator.py, single-frame hard-decision route).
+lora_tpu/models/demodulator.py).
 
 Stages, per channel buffer of T samples (padded to required_samples):
 
@@ -10,6 +10,15 @@ Stages, per channel buffer of T samples (padded to required_samples):
      the downchirp pair's coarse CFO (kernel B);
   4. the mtu payload windows from data_start, derotated by the fine CFO
      (kernel C), then the squelch cut and packet framing.
+
+Options, as in the JAX package: max_frames=K tracks the first K preamble
+runs of every buffer (stages 2-4 over [B, K] candidates, one launch of
+each kernel); spectra=True also returns the payload |FFT|^2 windows, which
+kernel C writes itself (the soft-decision decoder's input,
+models/softdec.py); debug=True returns the aligned payload windows, their
+dechirped copies and spectra, cut by the row gather and kernel E
+(ops/shift.py) and transformed by torch.fft, as the JAX package leaves
+its fused payload kernels for these taps.
 
 fused="auto" runs the kernels for a CUDA tensor and their plain versions
 for a CPU tensor; fused="off" runs the plain versions on any device and is
@@ -23,11 +32,12 @@ from typing import Optional
 
 import torch
 
-from lora_tpu.config import LoRaConfig
+from ..config import LoRaConfig
 
 from ..ops import cplx
 from ..ops import cuda_demod, cuda_detect
 from ..ops import detect as det_ops
+from ..ops import shift as shift_ops
 from ..ops.cuda_demod import trunc_half
 from ..ops.tables import TRACK_ROWS, payload_rows
 from ..roadmap import not_ported
@@ -35,8 +45,10 @@ from ..roadmap import not_ported
 
 @dataclasses.dataclass
 class DemodResult:
-    """Per-frame demod outputs (leading axes = batch); field names and
-    dtypes of lora_tpu.models.demodulator.DemodResult."""
+    """Per-frame demod outputs (leading axes = batch, then the candidate
+    axis K when max_frames > 1); field names and dtypes of
+    lora_tpu.models.demodulator.DemodResult, its planar IQ taps as
+    complex64."""
 
     symbols: torch.Tensor     # int16 [..., mtu] detected data symbols
     count: torch.Tensor       # int32 [...] symbols in the packet
@@ -50,6 +62,12 @@ class DemodResult:
     found_pre: Optional[torch.Tensor] = None    # bool: coarse preamble hit
     t_candidate: Optional[torch.Tensor] = None  # int32: coarse-aligned start
     payload_complete: Optional[torch.Tensor] = None  # bool: whole payload in
+    dec: Optional[torch.Tensor] = None  # complex64 [..., mtu, N] dechirped
+    #                                     payload windows (debug)
+    fft_mag2: Optional[torch.Tensor] = None  # float32 [..., mtu, N] payload
+    #                                     spectra (debug or spectra)
+    raw: Optional[torch.Tensor] = None  # complex64 [..., mtu, N] aligned
+    #                                     payload sample windows (debug)
 
 
 def required_samples(cfg: LoRaConfig, search_symbols: int = 4) -> int:
@@ -95,9 +113,10 @@ def _first_true(mask: torch.Tensor) -> torch.Tensor:
 
 
 def _extend_run(cfg: LoRaConfig, agree, v, first_w, T: int):
-    """Extend the agreeing run at first_w to its end and align t0 to the
+    """Extend the agreeing run at first_w [M] to its end and align t0 to the
     run's tail by the circular median of its bins
-    (lora_tpu/models/demodulator.py:155-195), batched over channels."""
+    (lora_tpu/models/demodulator.py:155-195), batched over the M rows of
+    agree [M, W-1] and v [M, W]."""
     N = cfg.N
     dev = v.device
     n_pairs = agree.shape[-1]
@@ -133,6 +152,35 @@ def _align_frame(v, snr0, pwr, cfg: LoRaConfig, T: int):
     return t_cand, t0, found_pre
 
 
+def _align_multi(v, snr0, pwr, cfg: LoRaConfig, max_frames: int, T: int):
+    """Multi-frame alignment over [B, W] detections: the first max_frames
+    runs of at least three agreeing pairs, in time order -> t_cand, t0,
+    valid [B, K].  No 6 dB near-far filter: frames that share a buffer may
+    differ in power; a false run fails the sync scan
+    (lora_tpu/models/demodulator.py:319-340)."""
+    agree, _ = _coarse(v, snr0, pwr, cfg)
+    B, n_pairs = agree.shape
+    pad = torch.nn.functional.pad
+    # a preamble of >= 6 chirps gives >= 4 agreeing pairs in a row; asking
+    # for 3 drops the short runs of each frame's downchirp pair
+    run_start = (agree & ~pad(agree[:, :-1], (1, 0)) & pad(agree[:, 1:], (0, 1))
+                 & pad(agree[:, 2:], (0, 2)))
+    idx_w = torch.arange(n_pairs, device=v.device)
+    # every run start is a distinct index below the sentinel n_pairs, so the
+    # sorted values do not depend on how the sort orders the sentinels
+    starts = torch.sort(torch.where(run_start, idx_w, n_pairs),
+                        dim=-1).values[:, :max_frames]
+    K = starts.shape[1]
+    valid = starts < n_pairs
+    first_w = torch.clamp(starts, max=n_pairs - 1)
+    # one batch of B*K rows: each candidate extends its own run over its
+    # channel's agreement map
+    t_cand, t0 = _extend_run(cfg, agree.repeat_interleave(K, dim=0),
+                             v.repeat_interleave(K, dim=0),
+                             first_w.reshape(-1), T)
+    return t_cand.reshape(B, K), t0.reshape(B, K), valid
+
+
 def _head(tr: dict, cfg: LoRaConfig, t0, t_cand, found_pre, T: int):
     """Stage 4's quarter-chirp correction and the head of the result from
     the track outputs (lora_tpu/models/demodulator.py:264-301)."""
@@ -164,7 +212,7 @@ def _head(tr: dict, cfg: LoRaConfig, t0, t_cand, found_pre, T: int):
 
 def _payload_epilogue(head: DemodResult, value, power, noise, t0,
                       cfg: LoRaConfig) -> DemodResult:
-    """Squelch cut + packet framing over payload detections [B, mtu]; the
+    """Squelch cut + packet framing over payload detections [..., mtu]; the
     squelched symbol is included in the packet."""
     thresh = torch.tensor(cfg.thresh, dtype=torch.float32, device=power.device)
     squelched = (power - noise) < thresh
@@ -172,38 +220,65 @@ def _payload_epilogue(head: DemodResult, value, power, noise, t0,
     count = torch.where(squelched.any(-1),
                         torch.clamp(first_sq + 1, max=cfg.mtu), cfg.mtu)
     count = torch.where(head.found, count, 0).to(torch.int32)
-    mask = torch.arange(cfg.mtu, device=power.device) < count[:, None]
+    mask = torch.arange(cfg.mtu, device=power.device) < count[..., None]
     symbols = torch.where(mask, value, 0).to(torch.int16)
     consumed = torch.where(head.found, head.consumed + count * cfg.N, t0)
     return dataclasses.replace(head, symbols=symbols, count=count,
                                consumed=consumed.to(torch.int32))
 
 
-def check_options(max_frames: int = 1, debug: bool = False,
-                  spectra: bool = False, fused: str = "auto") -> None:
-    """Raise for an option outside the port's slice: it runs
-    max_frames=1, hard decisions, fused='auto' or 'off'."""
-    if max_frames != 1:
-        raise not_ported("max_frames > 1", 11)
-    if debug:
-        raise not_ported("debug=True", 12)
-    if spectra:
-        raise not_ported("spectra=True", 14)
+def check_options(fused: str = "auto") -> None:
+    """Raise for the one option of lora_tpu the port does not carry: a
+    `fused` route other than 'auto' or 'off'."""
     if fused not in ("auto", "off"):
         raise not_ported(f"fused={fused!r}", 13)
 
 
+def _payload(xb, data_start, fine_total, cfg: LoRaConfig, use_kernels: bool,
+             debug: bool, spectra: bool):
+    """Stage 4 over candidates data_start [B, *k]: (value, power, noise,
+    fft_mag2, dec, raw), the last three None unless asked for
+    (lora_tpu/models/demodulator.py:520-578)."""
+    N, mtu = cfg.N, cfg.mtu
+    if debug:
+        # the taps are the windows themselves, so they are cut here: rows
+        # on the N grid, then the sub-window shift (kernel E on the card)
+        shift = (shift_ops.shift_windows if use_kernels
+                 else shift_ops.shift_windows_plain)
+        ds = data_start.long()
+        raw = shift(shift_ops.gather_rows(xb, ds // N, mtu + 1, N), ds % N,
+                    mtu)
+        dec = det_ops.dechirp(raw, ferr=fine_total[..., None])
+        dd = det_ops.detect(dec, want_mag2=True, want_f_index=False)
+        return dd.value, dd.power, dd.noise, dd.mag2, dec, raw
+    payload = (cuda_demod.payload_detect if use_kernels
+               else cuda_demod.payload_detect_plain)
+    out = payload(xb, data_start, fine_total, mtu, N, want_mag2=spectra)
+    return (*out, None, None) if spectra else (*out, None, None, None)
+
+
 def demodulate(x, cfg: LoRaConfig, debug: bool = False, max_frames: int = 1,
-               fused: str = "auto", spectra: bool = False) -> DemodResult:
-    """Demodulate one frame out of each channel buffer x [B, T] (or [T]),
-    complex64 at 1 sample/chip (any form ops/cplx.as_iq accepts); buffers
-    shorter than required_samples(cfg) are zero-padded.
+               fused: str = "auto", spectra: bool = False,
+               device=None) -> DemodResult:
+    """Demodulate frames out of each channel buffer x [B, T] (or [T]),
+    complex64 at 1 sample/chip (any form ops/cplx.as_iq accepts: a tensor
+    is demodulated where it lies, host data goes to `device`, the card when
+    None); buffers shorter than required_samples(cfg) are zero-padded.
+
+    max_frames=K > 1 tracks up to K frames per buffer: every field gains a
+    candidate axis [..., K] after the batch axis, candidates in time order,
+    unused slots found=False.  spectra=True also carries the payload
+    |FFT|^2 windows in fft_mag2, the input of api.decode_soft; debug=True
+    carries raw, dec and fft_mag2 (the reference's raw/dec/fft debug
+    ports).
 
     fused="auto" runs the CUDA kernels for a CUDA tensor and their plain
     versions for a CPU tensor; "off" runs the plain versions anywhere."""
-    check_options(max_frames, debug, spectra, fused)
+    check_options(fused)
+    if max_frames < 1:
+        raise ValueError(f"max_frames must be >= 1, got {max_frames}")
     use_kernels = fused == "auto"
-    x = cplx.as_iq(x)
+    x = cplx.as_iq(x, device)
     squeeze = x.dim() == 1
     xb = x[None] if squeeze else x
     N = cfg.N
@@ -214,15 +289,19 @@ def demodulate(x, cfg: LoRaConfig, debug: bool = False, max_frames: int = 1,
     T = xb.shape[-1]
 
     v, snr0, pwr = _coarse_detect(xb, cfg, use_kernels)
-    t_cand, t0, found_pre = _align_frame(v, snr0, pwr, cfg, T)
+    if max_frames == 1:
+        t_cand, t0, found_pre = _align_frame(v, snr0, pwr, cfg, T)
+    else:
+        t_cand, t0, found_pre = _align_multi(v, snr0, pwr, cfg, max_frames, T)
     track = cuda_demod.track if use_kernels else cuda_demod.track_plain
     tr = track(xb, t0, cfg.sync, cfg.thresh, N)
     head, fine_total = _head(tr, cfg, t0, t_cand, found_pre, T)
-    payload = (cuda_demod.payload_detect if use_kernels
-               else cuda_demod.payload_detect_plain)
-    value, power, noise = payload(xb, head.consumed, fine_total, cfg.mtu, N)
+    value, power, noise, mag2, dec, raw = _payload(
+        xb, head.consumed, fine_total, cfg, use_kernels, debug, spectra)
     res = _payload_epilogue(head, value, power, noise, t0, cfg)
+    res = dataclasses.replace(res, dec=dec, fft_mag2=mag2, raw=raw)
     if squeeze:
-        res = DemodResult(**{f.name: getattr(res, f.name)[0]
-                             for f in dataclasses.fields(res)})
+        res = DemodResult(**{
+            f.name: None if getattr(res, f.name) is None
+            else getattr(res, f.name)[0] for f in dataclasses.fields(res)})
     return res

@@ -6,9 +6,9 @@ from __future__ import annotations
 
 import torch
 
-from lora_tpu.config import HEADER_RDD, N_HEADER_CODEWORDS, LoRaConfig
+from ..config import HEADER_RDD, N_HEADER_CODEWORDS, LoRaConfig
 
-from ..ops import codes
+from ..ops import codes, cplx
 
 
 def _bytes_to_nibbles(data: torch.Tensor, n_nibbles: int) -> torch.Tensor:
@@ -23,8 +23,9 @@ def _bytes_to_nibbles(data: torch.Tensor, n_nibbles: int) -> torch.Tensor:
 def encode(payload, cfg: LoRaConfig, payload_len: int | None = None,
            device=None) -> torch.Tensor:
     """payload uint8/int [B, L] (or [L]) -> int32 [B, S] symbols in
-    [0, 2^sf), S = cfg.num_symbols(L)."""
-    payload = torch.as_tensor(payload, device=device)
+    [0, 2^sf), S = cfg.num_symbols(L).  A tensor is encoded where it lies;
+    host data goes to `device` (the card when None)."""
+    payload = cplx.as_tensor(payload, device)
     if payload_len is None:
         payload_len = payload.shape[-1]
     squeeze = payload.dim() == 1

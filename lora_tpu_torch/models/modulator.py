@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from lora_tpu.config import LoRaConfig
+from ..config import LoRaConfig
 
 from ..ops import cplx
 from ..ops.chirp import chirp_phase_nums
@@ -40,8 +40,10 @@ def preamble_nums(cfg: LoRaConfig, device=None):
 
 def modulate(symbols, cfg: LoRaConfig, device=None) -> torch.Tensor:
     """symbols int [B, S] (or [S]) -> complex64 [B, T], T =
-    cfg.frame_samples(S), at cfg.ovs samples per chip."""
-    syms = torch.as_tensor(symbols, device=device)
+    cfg.frame_samples(S), at cfg.ovs samples per chip.  A tensor is
+    modulated where it lies; host data goes to `device` (the card when
+    None)."""
+    syms = cplx.as_tensor(symbols, device)
     squeeze = syms.dim() == 1
     syms = torch.atleast_2d(syms).long()
     dev = syms.device

@@ -28,7 +28,7 @@ from .chirp import dechirp_table
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "lora_tpu_torch"
-SOURCES = ("detect.cu", "track.cu", "payload.cu", "channelize.cu")
+SOURCES = ("detect.cu", "track.cu", "payload.cu", "channelize.cu", "shift.cu")
 HEADERS = ("detect.cuh",)
 # no --use_fast_math: full-precision sincosf/log10f/sqrtf keep the dB values
 # and the derotation on the plain version's float32 rounding
@@ -42,12 +42,13 @@ _F = ctypes.c_float
 _ARGTYPES = {
     "lora_detect": [_P, _L, _L, _L, _I, _P, _P, _P, _F, _F, _I, _P, _P, _P,
                     _P, _P],
-    "lora_track": [_P, _L, _L, _L, _I, _P, _I, _I, _F, _P, _P, _P, _F, _F,
+    "lora_track": [_P, _L, _L, _I, _L, _I, _P, _I, _I, _F, _P, _P, _P, _F, _F,
                    _P, _P, _P, _P, _P, _P, _P],
-    "lora_payload": [_P, _L, _L, _L, _I, _I, _P, _P, _P, _P, _F, _F, _P, _P,
-                     _P, _P],
+    "lora_payload": [_P, _L, _L, _I, _L, _I, _I, _P, _P, _P, _P, _F, _F, _P,
+                     _P, _P, _P, _P],
     "lora_channelize": [_P, _L, _L, _I, _I, _L, _P, _P, _P, _P],
     "lora_channelize_tile": [_I, _I],
+    "lora_shift": [_P, _L, _L, _I, _I, _P, _P, _P],
 }
 
 

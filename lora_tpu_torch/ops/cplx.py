@@ -16,25 +16,37 @@ import numpy as np
 import torch
 
 
-def _tensor(a, device) -> torch.Tensor:
+def resolve_device(device=None) -> torch.device:
+    """The device host data goes to: `device`, or the card when the caller
+    names none.  Never the CPU by itself: without a card the default raises
+    where the data is moved."""
+    return torch.device("cuda" if device is None else device)
+
+
+def as_tensor(a, device=None, dtype=None) -> torch.Tensor:
+    """The one coercion of every entry point that accepts host data.  A
+    tensor stays on the device its caller put it on (and moves only to a
+    `device` given by name); host data (numpy, list, scalar, another
+    framework's array) goes to resolve_device(device)."""
     if isinstance(a, torch.Tensor):
-        return a.to(device=device) if device is not None else a
+        return a.to(device=device, dtype=dtype)
     a = np.asarray(a)
     if not a.flags.writeable:  # e.g. a jax array's host view
         a = a.copy()
-    return torch.as_tensor(a, device=device)
+    return torch.as_tensor(a, dtype=dtype, device=resolve_device(device))
 
 
 def as_iq(x, device=None) -> torch.Tensor:
     """Coerce a complex tensor, complex numpy array, `(re, im)` pair or real
-    array (imag = 0) to a complex64 tensor, on `device` when given."""
+    array (imag = 0) to a complex64 tensor: a tensor where it lies, host
+    data on `device` (the card when None; see as_tensor)."""
     if hasattr(x, "re") and hasattr(x, "im"):
         # the JAX package's IQ: its integer indexing slices both planes
         return from_planar(x.re, x.im, device)
     if isinstance(x, (tuple, list)) and len(x) == 2:
         re, im = x
         return from_planar(re, im, device)
-    t = _tensor(x, device)
+    t = as_tensor(x, device)
     if t.is_complex():
         return t.to(torch.complex64)
     t = t.to(torch.float32)
@@ -43,8 +55,8 @@ def as_iq(x, device=None) -> torch.Tensor:
 
 def from_planar(re, im, device=None) -> torch.Tensor:
     """Planar float32 (re, im) arrays of any framework -> complex64 tensor."""
-    re = _tensor(re, device).to(torch.float32)
-    im = _tensor(im, device).to(torch.float32)
+    re = as_tensor(re, device, torch.float32)
+    im = as_tensor(im, device, torch.float32)
     return torch.complex(re, im)
 
 

@@ -10,6 +10,10 @@ models/demodulator._scan_track over gathered, shifted windows, and
 `payload_detect_plain` is the demodulator's fused="off" payload branch.
 The wrappers take the plain version only for a tensor on the CPU; for a
 CUDA tensor they launch the kernel or raise.
+
+The per-channel offsets (t0, data_start, fine_total) are [B], or [B, K]
+for the K candidates per channel of max_frames = K: candidate (b, k) reads
+channel b of the same x [B, T], and every output takes the offsets' shape.
 """
 
 from __future__ import annotations
@@ -31,26 +35,39 @@ def _signed(v: torch.Tensor, N: int) -> torch.Tensor:
     return torch.where(v > N // 2, v - N, v)
 
 
+def _candidates(x: torch.Tensor, offsets, name: str) -> tuple[tuple, int]:
+    """(shape, K) of per-channel offsets [B] or [B, K] over buffers x."""
+    shape = tuple(offsets.shape)
+    if len(shape) not in (1, 2) or shape[0] != x.shape[0]:
+        raise ValueError(f"{name}: expected shape [{x.shape[0]}] or "
+                         f"[{x.shape[0]}, K], got {shape}")
+    return shape, (shape[1] if len(shape) == 2 else 1)
+
+
 # --------------------------------------------------------------------------
 # track
 # --------------------------------------------------------------------------
 
 def track_plain(x: torch.Tensor, t0: torch.Tensor, sync: int, thresh: float,
                 N: int, detect=det_ops.dechirp_detect) -> dict:
-    """Sync scan + downchirp CFO from aligned starts t0 [B] in buffers
-    x [B, T] (t0 <= T - TRACK_ROWS*N).  Returns synced, k_sync, freq_error,
-    fine_total, power, snr [B] (lora_tpu/models/demodulator.py:198-278).
+    """Sync scan + downchirp CFO from aligned starts t0 [B] or [B, K] in
+    buffers x [B, T] (t0 <= T - TRACK_ROWS*N).  Returns synced, k_sync,
+    freq_error, fine_total, power, snr of t0's shape
+    (lora_tpu/models/demodulator.py:198-278).
 
     `detect` is the detector of each step's window pair and of the
     downchirp pair, called as detect(windows [B, 2, N], down=, ferr=,
     want_f_index=); kernel A's wrapper (cuda_detect.dechirp_detect) runs
     the scan over kernel B's own detect routine."""
-    B = x.shape[0]
     dev = x.device
+    lead, _ = _candidates(x, t0, "t0")
     t0 = t0.to(torch.int64)
-    xs = shift_ops.shift_windows(
+    xs = shift_ops.shift_windows_plain(
         shift_ops.gather_rows(x, t0 // N, TRACK_ROWS, N), t0 % N, N_TRACK_WIN
     )
+    # the K candidates of every channel scan as one flat batch
+    xs = xs.reshape(-1, N_TRACK_WIN, N)
+    B = xs.shape[0]
     thr = torch.tensor(thresh, dtype=torch.float32, device=dev)
     sync0, sync1 = sync >> 4, sync & 0xF
     state = torch.zeros(B, dtype=torch.int32, device=dev)
@@ -78,7 +95,7 @@ def track_plain(x: torch.Tensor, t0: torch.Tensor, sync: int, thresh: float,
     ddc = detect(rows_dc, down=True, ferr=ferr[:, None], want_f_index=False)
     freq_error = trunc_half(_signed(ddc.value[:, 0], N)
                             + _signed(ddc.value[:, 1], N)).to(torch.int32)
-    return {
+    out = {
         "synced": state == 1,
         "k_sync": k_sync,
         "freq_error": freq_error,
@@ -86,6 +103,7 @@ def track_plain(x: torch.Tensor, t0: torch.Tensor, sync: int, thresh: float,
         "power": ddc.power[:, 1],
         "snr": ddc.power[:, 1] - ddc.noise[:, 1],
     }
+    return {k: v.reshape(lead) for k, v in out.items()}
 
 
 def track(x: torch.Tensor, t0: torch.Tensor, sync: int, thresh: float,
@@ -99,14 +117,15 @@ def track(x: torch.Tensor, t0: torch.Tensor, sync: int, thresh: float,
     if T < TRACK_ROWS * N:
         raise ValueError(f"track: buffer of {T} samples < {TRACK_ROWS} windows")
     dev = x.device
-    t0 = _cuda.on_device(t0, torch.int32, dev, (B,), "t0")
-    i32 = lambda: torch.empty(B, dtype=torch.int32, device=dev)
-    f32 = lambda: torch.empty(B, dtype=torch.float32, device=dev)
+    lead, K = _candidates(x, t0, "t0")
+    t0 = _cuda.on_device(t0, torch.int32, dev, lead, "t0")
+    i32 = lambda: torch.empty(lead, dtype=torch.int32, device=dev)
+    f32 = lambda: torch.empty(lead, dtype=torch.float32, device=dev)
     state, k_sync, freq_error = i32(), i32(), i32()
     fine_total, power, snr = f32(), f32(), f32()
     up, dn, tw, rot_scale, db_scale = _cuda.consts(N, dev)
     err = _cuda.library().lora_track(
-        x.data_ptr(), x.stride(0), B, T, N, t0.data_ptr(), sync >> 4,
+        x.data_ptr(), x.stride(0), B * K, K, T, N, t0.data_ptr(), sync >> 4,
         sync & 0xF, float(thresh), up.data_ptr(), dn.data_ptr(),
         tw.data_ptr(), rot_scale, db_scale, state.data_ptr(),
         k_sync.data_ptr(), freq_error.data_ptr(), fine_total.data_ptr(),
@@ -132,25 +151,34 @@ track.launches = 0
 # --------------------------------------------------------------------------
 
 def payload_detect_plain(x: torch.Tensor, data_start: torch.Tensor,
-                         fine_total: torch.Tensor, mtu: int, N: int):
-    """mtu windows per channel from data_start [B] in buffers x [B, T],
-    dechirped, derotated by fine_total [B] and detected without the
-    fractional bin -> (value, power, noise) [B, mtu]
+                         fine_total: torch.Tensor, mtu: int, N: int,
+                         want_mag2: bool = False):
+    """mtu windows per candidate from data_start [B] or [B, K] in buffers
+    x [B, T], dechirped, derotated by fine_total (data_start's shape) and
+    detected without the fractional bin -> (value, power, noise)
+    [B, *k, mtu], and with want_mag2 a fourth value, the |FFT|^2 windows
+    float32 [B, *k, mtu, N] in natural bin order
     (lora_tpu/models/demodulator.py:560-578)."""
+    _candidates(x, data_start, "data_start")
     ds = data_start.to(torch.int64)
-    xd = shift_ops.shift_windows(
+    xd = shift_ops.shift_windows_plain(
         shift_ops.gather_rows(x, ds // N, mtu + 1, N), ds % N, mtu
     )
-    dd = det_ops.dechirp_detect(xd, ferr=fine_total[:, None],
-                                want_f_index=False)
+    dd = det_ops.dechirp_detect(xd, ferr=fine_total[..., None],
+                                want_mag2=want_mag2, want_f_index=False)
+    if want_mag2:
+        return dd.value, dd.power, dd.noise, dd.mag2
     return dd.value, dd.power, dd.noise
 
 
 def payload_detect(x: torch.Tensor, data_start: torch.Tensor,
-                   fine_total: torch.Tensor, mtu: int, N: int):
-    """Kernel C wrapper: same contract as payload_detect_plain."""
+                   fine_total: torch.Tensor, mtu: int, N: int,
+                   want_mag2: bool = False):
+    """Kernel C wrapper: same contract as payload_detect_plain; the kernel
+    itself writes the mag2 windows."""
     if x.device.type == "cpu":
-        return payload_detect_plain(x, data_start, fine_total, mtu, N)
+        return payload_detect_plain(x, data_start, fine_total, mtu, N,
+                                    want_mag2)
     _cuda.check_buffer(x, "payload_detect")
     _cuda.check_window_size(N)
     B, T = x.shape
@@ -158,19 +186,25 @@ def payload_detect(x: torch.Tensor, data_start: torch.Tensor,
         raise ValueError(f"payload_detect: buffer of {T} samples < mtu + 1 "
                          "windows")
     dev = x.device
-    ds = _cuda.on_device(data_start, torch.int32, dev, (B,), "data_start")
-    fe = _cuda.on_device(fine_total, torch.float32, dev, (B,), "fine_total")
-    value = torch.empty((B, mtu), dtype=torch.int32, device=dev)
-    power = torch.empty((B, mtu), dtype=torch.float32, device=dev)
-    noise = torch.empty((B, mtu), dtype=torch.float32, device=dev)
+    lead, K = _candidates(x, data_start, "data_start")
+    ds = _cuda.on_device(data_start, torch.int32, dev, lead, "data_start")
+    fe = _cuda.on_device(fine_total, torch.float32, dev, lead, "fine_total")
+    value = torch.empty((*lead, mtu), dtype=torch.int32, device=dev)
+    power = torch.empty((*lead, mtu), dtype=torch.float32, device=dev)
+    noise = torch.empty((*lead, mtu), dtype=torch.float32, device=dev)
+    mag2 = (torch.empty((*lead, mtu, N), dtype=torch.float32, device=dev)
+            if want_mag2 else None)
     up, _, tw, rot_scale, db_scale = _cuda.consts(N, dev)
     err = _cuda.library().lora_payload(
-        x.data_ptr(), x.stride(0), B, T, N, mtu, ds.data_ptr(), fe.data_ptr(),
-        up.data_ptr(), tw.data_ptr(), rot_scale, db_scale, value.data_ptr(),
-        power.data_ptr(), noise.data_ptr(), _cuda.stream(dev),
+        x.data_ptr(), x.stride(0), B * K, K, T, N, mtu, ds.data_ptr(),
+        fe.data_ptr(), up.data_ptr(), tw.data_ptr(), rot_scale, db_scale,
+        value.data_ptr(), power.data_ptr(), noise.data_ptr(),
+        mag2.data_ptr() if want_mag2 else None, _cuda.stream(dev),
     )
     _cuda.check(err, "lora_payload")
     payload_detect.launches += 1
+    if want_mag2:
+        return value, power, noise, mag2
     return value, power, noise
 
 

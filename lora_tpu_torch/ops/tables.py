@@ -4,9 +4,8 @@ The JAX package builds these tables inside modules that import jax
 (`lora_tpu/ops/codes.py`, `chirp.py`, `fft.py`, `pallas_demod.py`,
 `channelizer.py`, `pallas_channelize.py`); the port
 rebuilds the same values here so that neither it nor the machines it runs on
-need jax.  The scalar bit-level codecs come from `lora_tpu/ops/_bitref.py`,
-which is pure Python, loaded by file path: importing it through its package
-would run `lora_tpu/ops/__init__.py`, which imports jax.
+need jax.  The scalar bit-level codecs come from the port's own
+`ops/_bitref.py`.
 
 `tests/test_torch_tables.py` holds every table against the JAX package.
 """
@@ -14,23 +13,10 @@ would run `lora_tpu/ops/__init__.py`, which imports jax.
 from __future__ import annotations
 
 import functools
-import importlib.util
-import pathlib
 
 import numpy as np
 
-import lora_tpu  # loads only lora_tpu.config (no jax)
-
-
-def _load_bitref():
-    path = pathlib.Path(lora_tpu.__file__).parent / "ops" / "_bitref.py"
-    spec = importlib.util.spec_from_file_location("lora_tpu_torch._bitref", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-bitref = _load_bitref()
+from . import _bitref as bitref
 
 # --------------------------------------------------------------------------
 # codec LUTs (lora_tpu/ops/codes.py:33-62)
@@ -97,6 +83,24 @@ def deinterleave_gather(ppm: int, rdd: int) -> np.ndarray:
     i = np.arange(ppm)[:, None]
     k = np.arange(4 + rdd)[None, :]
     return ((i - k) % ppm).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def bin_word_gather(sf: int, ppm: int) -> np.ndarray:
+    """idx[w, j] = the FFT bins whose hard decode is the Gray-mapped word w,
+    int32 [2^ppm, width], short rows padded by repeating their last bin (a
+    max over the row is a max over the true set); ppm == sf leaves one bin
+    per word (lora_tpu/models/softdec.py:61-74)."""
+    N = 1 << sf
+    shift = sf - ppm
+    half = (1 << shift) // 2
+    q = (np.arange(N) + half) >> shift
+    w = binary_to_gray_np(q) & ((1 << ppm) - 1)
+    groups = [np.nonzero(w == ww)[0] for ww in range(1 << ppm)]
+    width = max(len(g) for g in groups)
+    idx = np.stack([np.pad(g, (0, width - len(g)), mode="edge")
+                    for g in groups])
+    return idx.astype(np.int32)
 
 
 # --------------------------------------------------------------------------

@@ -6,10 +6,7 @@ silence to another route."""
 from __future__ import annotations
 
 ITEMS = {
-    11: "multi-frame tracking",
-    12: "debug taps",
     13: "bf16 and interpret routes",
-    14: "soft-decision RX",
 }
 
 

@@ -113,3 +113,39 @@ def test_kernel_constants_are_the_plain_versions(N):
                                   tables.fft_twiddles_np(N))
     assert rot_scale == float(np.float32(-2 * math.pi / N))
     assert db_scale == float(np.float32(20 * np.log10(N)))
+
+
+def _c_signatures():
+    """{entry: [ctypes types]} read from the extern "C" declarations of the
+    sources, so that the Python argtypes cannot drift from the C side (no
+    compiler checks them: the library is loaded with ctypes)."""
+    import ctypes
+    import re
+
+    kinds = {"void*": ctypes.c_void_p, "long long": ctypes.c_longlong,
+             "int": ctypes.c_int, "float": ctypes.c_float}
+    out = {}
+    for name in _cuda.SOURCES:
+        text = (_cuda.CSRC / name).read_text()
+        for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', text):
+            args = []
+            for a in m.group(2).split(","):
+                kind = " ".join(a.replace("const ", "").split()[:-1])
+                args.append(kinds[kind])
+            out[m.group(1)] = args
+    return out
+
+
+def test_sources_and_entry_points():
+    assert "shift.cu" in _cuda.SOURCES and "lora_shift" in _cuda._ARGTYPES
+    for name in _cuda.SOURCES + _cuda.HEADERS:
+        assert (_cuda.CSRC / name).is_file(), name
+    assert sorted(p.name for p in _cuda.CSRC.iterdir()) == sorted(
+        _cuda.SOURCES + _cuda.HEADERS)
+
+
+@pytest.mark.parametrize("entry", sorted(_cuda._ARGTYPES))
+def test_argtypes_match_the_c_declarations(entry):
+    sigs = _c_signatures()
+    assert sorted(sigs) == sorted(_cuda._ARGTYPES)
+    assert sigs[entry] == _cuda._ARGTYPES[entry], entry

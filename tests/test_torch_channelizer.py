@@ -232,7 +232,7 @@ def three_channel_capture(cfg, K, rng):
     need = tapi.required_samples(cfg) + 64
     wide = 0
     for c, p in payloads.items():
-        nb = tapi.modulate(tapi.encode(p[None], cfg), cfg)[0]
+        nb = tapi.modulate(tapi.encode(p[None], cfg, device="cpu"), cfg)[0]
         nb = torch.nn.functional.pad(nb, (40 * c, need - nb.shape[-1] - 40 * c))
         wide = wide + chz.upconvert(nb, K, c)
     T = (wide.shape[-1] // (2 * K)) * (2 * K)
@@ -286,7 +286,7 @@ def test_every_even_channel_round_trip():
     N, M = cfg.N, tapi.required_samples(cfg)
     chans = np.arange(0, K, 2)
     payload = rng.integers(0, 256, (len(chans), 16)).astype(np.uint8)
-    frames = tapi.modulate(tapi.encode(payload, cfg), cfg).numpy()
+    frames = tapi.modulate(tapi.encode(payload, cfg, device="cpu"), cfg).numpy()
     u = np.zeros((K, M), np.complex64)
     n = np.arange(M)
     for i, c in enumerate(chans):
@@ -308,18 +308,21 @@ def test_every_even_channel_round_trip():
 def test_out_of_slice_options_raise():
     cfg = lora_tpu.LoRaConfig(sf=7, mtu=8)
     wide = torch.zeros(16 * tapi.required_samples(cfg), dtype=torch.complex64)
-    for kw, item in ((dict(spectra=True), 14), (dict(max_frames=2), 11),
-                     (dict(fused="bf16"), 13)):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md item {item}"):
-            tapi.channelized_demodulate(wide, 16, cfg, **kw)
+    for fused in ("bf16", "interpret", "interpret-bf16"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md item 13"):
+            tapi.channelized_demodulate(wide, 16, cfg, fused=fused)
     for kw in (dict(bf16=True), dict(impl="fir-interpret"),
                dict(impl="pallas-interpret")):
         with pytest.raises(NotImplementedError, match="ROADMAP.md item 13"):
             chz.channelize(wide, 16, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP.md item 13"):
         chz.synthesize(torch.zeros((16, 8), dtype=torch.complex64), bf16=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 12"):
-        tapi.loopback(np.zeros(4, np.uint8), cfg, debug=True)
+    # the receive options are in the port: every K channel of an empty
+    # wideband block reports no frame, with the spectra and candidate axes
+    dem, _ = tapi.channelized_demodulate(wide, 16, cfg, spectra=True,
+                                         max_frames=2)
+    assert dem.found.shape == (16, 2) and not bool(dem.found.any())
+    assert dem.fft_mag2.shape == (16, 2, cfg.mtu, cfg.N)
     assert "channelized_demodulate" in tapi.__all__
     # the demod result keeps the JAX package's field names
     names = {f.name for f in dataclasses.fields(tapi.DemodResult)}

@@ -33,7 +33,7 @@ def test_codec_matches_jax(sf, cr):
     cfg = lora_tpu.LoRaConfig(sf=sf, cr=cr, crc_check=True)
     payload = rng.integers(0, 256, (3, 21)).astype(np.uint8)
     jsym = np.asarray(japi.encode(jnp.asarray(payload), cfg)).astype(np.int32)
-    tsym = tapi.encode(payload, cfg).numpy()
+    tsym = tapi.encode(payload, cfg, device="cpu").numpy()
     np.testing.assert_array_equal(tsym, jsym)
     S = jsym.shape[-1]
     N = cfg.N
@@ -66,7 +66,7 @@ def test_codec_variants_match_jax(kw, payload_len, keep):
     cfg = lora_tpu.LoRaConfig(**kw)
     payload = rng.integers(0, 256, (2, payload_len)).astype(np.uint8)
     jsym = np.asarray(japi.encode(jnp.asarray(payload), cfg)).astype(np.int32)
-    np.testing.assert_array_equal(tapi.encode(payload, cfg).numpy(), jsym)
+    np.testing.assert_array_equal(tapi.encode(payload, cfg, device="cpu").numpy(), jsym)
     if keep is not None:
         jsym = jsym[:, :keep]
     assert_decode_equal(japi.decode(jnp.asarray(jsym), cfg),

@@ -11,20 +11,23 @@ Integer outputs must be equal; dB values, f_index and fine_total agree
 within 1e-3 (float32 FFTs of another order).  The inputs are tones and
 chirps with clear peaks, so no window sits on a near tie.  Kernel D's
 channels agree with the plain block-Toeplitz product within 1e-4 of the
-largest output (float32 sums over 8K terms in another order).
+largest output (float32 sums over 8K terms in another order).  Kernel E is
+a copy: bit-equal.  Kernel C's mag2 agrees within 1e-4 of each window's
+peak.
 """
 
 import numpy as np
 import pytest
 import torch
 
-import lora_tpu
+import lora_tpu_torch
 from lora_tpu_torch import api
 from lora_tpu_torch.models import demodulator as dm
 from lora_tpu_torch.models import modulator as tmod
 from lora_tpu_torch.ops import channelizer as chz
 from lora_tpu_torch.ops import cuda_channelize, cuda_demod, cuda_detect, tables
 from lora_tpu_torch.ops import detect as det_ops
+from lora_tpu_torch.ops import shift as shift_ops
 
 pytestmark = pytest.mark.cuda
 
@@ -113,7 +116,7 @@ def _bank(cfg, rng, B, noise):
 
 @pytest.mark.parametrize("sf", [6, 7, 10, 12])
 def test_track_kernel_matches_plain(dev, sf):
-    cfg = lora_tpu.LoRaConfig(sf=sf, cr="4/8", ampl=1.0, mtu=12)
+    cfg = lora_tpu_torch.LoRaConfig(sf=sf, cr="4/8", ampl=1.0, mtu=12)
     rng = np.random.default_rng(sf)
     x = torch.as_tensor(_bank(cfg, rng, 6, 0.2), device=dev)
     T = x.shape[1]
@@ -140,7 +143,7 @@ def test_payload_kernel_matches_plain(dev, N, mtu):
     ds = rng.integers(0, T - (mtu + 1) * N + 1, B)
     ds[0], ds[1] = 0, T - (mtu + 1) * N  # both ends of the clamp range
     syms = torch.as_tensor(rng.integers(0, N, (B, mtu + 1)))
-    cfg = lora_tpu.LoRaConfig(sf=N.bit_length() - 1)
+    cfg = lora_tpu_torch.LoRaConfig(sf=N.bit_length() - 1)
     chirps = tmod.modulate(syms, cfg).numpy()[:, -((mtu + 1 + cfg.padding) * N):]
     x = np.zeros((B, T), np.complex64)
     for b in range(B):
@@ -163,12 +166,12 @@ def test_payload_kernel_matches_plain(dev, N, mtu):
 def test_demodulate_routes_agree_on_card(dev, sf, cr):
     """fused='auto' (kernels A, B, C, one launch each) against fused='off'
     on the card: frame fields equal, payloads byte-exact."""
-    cfg = lora_tpu.LoRaConfig(sf=sf, cr=cr, ampl=1.0)
+    cfg = lora_tpu_torch.LoRaConfig(sf=sf, cr=cr, ampl=1.0)
     cfg = cfg.replace(mtu=cfg.num_symbols(10) + 4)
     rng = np.random.default_rng(sf)
     B = 8
     payload = rng.integers(0, 256, (B, 10)).astype(np.uint8)
-    frames = api.modulate(api.encode(payload, cfg), cfg).numpy()
+    frames = api.modulate(api.encode(payload, cfg, device="cpu"), cfg).numpy()
     T = api.required_samples(cfg)
     x = np.zeros((B, T), np.complex64)
     for b in range(B):
@@ -264,12 +267,13 @@ def test_channelized_demodulate_routes_agree_on_card(dev):
     frame fields equal, payloads byte-exact."""
     rng = np.random.default_rng(10)
     K = 16
-    cfg = lora_tpu.LoRaConfig(sf=7, cr="4/8", ampl=1.0)
+    cfg = lora_tpu_torch.LoRaConfig(sf=7, cr="4/8", ampl=1.0)
     cfg = cfg.replace(mtu=cfg.num_symbols(16) + 2)
     N, M = cfg.N, api.required_samples(cfg)
     S = 2
     payload = rng.integers(0, 256, (S, K // 2, 16)).astype(np.uint8)
-    frames = api.modulate(api.encode(payload.reshape(-1, 16), cfg), cfg)
+    frames = api.modulate(api.encode(payload.reshape(-1, 16), cfg,
+                                     device="cpu"), cfg)
     frames = frames.numpy().reshape(S, K // 2, -1)
     u = np.zeros((S, K, M), np.complex64)
     for s in range(S):
@@ -304,19 +308,18 @@ def test_channelized_demodulate_routes_agree_on_card(dev):
 
 
 def test_out_of_slice_options_raise_on_card(dev):
-    cfg = lora_tpu.LoRaConfig(sf=7, mtu=8)
+    cfg = lora_tpu_torch.LoRaConfig(sf=7, mtu=8)
     wide = torch.zeros((1, 16 * api.required_samples(cfg)),
                        dtype=torch.complex64, device=dev)
-    for kw, item in ((dict(spectra=True), 14), (dict(max_frames=2), 11),
-                     (dict(fused="bf16"), 13)):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md item {item}"):
-            api.channelized_demodulate(wide, 16, cfg, **kw)
+    for fused in ("bf16", "interpret", "interpret-bf16"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md item 13"):
+            api.channelized_demodulate(wide, 16, cfg, fused=fused)
     for kw in (dict(bf16=True), dict(impl="fir-interpret"),
                dict(impl="pallas-interpret")):
         with pytest.raises(NotImplementedError, match="ROADMAP.md item 13"):
             chz.channelize(wide, 16, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 12"):
-        api.loopback(np.zeros(4, np.uint8), cfg, debug=True, device=dev)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item 13"):
+        api.loopback(np.zeros(4, np.uint8), cfg, fused="bf16", device=dev)
     # a width kernel D does not take raises; it never takes the plain route
     with pytest.raises(ValueError, match="no tile fits"):
         chz.channelize(torch.zeros((1, 4096 * 4), dtype=torch.complex64,
@@ -325,3 +328,215 @@ def test_out_of_slice_options_raise_on_card(dev):
         cuda_channelize.filterbank(wide.real.contiguous(), 16, 8, 8)
     with pytest.raises(ValueError):  # fewer samples than (M + L - 1) * K
         cuda_channelize.filterbank(wide[:, :100], 16, 8, 8)
+
+
+# --------------------------------------------------------------------------
+# the receive options: kernel E, kernel C's mag2, K candidates, host data
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("lead", [(9,), (4, 3)])
+@pytest.mark.parametrize("N,R,mtu", [(128, 9, 8), (1024, 18, 17),
+                                     (4096, 6, 5), (1024, 70, 68)])
+def test_shift_kernel_bit_equal(dev, N, R, mtu, lead):
+    rng = np.random.default_rng(N + R)
+    g = crandn(rng, (*lead, R, N), dev)
+    r = rng.integers(0, N, lead)
+    r.reshape(-1)[:4] = (0, 1, N - 2, N - 1)  # even and odd, both ends
+    r = torch.as_tensor(r, device=dev)
+    before = shift_ops.shift_windows.launches
+    got = shift_ops.shift_windows(g, r, mtu)
+    torch.cuda.synchronize()
+    assert shift_ops.shift_windows.launches == before + 1
+    assert got.shape == (*lead, mtu, N)
+    assert torch.equal(got, shift_ops.shift_windows_plain(g, r, mtu))
+    # rows of a larger buffer: a channel stride above R * N
+    wide = crandn(rng, (*lead, R + 3, N), dev)
+    view = wide[..., :R, :]
+    assert torch.equal(shift_ops.shift_windows(view, r, mtu),
+                       shift_ops.shift_windows_plain(view, r, mtu))
+
+
+def test_shift_kernel_refusals(dev):
+    g = torch.zeros((2, 5, 64), dtype=torch.complex64, device=dev)
+    r = torch.zeros(2, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="rows < mtu"):
+        shift_ops.shift_windows(g, r, 5)
+    with pytest.raises(ValueError, match="expected"):
+        shift_ops.shift_windows(g, r + 64, 4)
+    with pytest.raises(TypeError, match="complex64"):
+        shift_ops.shift_windows(g.to(torch.complex128), r, 4)
+    with pytest.raises(ValueError, match="contiguous rows"):
+        shift_ops.shift_windows(g.transpose(1, 2).contiguous().transpose(1, 2),
+                                r, 4)
+    with pytest.raises(ValueError, match="16-byte"):  # an odd sample offset
+        base = torch.zeros(2 * 5 * 64 + 1, dtype=torch.complex64, device=dev)
+        shift_ops.shift_windows(base[1:].reshape(2, 5, 64), r, 4)
+
+
+def _payload_args(rng, dev, N, mtu, lead):
+    """Buffers of chirps with clear peaks, data starts and fine CFOs of
+    shape `lead` ([B] or [B, K])."""
+    B = lead[0]
+    T = (mtu + 6) * N
+    sf = N.bit_length() - 1
+    cfg = lora_tpu_torch.LoRaConfig(sf=sf)
+    syms = torch.as_tensor(rng.integers(0, N, (B, mtu + 5)))
+    chirps = tmod.modulate(syms, cfg).numpy()
+    x = chirps[:, -T:] if chirps.shape[1] >= T else np.pad(
+        chirps, ((0, 0), (0, T - chirps.shape[1])))
+    x = x + 0.05 * (rng.standard_normal((B, T))
+                    + 1j * rng.standard_normal((B, T)))
+    ds = rng.integers(0, T - (mtu + 1) * N + 1, lead)
+    fe = rng.uniform(-0.45, 0.45, lead).astype(np.float32)
+    return (torch.as_tensor(x.astype(np.complex64), device=dev),
+            torch.as_tensor(ds, device=dev), torch.as_tensor(fe, device=dev),
+            mtu, N)
+
+
+@pytest.mark.parametrize("N", [64, 128, 256, 512, 1024, 2048, 4096])
+def test_payload_kernel_mag2(dev, N):
+    rng = np.random.default_rng(N)
+    mtu = 9
+    args = _payload_args(rng, dev, N, mtu, (5,))
+    got = cuda_demod.payload_detect(*args, want_mag2=True)
+    want = cuda_demod.payload_detect_plain(*args, want_mag2=True)
+    bare = cuda_demod.payload_detect(*args)
+    assert len(got) == 4 and len(bare) == 3
+    assert got[3].shape == (5, mtu, N) and got[3].dtype == torch.float32
+    for g, b in zip(got, bare):  # the mag2 output changes nothing else
+        assert torch.equal(g, b)
+    assert torch.equal(got[0], want[0])
+    peak = want[3].amax(-1, keepdim=True)
+    assert bool(((got[3] - want[3]).abs() <= 1e-4 * peak).all())
+    # value is the lowest bin of the largest mag2 written
+    top = got[3].amax(-1, keepdim=True)
+    first = (got[3] == top).to(torch.int8).argmax(-1)
+    assert torch.equal(first, got[0].long())
+
+
+@pytest.mark.parametrize("want_mag2", [False, True])
+def test_kernels_take_k_candidates(dev, want_mag2):
+    """Kernels B and C over [B, K] offsets equal K launches over [B]
+    offsets: candidate (b, k) reads channel b of the same buffers."""
+    rng = np.random.default_rng(3)
+    B, K, N, mtu = 4, 3, 256, 10
+    args = _payload_args(rng, dev, N, mtu, (B, K))
+    x, ds, fe = args[:3]
+    before = cuda_demod.payload_detect.launches
+    got = cuda_demod.payload_detect(*args, want_mag2=want_mag2)
+    assert cuda_demod.payload_detect.launches == before + 1
+    want = cuda_demod.payload_detect_plain(*args, want_mag2=want_mag2)
+    assert got[0].shape == (B, K, mtu)
+    assert torch.equal(got[0], want[0])
+    for k in range(K):
+        one = cuda_demod.payload_detect(x, ds[:, k].contiguous(),
+                                        fe[:, k].contiguous(), mtu, N,
+                                        want_mag2=want_mag2)
+        for a, b in zip(one, got):
+            assert torch.equal(a, b[:, k])
+    if want_mag2:
+        return
+    cfg = lora_tpu_torch.LoRaConfig(sf=8, cr="4/8", ampl=1.0, mtu=12)
+    xb = torch.as_tensor(_bank(cfg, rng, B, 0.2), device=dev)
+    T = xb.shape[1]
+    t0 = torch.as_tensor(
+        rng.integers(0, T - tables.TRACK_ROWS * cfg.N, (B, K)), device=dev)
+    v, snr0, pwr = dm._coarse_detect(xb, cfg, False)
+    t0[:, 0] = dm._align_frame(v, snr0, pwr, cfg, T)[1]
+    before = cuda_demod.track.launches
+    got = cuda_demod.track(xb, t0, cfg.sync, cfg.thresh, cfg.N)
+    assert cuda_demod.track.launches == before + 1
+    want = cuda_demod.track_plain(xb, t0, cfg.sync, cfg.thresh, cfg.N)
+    assert bool(got["synced"][: B - 1, 0].all())
+    for k in range(K):
+        one = cuda_demod.track(xb, t0[:, k].contiguous(), cfg.sync,
+                               cfg.thresh, cfg.N)
+        for f, val in one.items():
+            assert val.shape == (B,) and torch.equal(val, got[f][:, k]), f
+    for f in ("synced", "k_sync", "freq_error"):
+        assert torch.equal(got[f], want[f]), f
+    for f in ("fine_total", "power", "snr"):
+        assert (got[f] - want[f]).abs().max().item() <= TOL, f
+
+
+def _two_frames(cfg, rng, B, L):
+    payload = rng.integers(0, 256, (B, 2, L)).astype(np.uint8)
+    frames = api.modulate(api.encode(payload.reshape(2 * B, L), cfg,
+                                     device="cpu"), cfg).numpy()
+    frames = frames.reshape(B, 2, -1)
+    F, N = frames.shape[-1], cfg.N
+    x = np.zeros((B, 2 * api.required_samples(cfg)), np.complex64)
+    for b in range(B):
+        d0 = int(rng.integers(0, 2 * N))
+        d1 = d0 + F + int(rng.integers(2 * N, 4 * N))
+        x[b, d0 : d0 + F] += frames[b, 0]
+        x[b, d1 : d1 + F] += 0.5 * frames[b, 1]
+    x += 0.05 * (rng.standard_normal(x.shape) + 1j * rng.standard_normal(x.shape))
+    return x.astype(np.complex64), payload
+
+
+@pytest.mark.parametrize("option", ["plain", "debug", "spectra"])
+def test_receive_options_routes_agree_on_card(dev, option):
+    """max_frames=2 with and without the taps: fused='auto' against 'off'
+    on the card, one launch of each kernel on the route's path."""
+    cfg = lora_tpu_torch.LoRaConfig(sf=7, cr="4/8", ampl=1.0, crc_check=True)
+    cfg = cfg.replace(mtu=cfg.num_symbols(6))
+    rng = np.random.default_rng(5)
+    B = 6
+    x, payload = _two_frames(cfg, rng, B, 6)
+    kw = {} if option == "plain" else {option: True}
+    wrappers = (cuda_detect.dechirp_detect, cuda_demod.track,
+                cuda_demod.payload_detect, shift_ops.shift_windows)
+    before = [w.launches for w in wrappers]
+    auto = api.demodulate(x, cfg, max_frames=2, fused="auto", device=dev, **kw)
+    assert auto.found.device.type == dev.type  # host data went to `dev`
+    assert [w.launches - n for w, n in zip(wrappers, before)] == (
+        [1, 1, 0, 1] if option == "debug" else [1, 1, 1, 0])
+    off = api.demodulate(torch.as_tensor(x, device=dev), cfg, max_frames=2,
+                         fused="off", **kw)
+    for f in ("found", "symbols", "count", "t_sync", "consumed", "freq_error"):
+        assert torch.equal(getattr(auto, f), getattr(off, f)), f
+    assert bool(auto.found.all())
+    want = [bytes(p) for p in payload.reshape(2 * B, -1).tolist()]
+    hard = api.decode(auto.symbols.reshape(2 * B, -1), cfg)
+    assert api.extract_payloads(hard) == want
+    if option == "plain":
+        assert auto.fft_mag2 is None
+        return
+    peak = off.fft_mag2.amax(-1, keepdim=True)
+    assert bool(((auto.fft_mag2 - off.fft_mag2).abs() <= 1e-4 * peak).all())
+    soft = api.decode_soft(auto.fft_mag2.reshape(2 * B, cfg.mtu, cfg.N), cfg)
+    assert api.extract_payloads(soft) == want
+    if option == "debug":
+        assert torch.equal(auto.raw, off.raw)
+        peak = off.dec.abs().amax(-1, keepdim=True)
+        assert bool(((auto.dec - off.dec).abs() <= 1e-4 * peak).all())
+
+
+def test_host_data_lands_on_the_card(dev):
+    """device=None means the card in every entry point that takes host
+    data; a tensor stays where its caller put it."""
+    cfg = lora_tpu_torch.LoRaConfig(sf=7, cr="4/8", ampl=1.0, crc_check=True)
+    cfg = cfg.replace(mtu=cfg.num_symbols(4))
+    payload = np.arange(4, dtype=np.uint8)[None]
+    sym = api.encode(payload, cfg)
+    assert sym.is_cuda
+    iq = api.modulate(sym.cpu().numpy(), cfg)
+    assert iq.is_cuda
+    dem = api.demodulate(iq.cpu().numpy(), cfg, spectra=True)
+    assert dem.symbols.is_cuda and dem.fft_mag2.is_cuda
+    assert api.decode(dem.symbols.cpu().numpy(), cfg).data.is_cuda
+    assert api.decode_soft(dem.fft_mag2.cpu().numpy(), cfg).data.is_cuda
+    assert api.soft_symbols(dem.fft_mag2.cpu().numpy(), cfg)[0].is_cuda
+    dec, dem = api.loopback(payload, cfg, soft=True)
+    assert dec.data.is_cuda and dem.found.is_cuda
+    assert api.extract_payloads(dec) == [bytes(payload[0])]
+    wide = np.zeros(4 * api.required_samples(cfg), np.complex64)
+    assert api.channelized_demodulate(wide, 4, cfg)[0].found.is_cuda
+    from lora_tpu_torch.ops import cplx
+    assert cplx.as_iq(np.zeros(4)).is_cuda
+    assert cplx.from_planar(np.zeros(4), np.zeros(4)).is_cuda
+    # tensors stay; a named device moves
+    assert not api.encode(torch.as_tensor(payload), cfg).is_cuda
+    assert not api.demodulate(iq.cpu(), cfg).found.is_cuda
+    assert not api.encode(payload, cfg, device="cpu").is_cuda

@@ -97,7 +97,7 @@ def _track_bank(rng, N, B, W):
 
     cfg = lora_tpu.LoRaConfig(sf=7, cr="4/8", ampl=1.0, sync=0x34)
     syms = torch.as_tensor(rng.integers(0, N, (B, 4)))
-    frames = tmod.modulate(syms, cfg).numpy()
+    frames = tmod.modulate(syms, cfg, device="cpu").numpy()
     T = W * N
     x = np.zeros((B, T), np.complex64)
     delay = rng.integers(0, 3 * N, B)

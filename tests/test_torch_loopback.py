@@ -28,7 +28,7 @@ def _bank(cfg, rng, B, L, noise, half_bin=False):
     CFO, phase and AWGN; the last channel is noise only.  The CFO is k + u
     bins, k in -2..2, with |u| < 0.4, or 0.45 <= |u| < 0.5 for `half_bin`."""
     payload = rng.integers(0, 256, (B, L)).astype(np.uint8)
-    frames = tapi.modulate(tapi.encode(payload, cfg), cfg).numpy()
+    frames = tapi.modulate(tapi.encode(payload, cfg, device="cpu"), cfg).numpy()
     T = tapi.required_samples(cfg)
     N = cfg.N
     x = np.zeros((B, T), np.complex64)
@@ -122,7 +122,7 @@ def test_single_buffer_and_short_input():
     cfg = lora_tpu.LoRaConfig(sf=7, cr="4/7", ampl=1.0)
     cfg = cfg.replace(mtu=cfg.num_symbols(6) + 2)
     payload = np.arange(6, dtype=np.uint8)
-    frame = tapi.modulate(tapi.encode(payload, cfg), cfg)
+    frame = tapi.modulate(tapi.encode(payload, cfg, device="cpu"), cfg)
     dem = tapi.demodulate(frame, cfg)
     jdem = japi.demodulate(jnp.asarray(frame.numpy()), cfg, fused="off")
     assert dem.found.shape == () and bool(dem.found)
@@ -142,17 +142,27 @@ def test_loopback_reference_operating_point(cr, L, seed):
     payload = np.random.default_rng(seed).integers(0, 256, (2, L)).astype(
         np.uint8)
     dec, dem = tapi.loopback(payload, cfg, noise_amplitude=4.0, seed=seed,
-                             delay=300, phase=np.pi / 1.2345)
+                             delay=300, phase=np.pi / 1.2345, device="cpu")
     assert bool(dem.found.all())
     assert tapi.extract_payloads(dec) == [bytes(p) for p in payload.tolist()]
 
 
 def test_out_of_slice_options_raise():
+    """The one option of lora_tpu.demodulate still outside the port is a
+    `fused` route other than "auto" and "off" (ROADMAP.md item 13); the
+    options of the receive slice (multi-frame, debug taps, spectra, soft
+    decoding) are accepted."""
     cfg = lora_tpu.LoRaConfig(sf=7, mtu=8)
     x = torch.zeros(tapi.required_samples(cfg), dtype=torch.complex64)
-    for kw in (dict(max_frames=2), dict(debug=True), dict(spectra=True),
-               dict(fused="bf16")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tapi.demodulate(x, cfg, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tapi.loopback(np.zeros(4, np.uint8), cfg, soft=True)
+    for fused in ("bf16", "interpret", "interpret-bf16"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md item 13"):
+            tapi.demodulate(x, cfg, fused=fused)
+        with pytest.raises(NotImplementedError, match="ROADMAP.md item 13"):
+            tapi.loopback(np.zeros(4, np.uint8), cfg, fused=fused,
+                          device="cpu")
+    for kw in (dict(max_frames=2), dict(debug=True), dict(spectra=True)):
+        assert not bool(tapi.demodulate(x, cfg, **kw).found.any())
+    dec, _ = tapi.loopback(np.arange(4, dtype=np.uint8),
+                           cfg.replace(mtu=cfg.num_symbols(4)), soft=True,
+                           device="cpu")
+    assert tapi.extract_payloads(dec) == [bytes(range(4))]

@@ -50,7 +50,7 @@ def test_modulate_matches_jax(sf, cr, pre, sync):
     payload = rng.integers(0, 256, (3, 12)).astype(np.uint8)
     jsym = japi.encode(jnp.asarray(payload), cfg)
     jiq = jcplx.to_complex(japi.modulate(jsym, cfg))
-    tiq = tapi.modulate(tapi.encode(payload, cfg), cfg)
+    tiq = tapi.modulate(tapi.encode(payload, cfg, device="cpu"), cfg)
     assert tiq.dtype == torch.complex64
     assert tiq.shape == jiq.shape == (3, cfg.frame_samples(jsym.shape[-1]))
     np.testing.assert_allclose(tiq.numpy(), jiq, rtol=0, atol=1e-5)
@@ -63,13 +63,13 @@ def test_iq_converts_between_packages():
     jiq = japi.modulate(japi.encode(jnp.arange(6, dtype=jnp.uint8)[None], cfg),
                         cfg)
     re, im = np.asarray(jiq.re), np.asarray(jiq.im)
-    t = cplx.as_iq(jiq)
+    t = cplx.as_iq(jiq, "cpu")
     assert t.dtype == torch.complex64 and t.shape == re.shape
-    for got in (cplx.to_planar(t), cplx.to_planar(cplx.from_planar(re, im))):
+    for got in (cplx.to_planar(t), cplx.to_planar(cplx.from_planar(re, im, "cpu"))):
         np.testing.assert_array_equal(got[0], re)
         np.testing.assert_array_equal(got[1], im)
-    np.testing.assert_array_equal(cplx.as_iq(re + 1j * im).numpy(),
+    np.testing.assert_array_equal(cplx.as_iq(re + 1j * im, "cpu").numpy(),
                                   t.numpy())
-    real = cplx.as_iq(re)
+    real = cplx.as_iq(re, "cpu")
     np.testing.assert_array_equal(real.real.numpy(), re)
     assert not bool(real.imag.any())

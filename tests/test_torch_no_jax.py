@@ -1,5 +1,7 @@
-"""The port imports no jax (the machines with the card have none).  Checked in
-a fresh interpreter: tests/conftest.py imports jax into this one."""
+"""The port imports no jax (the machines with the card have none) and nothing
+of the JAX package lora_tpu, not even its jax-free modules: it keeps its own
+copies.  Checked in a fresh interpreter: tests/conftest.py imports jax into
+this one."""
 
 import pathlib
 import subprocess
@@ -14,9 +16,14 @@ from lora_tpu_torch import api
 for m in pkgutil.walk_packages(lora_tpu_torch.__path__, "lora_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
-for name in ("ops.channelizer", "ops.cuda_channelize", "roadmap"):
+for name in ("ops.channelizer", "ops.cuda_channelize", "roadmap", "config",
+             "ops._bitref", "ops.shift", "models.softdec"):
     assert "lora_tpu_torch." + name in sys.modules, name
 bad = sorted(k for k in sys.modules if k == "jax" or k.startswith("jax."))
+assert not bad, bad
+# mind the prefix: lora_tpu_torch is the port, lora_tpu the JAX package
+bad = sorted(k for k in sys.modules
+             if k == "lora_tpu" or k.startswith("lora_tpu."))
 assert not bad, bad
 print("NO_JAX_OK")
 """
@@ -29,3 +36,27 @@ def test_port_imports_no_jax():
     )
     assert out.returncode == 0, out.stdout + out.stderr
     assert "NO_JAX_OK" in out.stdout
+
+
+def test_port_sources_name_no_jax_package_import():
+    """No module of the port, and not chip_smoke.py, has an import statement
+    that names lora_tpu or loads one of its files by path."""
+    import ast
+
+    files = sorted((REPO / "lora_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 20
+    for path in files:
+        tree = ast.parse(path.read_text())
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            for name in names:
+                top = name.split(".")[0]
+                assert top not in ("lora_tpu", "jax", "jaxlib"), (path, name)
+            # loading a file of the JAX package by path
+            if isinstance(node, ast.Attribute):
+                assert node.attr != "spec_from_file_location", path
