@@ -88,8 +88,9 @@ driven paths and, in launches_by_path, of each path's run alone, every
 kernel counted from 0 on every path; the error against the plain version, the kernel's, the plain
 version's and, for kernel E, one PyTorch call's time, and the bound: the
 larger of the bytes each input and output must move over 3.35 TB/s and the
-float32 operations over 67 TFLOP/s), then {"ok": true, "device": {...}}
-last.  Any failure raises and exits non-zero.  Imports no jax.
+float32 operations over 67 TFLOP/s; every other number of a row is measured
+in this run), then {"ok": true, "device": {...}} last.  Any failure raises
+and exits non-zero.  Imports no jax.
 """
 
 from __future__ import annotations
@@ -317,7 +318,7 @@ def check_detect(chk, det_ops, cuda_detect, x, down, fe, want_findex):
     def spectra(idx):
         xf = x.reshape(-1, N)[idx]
         ff = None if fe is None else torch.broadcast_to(
-            fe, x.shape[:-1]).reshape(-1)[idx][:, None]
+            fe, x.shape[:-1]).reshape(-1)[idx]
         return det_ops.dechirp_detect(xf, down, ff, want_mag2=True).mag2
 
     ok = chk.values(k.value, p.value, spectra)
@@ -339,7 +340,7 @@ def payload_spectra(det_ops, bank, ds, fine, N: int, mtu: int):
         xw = torch.take_along_dim(
             bank[b], start[:, None] + torch.arange(N, device=bank.device),
             dim=1)
-        return det_ops.dechirp_detect(xw, ferr=fine[b][:, None],
+        return det_ops.dechirp_detect(xw, ferr=fine[b],
                                       want_mag2=True).mag2
 
     return spectra
@@ -432,23 +433,19 @@ def both_routes(run, sync):
     return ms
 
 
-def flagship(torch, dev, card, sync):
-    """Step 3: the SF10 flagship bank.  -> (checks, launches, ms)."""
-    from lora_tpu_torch import api
+def hold_window_kernels(torch, bank, cfg, dev, sync):
+    """Step 3a: kernels A, B and C against their plain versions at the
+    shapes the flagship bank gives them, on whatever library the wrappers
+    load.  -> (checks by kernel, t0, data_start, fine_total): the inputs of
+    the track and payload stages, taken from the plain versions."""
     from lora_tpu_torch.models import demodulator as dm
     from lora_tpu_torch.ops import cuda_demod, cuda_detect
     from lora_tpu_torch.ops import detect as det_ops
 
-    cfg = flagship_cfg()
     N, mtu = cfg.N, cfg.mtu
-    bank, payload = make_bank(api, cfg, B_FLAGSHIP, SIGMA, SEED, dev)
     B, T = bank.shape
     W = T // N
     win = bank[:, : W * N].reshape(B, W, N)
-    print(f"bank: B={B} T={T} ({W} windows of N={N}), mtu={mtu}, "
-          f"{bank.numel() * 8 / 1e9:.2f} GB complex64", flush=True)
-
-    # ---- a. kernels vs plain at the flagship shapes ----------------------
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     chk_a = Check("detect")
     check_detect(chk_a, det_ops, cuda_detect, win, False, None, False)
@@ -487,6 +484,29 @@ def flagship(torch, dev, card, sync):
     sync()
     print(f"kernel C parity: ok, {chk_c.ties} near-tie windows, "
           f"max |err| {chk_c.max_abs_err:.3g}", flush=True)
+    checks = {"detect": chk_a, "track": chk_b, "payload": chk_c}
+    return checks, t0, ds, fine_total
+
+
+def flagship(torch, dev, card, sync):
+    """Step 3: the SF10 flagship bank.  -> (checks, launches, ms)."""
+    from lora_tpu_torch import api
+    from lora_tpu_torch.models import demodulator as dm
+    from lora_tpu_torch.ops import cuda_demod, cuda_detect
+    from lora_tpu_torch.ops import detect as det_ops
+
+    cfg = flagship_cfg()
+    N, mtu = cfg.N, cfg.mtu
+    bank, payload = make_bank(api, cfg, B_FLAGSHIP, SIGMA, SEED, dev)
+    B, T = bank.shape
+    W = T // N
+    win = bank[:, : W * N].reshape(B, W, N)
+    print(f"bank: B={B} T={T} ({W} windows of N={N}), mtu={mtu}, "
+          f"{bank.numel() * 8 / 1e9:.2f} GB complex64", flush=True)
+
+    # ---- a. kernels vs plain at the flagship shapes ----------------------
+    checks, t0, ds, fine_total = hold_window_kernels(torch, bank, cfg, dev,
+                                                     sync)
 
     # ---- b. the slice through the kernels --------------------------------
     dem, launches = count_launches(
@@ -562,7 +582,6 @@ def flagship(torch, dev, card, sync):
         rate = B * T / (e2e[route] * 1e-3) / 1e6
         print(f"time demodulate fused={route!r}: {e2e[route]:.3f} ms, "
               f"{rate:.1f} Msamples/s (B={B}, T={T}) [{card}]", flush=True)
-    checks = {"detect": chk_a, "track": chk_b, "payload": chk_c}
     n_track = dm.TRACK_ROWS - 1  # windows a channel's track stage reads
     bounds = {
         "detect": bound(B * W * (N * 8 + 12), B * W * window_flops(N, False)),

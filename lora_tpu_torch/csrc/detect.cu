@@ -9,49 +9,101 @@
 // What bounds it on the H100: reading 8 bytes per sample from device
 // memory is the floor (3.2 GB at 3.35 TB/s is about 1 ms); the FFT costs
 // about 5*log2(N) flop per sample, 50 flop/sample at N = 1024, far under
-// the card's float32 rate for that traffic.  So the kernel reads each
-// sample exactly once, straight from the channel buffer (window (b, w) of
-// a [B, W, N] view is x + b*sB + w*N: no gather and no copy), keeps the
-// dechirped window and its spectrum in shared memory, and writes 16 bytes
-// per window.  The FFT is detect.cuh's radix-2^2 routine: its first pass
-// reads the window from device memory, the middle passes work in shared
-// memory, and the last pass feeds the peak search from registers.  Those
-// shared-memory passes and their barriers, not device memory, are what a
-// later version should cut.
+// the card's float32 rate for that traffic.  Between the two lies the data
+// path of L1 and shared memory, 128 bytes per clock per SM: detect.cuh's
+// routine sends 32 bytes per sample over it at N <= 1024 (16 for the one
+// exchange of the register FFT, 8 for the dechirp entry, 8 for the pass
+// twiddle), four times what comes from device memory.  So the kernel reads
+// each sample exactly once, straight from the channel buffer into
+// registers (window (b, w) of a [B, W, N] view is x + b*sB + w*N: no gather
+// and no copy), and writes 16 bytes per window.
 //
-// Grid: one block of 256 threads holds 256/tpw windows (tpw =
-// team_threads(N), detect.cuh): four at N = 1024, one at N = 4096.
+// Grid: as many blocks of 256 threads as the card holds at once; a block
+// builds the dechirp table and the pass twiddles in shared memory once,
+// and each of its 256/T teams (detect.cuh: T = 32 at N = 1024, one warp a
+// window, 32 samples a thread) then walks over windows by itself, with no
+// block-wide barrier after the tables.
 
 #include "detect.cuh"
 
 namespace lora {
 
-template <bool kFindex>
-__global__ void __launch_bounds__(256)
+constexpr int kThreads = 256;
+
+template <int L, bool kFindex>
+__global__ void __launch_bounds__(kThreads, 2)
 detect_kernel(const float2* __restrict__ x, long long sB, long long W,
-              long long M, const float* __restrict__ fe, DetectConsts c,
+              long long M, const float* __restrict__ fe,
+              const float2* __restrict__ chirp_g,
+              const float2* __restrict__ tw_g, float rot_scale, float db_scale,
               int* __restrict__ value, float* __restrict__ power,
               float* __restrict__ noise, float* __restrict__ findex) {
+  using G = Geo<L>;
   extern __shared__ float2 smem[];
-  const int tpw = team_threads(c.N);
-  const int team = threadIdx.x / tpw;
-  const int lane = threadIdx.x - team * tpw;
-  const long long m = (long long)blockIdx.x * (blockDim.x / tpw) + team;
-  // a ragged last block still runs every thread through the block-wide
-  // barriers, on a duplicate of the last window
-  const long long mm = m < M ? m : M - 1;
-  const long long b = mm / W;
-  const long long w = mm - b * W;
-  const float f = fe != nullptr ? fe[mm] : 0.0f;
-  const DetectOut o =
-      detect_window<kFindex>(x + b * sB + w * c.N, c, f, fe != nullptr,
-                             smem + team * team_smem(c.N), lane, tpw);
-  if (lane == 0 && m < M) {
-    value[m] = o.value;
-    power[m] = o.power;
-    noise[m] = o.noise;
-    if (kFindex) findex[m] = o.findex;
+  float2* tw = smem;
+  float2* chirp = tw + G::kTw;
+  float2* bufs = chirp + G::N;
+  build_twiddles<L>(tw_g, tw);
+  for (int i = threadIdx.x; i < G::N; i += kThreads) chirp[i] = __ldg(chirp_g + i);
+  __syncthreads();
+
+  constexpr int kTeams = kThreads / G::T;
+  const int team = threadIdx.x / G::T;
+  const int lane = threadIdx.x % G::T;
+  float2* s = bufs + team * G::kBuf;
+  for (long long m = (long long)blockIdx.x * kTeams + team; m < M;
+       m += (long long)gridDim.x * kTeams) {
+    const long long b = m / W;
+    const long long w = m - b * W;
+    const float f = fe != nullptr ? fe[m] : 0.0f;
+    const DetectOut o = detect_window<L, kFindex>(
+        x + b * sB + w * G::N, chirp, tw, rot_scale * f, fe != nullptr,
+        db_scale, s, lane, team);
+    if (lane == 0) {
+      value[m] = o.value;
+      power[m] = o.power;
+      noise[m] = o.noise;
+      if (kFindex) findex[m] = o.findex;
+    }
   }
+}
+
+template <int L, bool kFindex>
+int launch_detect(const float2* x, long long sB, long long W, long long M,
+                  const float* fe, const float2* chirp, const float2* tw,
+                  float rot_scale, float db_scale, int* value, float* power,
+                  float* noise, float* findex, cudaStream_t stream) {
+  using G = Geo<L>;
+  constexpr int kTeams = kThreads / G::T;
+  const size_t smem =
+      (size_t)(G::kTw + G::N + kTeams * G::kBuf) * sizeof(float2);
+  auto kernel = detect_kernel<L, kFindex>;
+  static Resident cache{};
+  long long fit = 0;
+  cudaError_t err = resident_blocks(kernel, kThreads, smem, cache, &fit);
+  if (err != cudaSuccess) return (int)err;
+  // a grid that walks over the windows: what the card holds at once, or less
+  const long long needed = (M + kTeams - 1) / kTeams;
+  const unsigned blocks = (unsigned)(needed < fit ? needed : fit);
+  kernel<<<blocks, kThreads, smem, stream>>>(x, sB, W, M, fe, chirp, tw,
+                                             rot_scale, db_scale, value, power,
+                                             noise, findex);
+  return (int)cudaGetLastError();
+}
+
+template <int L>
+int launch_detect_any(bool want_findex, const float2* x, long long sB,
+                      long long W, long long M, const float* fe,
+                      const float2* chirp, const float2* tw, float rot_scale,
+                      float db_scale, int* value, float* power, float* noise,
+                      float* findex, cudaStream_t stream) {
+  return want_findex
+             ? launch_detect<L, true>(x, sB, W, M, fe, chirp, tw, rot_scale,
+                                      db_scale, value, power, noise, findex,
+                                      stream)
+             : launch_detect<L, false>(x, sB, W, M, fe, chirp, tw, rot_scale,
+                                       db_scale, value, power, noise, findex,
+                                       stream);
 }
 
 }  // namespace lora
@@ -68,20 +120,11 @@ extern "C" int lora_detect(const void* x, long long sB, long long B,
   using namespace lora;
   const long long M = B * W;
   if (M == 0) return 0;
-  const DetectConsts c{static_cast<const float2*>(chirp),
-                       static_cast<const float2*>(tw), N, log2_int(N),
-                       rot_scale, db_scale};
-  const int tpw = team_threads(N);
-  const int threads = 256;
-  const int wpb = threads / tpw;
-  const long long blocks = (M + wpb - 1) / wpb;
-  const size_t smem = (size_t)wpb * team_smem(N) * sizeof(float2);
-  auto kernel = want_findex ? detect_kernel<true> : detect_kernel<false>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<(unsigned)blocks, threads, smem, (cudaStream_t)stream>>>(
-      static_cast<const float2*>(x), sB, W, M, static_cast<const float*>(fe),
-      c, static_cast<int*>(value), static_cast<float*>(power),
-      static_cast<float*>(noise), static_cast<float*>(findex));
-  return (int)cudaGetLastError();
+  LORA_FOR_WINDOW_SIZE(
+      N, launch_detect_any, want_findex != 0, static_cast<const float2*>(x),
+      sB, W, M, static_cast<const float*>(fe),
+      static_cast<const float2*>(chirp), static_cast<const float2*>(tw),
+      rot_scale, db_scale, static_cast<int*>(value),
+      static_cast<float*>(power), static_cast<float*>(noise),
+      static_cast<float*>(findex), (cudaStream_t)stream)
 }

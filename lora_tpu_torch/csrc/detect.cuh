@@ -2,42 +2,77 @@
 // (detect.cu, track.cu, payload.cu), as the JAX package's fused kernels
 // share `direct_vals` / `four_step_vals` (lora_tpu/ops/pallas_detect.py).
 //
-// A "team" of tpw = team_threads(N) threads (N/16, clamped to [32, 256])
-// owns one window of N samples (N a power of two, 64..4096).  The team dechirps (and optionally
-// derotates) the window while loading it into shared memory, transforms it
-// in place over a table of twiddles, then reduces |X|^2 to the peak bin
-// (lowest index on ties), the peak and residual powers in dB and the
-// 3-point fractional bin, with the arithmetic of
-// lora_tpu/ops/detect.py:64-91.  Every thread of the block calls
-// detect_window together: the routine synchronises the whole block.
+// What bounds the routine on the H100 is not device memory (8 bytes per
+// sample, read once) but the one data path that L1 and shared memory
+// share: 128 bytes per clock per SM.  So the transform lives in registers
+// and crosses threads as rarely as the window size allows.
+//
+// A team of T = Plan<log2 N>::T threads owns one window of N samples (N a
+// power of two, 64..4096) and a thread holds E = N/T of them (8 to 32).
+// The DFT is a mixed-radix decimation in frequency, N = R0*R1 (N <= 1024)
+// or R0*R1*R2 (N = 2048, 4096), every radix 8, 16 or 32:
+//   pass 0  thread `lane` takes the columns c = lane + T*a, a < E/R0: the
+//           samples c + (N/R0)*j, j < R0, straight from device memory (a
+//           warp's load instruction reads 256 consecutive bytes), times the
+//           dechirp entry (and the derotator); an R0-point FFT in
+//           registers; output m times the pass twiddle W_N^(c*m); written
+//           to position c + (N/R0)*m of the team's exchange buffer;
+//   middle  (three passes only) the same on blocks of N/R0 positions, in
+//           place;
+//   last    thread `lane` takes the runs f = lane + T*a, a < E/Rl, of Rl
+//           consecutive positions; an Rl-point FFT in registers leaves bin
+//           kb(f) + S*m in register (a, m), S = N/Rl, and the peak search,
+//           the total, the |X|^2 output and the fractional bin's
+//           neighbours all read those registers with the bin known from
+//           (lane, register).
+// The in-register FFTs are radix-2 with the twiddles as literals, fully
+// unrolled, so every register index is a compile-time constant.  A window
+// of N <= 1024 crosses threads once: 16 bytes per sample through shared
+// memory (one write, one read, both free of bank conflicts: the buffer
+// has one float2 of padding per Rl), 8 for the dechirp entry and 8 for
+// the pass twiddle, which the kernels keep in shared memory, built once
+// per block: 32 bytes per sample in all.  N = 2048 and 4096 cross twice.
+//
+// Teams synchronise among themselves only: __syncwarp over the team's
+// lanes for T <= 32 (a warp holds 32/T windows), a named barrier
+// (bar.sync id, T) for the two- and four-warp teams of N = 2048 and 4096.
+// The routine holds no __syncthreads(): teams of a block run windows
+// independently, and a block walks over many windows.
+//
+// The reductions follow lora_tpu/ops/detect.py:64-91: peak bin (lowest
+// index on ties), peak and residual power in dB, 3-point fractional bin.
+//
+// The derotator exp(i*rot*n) of a column's samples n = c + (N/R0)*j is a
+// recurrence, exp(i*rot*c) * exp(i*rot*N/R0)^j: two sincosf a column (the
+// step's angle is exact, N/R0 being a power of two) and one complex
+// product a sample, where one sincosf a sample cost more instructions
+// than the transform.  After at most 31 steps it is within 6.4e-6 of the
+// exact rotator (tests/test_torch_fft_model.py), of the size of the plain
+// version's float32 angle rot*n at a CFO of a few bins.
 //
 // Built without --use_fast_math: sincosf, log10f and sqrtf are the full
-// precision functions, so the dB values and the derotation follow the plain
-// PyTorch version (ops/detect.py) to float32 rounding.
+// precision functions, so the dB values follow the plain PyTorch version
+// (ops/detect.py) to float32 rounding.
+//
+// Tried and not kept (NVIDIA H100 80GB HBM3, 700.00 W, SF10, 4096
+// channels): 16-byte loads of column pairs with a shuffle between
+// neighbouring lanes, 1.190 ms against 1.129 ms for kernel A.  A thread's
+// 32 independent 8-byte loads already keep 8 KB a warp in flight, and the
+// shuffles cost more than the halved load count saves.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace lora {
+#include <atomic>
 
-constexpr int kMaxTeamThreads = 256;
-constexpr int kMaxWarps = 32;
+namespace lora {
 
 struct DetectOut {
   int value;
   float power;
   float noise;
   float findex;
-};
-
-struct DetectConsts {
-  const float2* chirp;  // dechirp table [N]
-  const float2* tw;     // exp(-2*pi*i*k/N), k < N/2
-  int N;
-  int log2n;
-  float rot_scale;  // float32(-2*pi/N): derotation angle = (rot_scale*fe)*n
-  float db_scale;   // float32(20*log10(N))
 };
 
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
@@ -52,225 +87,412 @@ __device__ __forceinline__ float2 csub(float2 a, float2 b) {
   return make_float2(a.x - b.x, a.y - b.y);
 }
 
-__device__ __forceinline__ float2 mul_neg_i(float2 a) {  // a * (-i)
-  return make_float2(a.y, -a.x);
+__host__ __device__ constexpr int ilog2(int n) {
+  int l = 0;
+  while ((1 << l) < n) ++l;
+  return l;
 }
 
-// bit reversal over log2n bits: the bin held at FFT position p, and the
-// position that holds bin k (the map is its own inverse)
-__device__ __forceinline__ int bin_of(int p, int log2n) {
-  return (int)(__brev((unsigned)p) >> (32 - log2n));
+// bit reversal of p over kBits <= 5 bits
+template <int kBits>
+__host__ __device__ constexpr int brev(int p) {
+  return (((p & 1) << 4) | ((p & 2) << 2) | (p & 4) | ((p & 8) >> 2) |
+          ((p & 16) >> 4)) >> (5 - kBits);
 }
 
-// Two radix-2 DIF stages on v[0..3] = elements i, i+q, i+2q, i+3q of a
-// block of length L = 4q: w1 = W_L^i, w2 = W_{L/2}^i, and
-// W_L^(i+q) = -i * W_L^i.  kTwiddle=false is the last pass (i = 0, unit
-// twiddles, no multiplies).
-template <bool kTwiddle>
-__device__ __forceinline__ void dif4(float2 (&v)[4], float2 w1, float2 w2) {
-  const float2 b0 = cadd(v[0], v[2]), b1 = cadd(v[1], v[3]);
-  float2 b2 = csub(v[0], v[2]);
-  float2 b3 = mul_neg_i(csub(v[1], v[3]));
-  if (kTwiddle) {
-    b2 = cmul(b2, w1);
-    b3 = cmul(b3, w1);
-  }
-  v[0] = cadd(b0, b1);
-  v[1] = csub(b0, b1);
-  v[2] = cadd(b2, b3);
-  v[3] = csub(b2, b3);
-  if (kTwiddle) {
-    v[1] = cmul(v[1], w2);
-    v[3] = cmul(v[3], w2);
-  }
-}
+// The passes of each window size: P of them with radices R0, R1 (and R2),
+// and the team size T.  Every pass has N/R FFTs, a multiple of T.  The
+// radices are chosen so that the exchange is free of bank conflicts with
+// one float2 of padding per run of the last radix.
+template <int L> struct Plan;
+template <> struct Plan<6>  { enum { P = 2, R0 = 8,  R1 = 8,  R2 = 1,  T = 8 }; };
+template <> struct Plan<7>  { enum { P = 2, R0 = 16, R1 = 8,  R2 = 1,  T = 8 }; };
+template <> struct Plan<8>  { enum { P = 2, R0 = 16, R1 = 16, R2 = 1,  T = 16 }; };
+template <> struct Plan<9>  { enum { P = 2, R0 = 32, R1 = 16, R2 = 1,  T = 16 }; };
+template <> struct Plan<10> { enum { P = 2, R0 = 32, R1 = 32, R2 = 1,  T = 32 }; };
+template <> struct Plan<11> { enum { P = 3, R0 = 8,  R1 = 16, R2 = 16, T = 64 }; };
+template <> struct Plan<12> { enum { P = 3, R0 = 32, R1 = 8,  R2 = 16, T = 128 }; };
 
-// One float2 of padding after every 16 spreads the strided accesses of
-// the late passes over more shared-memory banks.
-__device__ __forceinline__ int pad(int p) { return p + (p >> 4); }
+template <int L> struct Geo {
+  using Pl = Plan<L>;
+  static constexpr int N = 1 << L;
+  static constexpr int P = Pl::P, R0 = Pl::R0, R1 = Pl::R1, R2 = Pl::R2;
+  static constexpr int T = Pl::T;
+  static constexpr int E = N / T;               // samples a thread holds
+  static constexpr int Rl = P == 2 ? R1 : R2;   // the last radix
+  static constexpr int kPadShift = ilog2(Rl);
+  static constexpr int Q0 = N / R0;             // columns of pass 0
+  // float2 elements of a team's exchange buffer: the padded window; 8 more
+  // where two 8-thread teams share a half-warp, so that their accesses fall
+  // into different banks; 8 for the cross-warp reductions of T > 32
+  static constexpr int kPadded = N + (N >> kPadShift);
+  static constexpr int kBuf =
+      kPadded + ((T == 8 && kPadded % 16 == 0) || T > 32 ? 8 : 0);
+  // float2 elements of the pass twiddles: W_N^(c*m) as [m][c] for pass 0,
+  // then W_Q0^(i*m) as [m][i] for the middle pass
+  static constexpr int kTw = N + (P == 3 ? Q0 : 0);
+  static_assert(E % R0 == 0 && E % R1 == 0 && E % Rl == 0 && E <= 32, "plan");
+  static_assert(R0 * R1 * R2 == N, "plan");
+};
 
 __device__ __forceinline__ float to_db(float a, float scale) {
   return 20.0f * log10f(fmaxf(a, 1e-20f)) - scale;
 }
 
-// Detect the window `win` (N samples, any alignment) with the team of
-// threads `lane` = 0..tpw-1, working in the team's shared buffer s
-// (team_smem(N) float2).
-// rotate=false skips the derotation (the coarse search has no fine CFO).
-// kMag2 with a non-null `mag2` also writes the window's |X|^2 there, N
-// floats in natural bin order: the values the peak search compared, so
-// `value` is the lowest bin of the largest one written.
-template <bool kFindex, bool kMag2 = false>
-__device__ DetectOut detect_window(const float2* __restrict__ win,
-                                   const DetectConsts& c, float fe,
-                                   bool rotate, float2* s, int lane,
-                                   int tpw, float* __restrict__ mag2 = nullptr) {
-  __shared__ float red_best[kMaxWarps];
-  __shared__ float red_sum[kMaxWarps];
-  __shared__ int red_idx[kMaxWarps];
-  const int N = c.N;
+// x * exp(-2*pi*i * idx/32), idx in [0, 16), a constant once the caller's
+// loops are unrolled
+__device__ __forceinline__ float2 mul_w32(float2 x, int idx) {
+  constexpr float kH = 0.70710678118654752f;
+  float c, s;  // cos and sin of 2*pi*idx/32
+  switch (idx) {
+    case 0: return x;
+    case 8: return make_float2(x.y, -x.x);
+    case 4: return make_float2((x.x + x.y) * kH, (x.y - x.x) * kH);
+    case 12: return make_float2((x.y - x.x) * kH, -(x.x + x.y) * kH);
+    case 1: c = 0.98078528040323043f; s = 0.19509032201612825f; break;
+    case 2: c = 0.92387953251128674f; s = 0.38268343236508978f; break;
+    case 3: c = 0.83146961230254524f; s = 0.55557023301960218f; break;
+    case 5: c = 0.55557023301960218f; s = 0.83146961230254524f; break;
+    case 6: c = 0.38268343236508978f; s = 0.92387953251128674f; break;
+    case 7: c = 0.19509032201612825f; s = 0.98078528040323043f; break;
+    case 9: c = -0.19509032201612825f; s = 0.98078528040323043f; break;
+    case 10: c = -0.38268343236508978f; s = 0.92387953251128674f; break;
+    case 11: c = -0.55557023301960218f; s = 0.83146961230254524f; break;
+    case 13: c = -0.83146961230254524f; s = 0.55557023301960218f; break;
+    case 14: c = -0.92387953251128674f; s = 0.38268343236508978f; break;
+    default: c = -0.98078528040323043f; s = 0.19509032201612825f; break;
+  }
+  return make_float2(x.x * c + x.y * s, x.y * c - x.x * s);
+}
 
-  __syncthreads();  // the previous window's readers are done with s
-  const float a = c.rot_scale * fe;
-
-  // Decimation in frequency over the padded shared buffer, natural order
-  // in and bit-reversed order out (position p holds X[bitrev(p)]).  Each
-  // pass fuses two radix-2 stages ("radix-2^2", block lengths L and L/2):
-  // a thread takes the elements i, i+q, i+2q, i+3q (q = L/4) of one block
-  // through both stages in registers.  The first pass reads the window
-  // straight from device memory (dechirp and derotation on the way in),
-  // and the last one feeds the peak search from registers.
-  const int q0 = N >> 2;
-  for (int g = lane; g < q0; g += tpw) {
-    float2 v[4];
+// One radix-2 stage of half-length H on v[0..R), and the stages below it.
+// Every loop bound is a template constant, so the loops unroll fully and
+// every index of v is a compile-time constant: v stays in registers.
+template <int R, int H>
+__device__ __forceinline__ void fft_stages(float2* v) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = g + j * q0;
-      v[j] = cmul(__ldg(win + n), __ldg(c.chirp + n));
+  for (int b = 0; b < R; b += 2 * H) {
+#pragma unroll
+    for (int i = 0; i < H; ++i) {
+      const float2 a = v[b + i], c = v[b + i + H];
+      v[b + i] = cadd(a, c);
+      v[b + i + H] = mul_w32(csub(a, c), i * (16 / H));
+    }
+  }
+  if constexpr (H > 1) fft_stages<R, H / 2>(v);
+}
+
+// R-point DFT of v[0..R) in registers, radix-2 decimation in frequency:
+// natural order in, bit-reversed out (v[p] holds output brev<log2 R>(p)).
+template <int R>
+__device__ __forceinline__ void fft_reg(float2* v) {
+  fft_stages<R, R / 2>(v);
+}
+
+// The lanes of this thread's team within its warp (T <= 32).
+template <int T>
+__device__ __forceinline__ unsigned team_mask() {
+  if (T >= 32) return 0xffffffffu;
+  return ((1u << (T & 31)) - 1u) << ((threadIdx.x & 31) & ~(T - 1));
+}
+
+// Barrier and memory fence among the threads of team `team` of the block.
+template <int T>
+__device__ __forceinline__ void team_sync(int team) {
+  if constexpr (T <= 32) {
+    __syncwarp(team_mask<T>());
+  } else {
+    asm volatile("bar.sync %0, %1;" ::"r"(team + 1), "n"(T) : "memory");
+  }
+}
+
+// Build the pass twiddles of Geo<L> in shared memory from the table
+// tw = exp(-2*pi*i*k/N), k < N/2; every thread of the block calls it, and
+// the caller synchronises the block afterwards.
+template <int L>
+__device__ __forceinline__ void build_twiddles(const float2* __restrict__ tw,
+                                               float2* out) {
+  using G = Geo<L>;
+  for (int i = threadIdx.x; i < G::kTw; i += blockDim.x) {
+    int e;  // the exponent of W_N
+    if (i < G::N) {
+      e = (i / G::Q0) * (i % G::Q0);
+    } else {
+      constexpr int q = G::Q0 / G::R1;
+      e = G::R0 * ((i - G::N) / q) * ((i - G::N) % q);
+    }
+    e &= G::N - 1;
+    const float2 w = __ldg(tw + (e & (G::N / 2 - 1)));
+    out[i] = e < G::N / 2 ? w : make_float2(-w.x, -w.y);
+  }
+}
+
+// Detect the window `win` (N samples, 8-byte aligned) with the team of
+// threads `lane` = 0..T-1, team `team` of the block, in the team's exchange
+// buffer s (Geo<L>::kBuf float2).  `chirp` is the dechirp table [N], `tw`
+// the pass twiddles of build_twiddles.  rotate=false skips the derotation
+// by exp(i*rot*n) (the coarse search has no fine CFO).  kMag2 also writes
+// the window's |X|^2 to `mag2`, N floats in natural bin order: the values
+// the peak search compared, so `value` is the lowest bin of the largest
+// one written.  Every thread of the team returns the same result.
+template <int L, bool kFindex, bool kMag2 = false>
+__device__ __forceinline__ DetectOut detect_window(
+    const float2* __restrict__ win, const float2* chirp, const float2* tw,
+    float rot, bool rotate, float db_scale, float2* s, int lane, int team,
+    float* __restrict__ mag2 = nullptr) {
+  using G = Geo<L>;
+  constexpr int N = G::N, T = G::T, E = G::E, P = G::P;
+  constexpr int R0 = G::R0, R1 = G::R1, Rl = G::Rl, Q0 = G::Q0;
+  constexpr int kPs = G::kPadShift;
+  float2 v[E];
+
+  // ---- pass 0: device memory -> registers -> exchange buffer -------------
+  // the derotator of sample c + Q0*j is exp(i*rot*c) * exp(i*rot*Q0)^j; the
+  // sincosf calls come before the loads, while few registers are live
+  float2 step = make_float2(1.0f, 0.0f), w0[E / R0];
+#pragma unroll
+  for (int a = 0; a < E / R0; ++a) w0[a] = make_float2(1.0f, 0.0f);
+  if (rotate) {
+    sincosf(rot * (float)Q0, &step.y, &step.x);
+#pragma unroll
+    for (int a = 0; a < E / R0; ++a)
+      sincosf(rot * (float)(lane + T * a), &w0[a].y, &w0[a].x);
+  }
+#pragma unroll
+  for (int a = 0; a < E / R0; ++a) {
+#pragma unroll
+    for (int j = 0; j < R0; ++j)
+      v[a * R0 + j] = __ldg(win + lane + T * a + Q0 * j);
+  }
+  team_sync<T>(team);  // the previous window's readers are done with s
+#pragma unroll
+  for (int a = 0; a < E / R0; ++a) {
+    const int c = lane + T * a;
+    float2 w = w0[a];
+#pragma unroll
+    for (int j = 0; j < R0; ++j) {
+      const int n = c + Q0 * j;
+      float2 x = cmul(v[a * R0 + j], chirp[n]);
       if (rotate) {
-        float sn, cs;
-        sincosf(a * (float)n, &sn, &cs);
-        v[j] = cmul(v[j], make_float2(cs, sn));
+        x = cmul(x, w);
+        w = cmul(w, step);
+      }
+      v[a * R0 + j] = x;
+    }
+    fft_reg<R0>(v + a * R0);
+#pragma unroll
+    for (int m = 0; m < R0; ++m) {
+      float2 x = v[a * R0 + brev<ilog2(R0)>(m)];
+      if (m) x = cmul(x, tw[m * Q0 + c]);
+      const int p = c + Q0 * m;
+      s[p + (p >> kPs)] = x;
+    }
+  }
+  team_sync<T>(team);
+
+  // ---- middle pass (N = 2048, 4096): blocks of Q0 positions, in place ----
+  if constexpr (P == 3) {
+    constexpr int q = Q0 / R1;  // == Rl
+#pragma unroll
+    for (int a = 0; a < E / R1; ++a) {
+      const int f = lane + T * a;
+      const int i = f % q;
+      const int base = (f / q) * Q0 + i;
+#pragma unroll
+      for (int j = 0; j < R1; ++j) {
+        const int p = base + q * j;
+        v[a * R1 + j] = s[p + (p >> kPs)];
+      }
+      fft_reg<R1>(v + a * R1);
+#pragma unroll
+      for (int m = 0; m < R1; ++m) {
+        float2 x = v[a * R1 + brev<ilog2(R1)>(m)];
+        if (m) x = cmul(x, tw[N + m * q + i]);
+        const int p = base + q * m;
+        s[p + (p >> kPs)] = x;
       }
     }
-    dif4<true>(v, __ldg(c.tw + g), __ldg(c.tw + 2 * g));
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[pad(g + j * q0)] = v[j];
-  }
-  __syncthreads();
-
-  int L = N >> 2;
-  for (int stride = 4; L > 4; L >>= 2, stride <<= 2) {
-    const int q = L >> 2;
-    for (int g = lane; g < q0; g += tpw) {
-      const int i = g & (q - 1);
-      const int p0 = ((g - i) << 2) + i;
-      float2 v[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) v[j] = s[pad(p0 + j * q)];
-      dif4<true>(v, __ldg(c.tw + i * stride), __ldg(c.tw + 2 * i * stride));
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[pad(p0 + j * q)] = v[j];
-    }
-    __syncthreads();
+    team_sync<T>(team);
   }
 
-  // last pass (L = 4: radix-2^2 with unit twiddles; L = 2 when log2(N) is
-  // odd: one radix-2 stage) fused with the peak (lowest bin on ties) and
-  // total of |X|^2; the spectrum goes back to shared memory only for the
-  // fractional bin's neighbours, or as |X|^2 for the mag2 output
+  // ---- last pass: runs of Rl positions -> bins in registers --------------
+#pragma unroll
+  for (int a = 0; a < E / Rl; ++a) {
+    const int p0 = (lane + T * a) * Rl;
+#pragma unroll
+    for (int j = 0; j < Rl; ++j) v[a * Rl + j] = s[p0 + (p0 >> kPs) + j];
+    fft_reg<Rl>(v + a * Rl);
+  }
+  float* sf = reinterpret_cast<float*>(s);
+  if (kMag2 && P == 3) team_sync<T>(team);  // s is free for the |X|^2
+
+  // register (a, m) holds bin kb(f) + S*m of run f = lane + T*a
+  constexpr int S = N / Rl;
+  int kb[E / Rl];
+#pragma unroll
+  for (int a = 0; a < E / Rl; ++a) {
+    const int f = lane + T * a;
+    kb[a] = P == 2 ? f : f / R1 + R0 * (f % R1);
+  }
+  float pw[E];
   float best = -1.0f, sum = 0.0f;
   int bi = 0;
-  auto visit = [&](int p, float2 v) {
-    const float m2 = v.x * v.x + v.y * v.y;
-    const int k = bin_of(p, c.log2n);
-    if (m2 > best || (m2 == best && k < bi)) {
-      best = m2;
-      bi = k;
-    }
-    sum += m2;
-    if (kFindex) s[pad(p)] = v;
-    // the thread that read position p is the only one that writes it
-    if (kMag2 && !kFindex) s[pad(p)].x = m2;
-  };
-  if (L == 4) {
-    for (int g = lane; g < q0; g += tpw) {
-      float2 v[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) v[j] = s[pad(4 * g + j)];
-      dif4<false>(v, make_float2(1.0f, 0.0f), make_float2(1.0f, 0.0f));
+  for (int m = 0; m < Rl; ++m) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) visit(4 * g + j, v[j]);
-    }
-  } else {
-    for (int g = lane; g < (N >> 1); g += tpw) {
-      const float2 u = s[pad(2 * g)], w = s[pad(2 * g + 1)];
-      visit(2 * g, cadd(u, w));
-      visit(2 * g + 1, csub(u, w));
+    for (int a = 0; a < E / Rl; ++a) {
+      const float2 x = v[a * Rl + brev<ilog2(Rl)>(m)];
+      const float m2 = x.x * x.x + x.y * x.y;
+      const int k = kb[a] + S * m;
+      // with two passes a thread meets its bins in increasing order
+      if (m2 > best || (P == 3 && m2 == best && k < bi)) {
+        best = m2;
+        bi = k;
+      }
+      sum += m2;
+      pw[a * Rl + m] = m2;
+      if (kMag2) {
+        // two passes: consecutive lanes hold consecutive bins
+        if (P == 2) mag2[k] = m2; else sf[k] = m2;
+      }
     }
   }
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ob = __shfl_down_sync(0xffffffffu, best, off);
-    const int oi = __shfl_down_sync(0xffffffffu, bi, off);
-    sum += __shfl_down_sync(0xffffffffu, sum, off);
+  if (kMag2 && P == 3) {
+    team_sync<T>(team);
+    for (int k = lane; k < N; k += T) mag2[k] = sf[k];
+  }
+
+  // ---- the team's peak (lowest bin on ties) and total ---------------------
+  const unsigned mask = team_mask<T>();
+#pragma unroll
+  for (int off = (T < 32 ? T : 32) / 2; off > 0; off >>= 1) {
+    const float ob = __shfl_xor_sync(mask, best, off);
+    const int oi = __shfl_xor_sync(mask, bi, off);
+    sum += __shfl_xor_sync(mask, sum, off);
     if (ob > best || (ob == best && oi < bi)) {
       best = ob;
       bi = oi;
     }
   }
-  const int warp = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) == 0) {
-    red_best[warp] = best;
-    red_sum[warp] = sum;
-    red_idx[warp] = bi;
-  }
-  __syncthreads();
-  if (kMag2 && mag2 != nullptr) {
-    // the spectrum lies bit-reversed in shared memory: gather it so that
-    // consecutive threads store consecutive bins
-    for (int k = lane; k < N; k += tpw) {
-      const float2 v = s[pad(bin_of(k, c.log2n))];
-      mag2[k] = kFindex ? v.x * v.x + v.y * v.y : v.x;
+  // the warps of a larger team meet in the words behind the padded window
+  float* red = reinterpret_cast<float*>(s + G::kPadded);
+  constexpr int nw = T / 32;
+  if (T > 32) {
+    if ((lane & 31) == 0) {
+      red[lane >> 5] = best;
+      red[4 + (lane >> 5)] = sum;
+      red[8 + (lane >> 5)] = __int_as_float(bi);
     }
-  }
-  // every thread of the team folds its team's warps in the same order
-  const int w0 = (threadIdx.x - lane) >> 5;
-  const int nw = tpw >> 5;
-  best = red_best[w0];
-  sum = red_sum[w0];
-  bi = red_idx[w0];
-  for (int w = 1; w < nw; ++w) {
-    const float ob = red_best[w0 + w];
-    const int oi = red_idx[w0 + w];
-    sum += red_sum[w0 + w];
-    if (ob > best || (ob == best && oi < bi)) {
-      best = ob;
-      bi = oi;
+    team_sync<T>(team);
+    best = red[0];
+    sum = red[4];
+    bi = __float_as_int(red[8]);
+#pragma unroll
+    for (int w = 1; w < nw; ++w) {
+      const float ob = red[w];
+      const int oi = __float_as_int(red[8 + w]);
+      sum += red[4 + w];
+      if (ob > best || (ob == best && oi < bi)) {
+        best = ob;
+        bi = oi;
+      }
     }
   }
 
   DetectOut o;
   o.value = bi;
   const float fund = sqrtf(best);
-  o.power = to_db(fund, c.db_scale);
-  o.noise = to_db(sqrtf(fmaxf(sum - best, 0.0f)), c.db_scale);
+  o.power = to_db(fund, db_scale);
+  o.noise = to_db(sqrtf(fmaxf(sum - best, 0.0f)), db_scale);
   o.findex = 0.0f;
   if (kFindex) {
-    const float2 l = s[pad(bin_of((bi - 1) & (N - 1), c.log2n))];
-    const float2 r = s[pad(bin_of((bi + 1) & (N - 1), c.log2n))];
-    const float left = sqrtf(l.x * l.x + l.y * l.y);
-    const float right = sqrtf(r.x * r.x + r.y * r.y);
+    // the peak's two neighbours: one register of one lane each
+    const int kl = (bi - 1) & (N - 1), kr = (bi + 1) & (N - 1);
+    float l = -1.0f, r = -1.0f;
+#pragma unroll
+    for (int m = 0; m < Rl; ++m) {
+#pragma unroll
+      for (int a = 0; a < E / Rl; ++a) {
+        const int k = kb[a] + S * m;
+        if (k == kl) l = pw[a * Rl + m];
+        if (k == kr) r = pw[a * Rl + m];
+      }
+    }
+#pragma unroll
+    for (int off = (T < 32 ? T : 32) / 2; off > 0; off >>= 1) {
+      l = fmaxf(l, __shfl_xor_sync(mask, l, off));
+      r = fmaxf(r, __shfl_xor_sync(mask, r, off));
+    }
+    if (T > 32) {
+      team_sync<T>(team);  // every thread has read the peak's words
+      if ((lane & 31) == 0) {
+        red[lane >> 5] = l;
+        red[4 + (lane >> 5)] = r;
+      }
+      team_sync<T>(team);
+#pragma unroll
+      for (int w = 0; w < nw; ++w) {
+        l = fmaxf(l, red[w]);
+        r = fmaxf(r, red[4 + w]);
+      }
+    }
+    const float left = sqrtf(l), right = sqrtf(r);
     const float denom = 2.0f * fund - right - left;
     o.findex = denom == 0.0f ? 0.0f : 0.5f * (right - left) / denom;
   }
   return o;
 }
 
-// Dynamic shared memory above 48 KB needs an explicit opt-in per kernel.
+// What a launch asks the runtime about one kernel on one device, asked once:
+// a launch function keeps a static Resident per kernel instantiation, so the
+// attribute and occupancy calls stay off the path of every later launch.
+struct Resident {
+  static constexpr int kDevices = 64;
+  std::atomic<int> fit[kDevices];  // blocks the device holds at once; 0: not asked
+};
+
+// Blocks of `kernel` that the current device holds at once at this block
+// size and dynamic shared memory (always the same two for one kernel).  The
+// first call on a device also opts the kernel in to more than 48 KB of
+// dynamic shared memory, which needs an explicit attribute.
 template <typename K>
-inline cudaError_t allow_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
-}
-
-inline int log2_int(int n) {
-  int l = 0;
-  while ((1 << l) < n) ++l;
-  return l;
-}
-
-// float2 elements of one team's padded shared buffer
-__host__ __device__ inline int team_smem(int N) { return N + (N >> 4); }
-
-// Samples per team thread: a team has N / kTeamElems threads, clamped to
-// one to eight warps.  16 (64 threads at N = 1024, four windows in a block
-// of 256) beat 2, 4 and 8 on the H100 (PERF.md).
-constexpr int kTeamElems = 16;
-
-__host__ __device__ inline int team_threads(int N) {
-  const int t = N / kTeamElems;
-  return t < 32 ? 32 : (t < kMaxTeamThreads ? t : kMaxTeamThreads);
+inline cudaError_t resident_blocks(K kernel, int threads, size_t smem,
+                                   Resident& cache, long long* fit) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const bool cached = dev >= 0 && dev < Resident::kDevices;
+  if (cached) {
+    *fit = cache.fit[dev].load(std::memory_order_relaxed);
+    if (*fit > 0) return cudaSuccess;
+  }
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                      smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorLaunchOutOfResources;
+  *fit = (long long)sms * per_sm;
+  if (cached) cache.fit[dev].store((int)*fit, std::memory_order_relaxed);
+  return cudaSuccess;
 }
 
 }  // namespace lora
+
+// `return fn<log2 N>(args...);` for N in 64..4096.
+#define LORA_FOR_WINDOW_SIZE(N, fn, ...)                 \
+  switch (N) {                                           \
+    case 64: return fn<6>(__VA_ARGS__);                  \
+    case 128: return fn<7>(__VA_ARGS__);                 \
+    case 256: return fn<8>(__VA_ARGS__);                 \
+    case 512: return fn<9>(__VA_ARGS__);                 \
+    case 1024: return fn<10>(__VA_ARGS__);               \
+    case 2048: return fn<11>(__VA_ARGS__);               \
+    case 4096: return fn<12>(__VA_ARGS__);               \
+    default: return (int)cudaErrorInvalidValue;          \
+  }

@@ -16,47 +16,108 @@
 // What bounds it on the H100: 8 bytes per sample read once, mtu*N samples
 // per channel (2.3 GB at SF10, mtu = 68, 4096 channels: about 0.7 ms at
 // 3.35 TB/s), plus about 5*log2(N) flop per sample for the FFT and two
-// transcendentals per sample for the derotation; the mag2 output adds 4
-// bytes written per sample.  The three Pallas
-// variants differ only in how they fit the row selection to Mosaic and
-// VMEM; here each window is read at its own offset, so one kernel covers
-// all three, with the block layout of kernel A.
+// complex products per sample for the derotation (a recurrence: detect.cuh);
+// the mag2 output adds 4 bytes written per sample.  As in kernel A, the
+// data path of L1 and shared memory (32 bytes per sample at N <= 1024,
+// detect.cuh) lies between that floor and the kernel's time.
+// The three Pallas variants differ only in how they fit the row selection
+// to Mosaic and VMEM; here each window is read at its own offset, so one
+// kernel covers all three, with the grid of kernel A: resident blocks whose
+// teams walk over the windows, the tables built once per block.  A window
+// starts at data_start, any sample of the row, so it is read by 8-byte
+// loads, never outside [0, T) of its channel's row.  With two passes the
+// |X|^2 leaves the registers in natural bin order, consecutive lanes
+// storing consecutive bins.
 
 #include "detect.cuh"
 
 namespace lora {
 
-template <bool kMag2>
-__global__ void __launch_bounds__(256)
+constexpr int kThreads = 256;
+
+template <int L, bool kMag2>
+__global__ void __launch_bounds__(kThreads, 2)
 payload_kernel(const float2* __restrict__ x, long long sB, long long T,
                int mtu, long long B, int K,
                const int* __restrict__ data_start,
-               const float* __restrict__ fine, DetectConsts c,
+               const float* __restrict__ fine,
+               const float2* __restrict__ chirp_g,
+               const float2* __restrict__ tw_g, float rot_scale, float db_scale,
                int* __restrict__ value, float* __restrict__ power,
                float* __restrict__ noise, float* __restrict__ mag2) {
+  using G = Geo<L>;
   extern __shared__ float2 smem[];
-  const int tpw = team_threads(c.N);
-  const int team = threadIdx.x / tpw;
-  const int lane = threadIdx.x - team * tpw;
+  float2* tw = smem;
+  float2* chirp = tw + G::kTw;
+  float2* bufs = chirp + G::N;
+  build_twiddles<L>(tw_g, tw);
+  for (int i = threadIdx.x; i < G::N; i += kThreads) chirp[i] = __ldg(chirp_g + i);
+  __syncthreads();
+
+  constexpr int kTeams = kThreads / G::T;
+  const int team = threadIdx.x / G::T;
+  const int lane = threadIdx.x % G::T;
+  float2* s = bufs + team * G::kBuf;
   const long long M = B * mtu;
-  const long long m = (long long)blockIdx.x * (blockDim.x / tpw) + team;
-  const long long mm = m < M ? m : M - 1;
-  const long long b = mm / mtu;
-  const long long w = mm - b * mtu;
-  // callers pass data_start clipped to the payload room; the clamp only
-  // keeps reads inside the buffer
-  long long start = data_start[b];
-  const long long hi = T - (long long)mtu * c.N;
-  start = start < 0 ? 0 : (start > hi ? hi : start);
-  const DetectOut o = detect_window<false, kMag2>(
-      x + (b / K) * sB + start + w * c.N, c, fine[b], true,
-      smem + team * team_smem(c.N), lane, tpw,
-      kMag2 && m < M ? mag2 + m * c.N : nullptr);
-  if (lane == 0 && m < M) {
-    value[m] = o.value;
-    power[m] = o.power;
-    noise[m] = o.noise;
+  const long long hi = T - (long long)mtu * G::N;
+  for (long long m = (long long)blockIdx.x * kTeams + team; m < M;
+       m += (long long)gridDim.x * kTeams) {
+    const long long b = m / mtu;
+    const long long w = m - b * mtu;
+    // callers pass data_start clipped to the payload room; the clamp only
+    // keeps reads inside the channel's row
+    long long start = data_start[b];
+    start = start < 0 ? 0 : (start > hi ? hi : start);
+    const DetectOut o = detect_window<L, false, kMag2>(
+        x + (b / K) * sB + start + w * G::N, chirp, tw, rot_scale * fine[b],
+        true, db_scale, s, lane, team, kMag2 ? mag2 + m * G::N : nullptr);
+    if (lane == 0) {
+      value[m] = o.value;
+      power[m] = o.power;
+      noise[m] = o.noise;
+    }
   }
+}
+
+template <int L, bool kMag2>
+int launch_payload(const float2* x, long long sB, long long T, int mtu,
+                   long long B, int K, const int* data_start,
+                   const float* fine, const float2* chirp, const float2* tw,
+                   float rot_scale, float db_scale, int* value, float* power,
+                   float* noise, float* mag2, cudaStream_t stream) {
+  using G = Geo<L>;
+  constexpr int kTeams = kThreads / G::T;
+  const size_t smem =
+      (size_t)(G::kTw + G::N + kTeams * G::kBuf) * sizeof(float2);
+  auto kernel = payload_kernel<L, kMag2>;
+  static Resident cache{};
+  long long fit = 0;
+  cudaError_t err = resident_blocks(kernel, kThreads, smem, cache, &fit);
+  if (err != cudaSuccess) return (int)err;
+  // a grid that walks over the windows: what the card holds at once, or less
+  const long long needed = (B * mtu + kTeams - 1) / kTeams;
+  const unsigned blocks = (unsigned)(needed < fit ? needed : fit);
+  kernel<<<blocks, kThreads, smem, stream>>>(x, sB, T, mtu, B, K, data_start,
+                                             fine, chirp, tw, rot_scale,
+                                             db_scale, value, power, noise,
+                                             mag2);
+  return (int)cudaGetLastError();
+}
+
+template <int L>
+int launch_payload_any(bool want_mag2, const float2* x, long long sB,
+                       long long T, int mtu, long long B, int K,
+                       const int* data_start, const float* fine,
+                       const float2* chirp, const float2* tw, float rot_scale,
+                       float db_scale, int* value, float* power, float* noise,
+                       float* mag2, cudaStream_t stream) {
+  return want_mag2
+             ? launch_payload<L, true>(x, sB, T, mtu, B, K, data_start, fine,
+                                       chirp, tw, rot_scale, db_scale, value,
+                                       power, noise, mag2, stream)
+             : launch_payload<L, false>(x, sB, T, mtu, B, K, data_start, fine,
+                                        chirp, tw, rot_scale, db_scale, value,
+                                        power, noise, mag2, stream);
 }
 
 }  // namespace lora
@@ -75,21 +136,13 @@ extern "C" int lora_payload(const void* x, long long sB, long long B, int K,
   using namespace lora;
   if (B == 0 || mtu == 0) return 0;
   if (K < 1) return (int)cudaErrorInvalidValue;
-  const DetectConsts c{static_cast<const float2*>(chirp),
-                       static_cast<const float2*>(tw), N, log2_int(N),
-                       rot_scale, db_scale};
-  const int tpw = team_threads(N);
-  const int threads = 256;
-  const int wpb = threads / tpw;
-  const long long blocks = (B * mtu + wpb - 1) / wpb;
-  const size_t smem = (size_t)wpb * team_smem(N) * sizeof(float2);
-  auto kernel = mag2 ? payload_kernel<true> : payload_kernel<false>;
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<(unsigned)blocks, threads, smem, (cudaStream_t)stream>>>(
-      static_cast<const float2*>(x), sB, T, mtu, B, K,
-      static_cast<const int*>(data_start), static_cast<const float*>(fine), c,
+  if (T < (long long)mtu * N) return (int)cudaErrorInvalidValue;
+  LORA_FOR_WINDOW_SIZE(
+      N, launch_payload_any, mag2 != nullptr, static_cast<const float2*>(x),
+      sB, T, mtu, B, K, static_cast<const int*>(data_start),
+      static_cast<const float*>(fine), static_cast<const float2*>(chirp),
+      static_cast<const float2*>(tw), rot_scale, db_scale,
       static_cast<int*>(value), static_cast<float*>(power),
-      static_cast<float*>(noise), static_cast<float*>(mag2));
-  return (int)cudaGetLastError();
+      static_cast<float*>(noise), static_cast<float*>(mag2),
+      (cudaStream_t)stream)
 }

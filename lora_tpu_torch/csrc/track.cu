@@ -13,10 +13,13 @@
 // 17*N samples; 0.57 GB at SF10 for 4096 channels) and transforms 28, at
 // about 5*log2(N) flop per sample each.  The 13 steps are sequential
 // within a channel, so parallelism comes from the channels: one block per
-// channel, its two teams detecting a step's window pair at once.  Window k
+// channel, its two teams (detect.cuh: a warp each at N = 1024) detecting a
+// step's window pair at once and meeting at the step's barrier.  Window k
 // is read at its own sample offset, x[b, t0 + k*N : t0 + (k+1)*N], so the
 // Pallas kernels' row gather, sub-window roll or blend and 8-row alignment
-// have no counterpart here; the state lives in shared memory.  With
+// have no counterpart here; the state lives in shared memory, beside the
+// pass twiddles the block builds once (the two dechirp tables stay in
+// device memory, read through L1: 28 windows do not repay a copy).  With
 // max_frames = K a channel has K candidates (frame slots), each with its
 // own t0: block m reads channel m / K of the same buffers.
 
@@ -27,11 +30,13 @@ namespace lora {
 constexpr int kScan = 13;          // MAX_SYNC_SEARCH
 constexpr int kTrackWindows = 17;  // scan + 2 downchirps + quarter margin
 
-__global__ void __launch_bounds__(512)
+template <int L>
+__global__ void __launch_bounds__(2 * Geo<L>::T)
 track_kernel(const float2* __restrict__ x, long long sB, long long T,
              int K, const int* __restrict__ t0, int sync0, int sync1,
-             float thresh,
-             DetectConsts up, DetectConsts down, int* __restrict__ o_state,
+             float thresh, const float2* __restrict__ up,
+             const float2* __restrict__ down, const float2* __restrict__ tw_g,
+             float rot_scale, float db_scale, int* __restrict__ o_state,
              int* __restrict__ o_ksync, int* __restrict__ o_freq,
              float* __restrict__ o_fine, float* __restrict__ o_power,
              float* __restrict__ o_snr) {
@@ -41,10 +46,10 @@ track_kernel(const float2* __restrict__ x, long long sB, long long T,
   __shared__ int sh_value[2];
   __shared__ float sh_power[2], sh_noise[2], sh_findex[2];
 
-  const int N = up.N;
-  const int tpw = blockDim.x / 2;
-  const int team = threadIdx.x / tpw;
-  const int lane = threadIdx.x - team * tpw;
+  using G = Geo<L>;
+  constexpr int N = G::N;
+  const int team = threadIdx.x / G::T;
+  const int lane = threadIdx.x % G::T;
   const long long b = blockIdx.x;
   // callers pass t0 clipped to [0, T - 18N]; the clamp only keeps reads
   // inside the buffer
@@ -52,8 +57,10 @@ track_kernel(const float2* __restrict__ x, long long sB, long long T,
   const long long hi = T - (long long)kTrackWindows * N;
   start = start < 0 ? 0 : (start > hi ? hi : start);
   const float2* xb = x + (b / K) * sB + start;
-  float2* s = smem + team * team_smem(N);
+  float2* tw = smem;
+  float2* s = tw + G::kTw + team * G::kBuf;
 
+  build_twiddles<L>(tw_g, tw);
   if (threadIdx.x == 0) {
     st_state = 0;
     st_ferr = 0.0f;
@@ -63,9 +70,9 @@ track_kernel(const float2* __restrict__ x, long long sB, long long T,
   __syncthreads();
 
   for (int k = 0; k < kScan; ++k) {
-    const DetectOut o =
-        detect_window<true>(xb + (long long)(k + team) * N, up, st_ferr, true,
-                            s, lane, tpw);
+    const DetectOut o = detect_window<L, true>(
+        xb + (long long)(k + team) * N, up, tw, rot_scale * st_ferr, true,
+        db_scale, s, lane, team);
     if (lane == 0) {
       sh_value[team] = o.value;
       sh_power[team] = o.power;
@@ -95,9 +102,9 @@ track_kernel(const float2* __restrict__ x, long long sB, long long T,
   }
 
   // downchirp pair at k_sync+2 (team 0) and k_sync+3 (team 1)
-  const DetectOut o = detect_window<false>(
-      xb + (long long)(st_ksync + 2 + team) * N, down, st_ferr, true, s, lane,
-      tpw);
+  const DetectOut o = detect_window<L, false>(
+      xb + (long long)(st_ksync + 2 + team) * N, down, tw, rot_scale * st_ferr,
+      true, db_scale, s, lane, team);
   if (lane == 0) {
     sh_value[team] = o.value;
     sh_power[team] = o.power;
@@ -117,6 +124,26 @@ track_kernel(const float2* __restrict__ x, long long sB, long long T,
   }
 }
 
+template <int L>
+int launch_track(const float2* x, long long sB, long long B, int K,
+                 long long T, const int* t0, int sync0, int sync1,
+                 float thresh, const float2* up, const float2* down,
+                 const float2* tw, float rot_scale, float db_scale, int* state,
+                 int* k_sync, int* freq_error, float* fine_total, float* power,
+                 float* snr, cudaStream_t stream) {
+  using G = Geo<L>;
+  const size_t smem = (size_t)(G::kTw + 2 * G::kBuf) * sizeof(float2);
+  static Resident cache{};
+  long long fit = 0;  // one block per candidate: only the opt-in matters here
+  cudaError_t err =
+      resident_blocks(track_kernel<L>, 2 * G::T, smem, cache, &fit);
+  if (err != cudaSuccess) return (int)err;
+  track_kernel<L><<<(unsigned)B, 2 * G::T, smem, stream>>>(
+      x, sB, T, K, t0, sync0, sync1, thresh, up, down, tw, rot_scale, db_scale,
+      state, k_sync, freq_error, fine_total, power, snr);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace lora
 
 // x: complex64 channel buffers, channel c at x + c*sB, T samples each;
@@ -132,22 +159,14 @@ extern "C" int lora_track(const void* x, long long sB, long long B, int K,
   using namespace lora;
   if (B == 0) return 0;
   if (K < 1) return (int)cudaErrorInvalidValue;
-  const int lg = log2_int(N);
-  const DetectConsts cu{static_cast<const float2*>(up),
-                        static_cast<const float2*>(tw), N, lg, rot_scale,
-                        db_scale};
-  const DetectConsts cd{static_cast<const float2*>(down),
-                        static_cast<const float2*>(tw), N, lg, rot_scale,
-                        db_scale};
-  const int threads = 2 * team_threads(N);
-  const size_t smem = 2 * (size_t)team_smem(N) * sizeof(float2);
-  cudaError_t err = allow_smem(track_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  track_kernel<<<(unsigned)B, threads, smem, (cudaStream_t)stream>>>(
-      static_cast<const float2*>(x), sB, T, K, static_cast<const int*>(t0),
-      sync0, sync1, thresh, cu, cd, static_cast<int*>(state),
-      static_cast<int*>(k_sync), static_cast<int*>(freq_error),
-      static_cast<float*>(fine_total), static_cast<float*>(power),
-      static_cast<float*>(snr));
-  return (int)cudaGetLastError();
+  if (T < (long long)kTrackWindows * N) return (int)cudaErrorInvalidValue;
+  LORA_FOR_WINDOW_SIZE(
+      N, launch_track, static_cast<const float2*>(x), sB, B, K, T,
+      static_cast<const int*>(t0), sync0, sync1, thresh,
+      static_cast<const float2*>(up), static_cast<const float2*>(down),
+      static_cast<const float2*>(tw), rot_scale, db_scale,
+      static_cast<int*>(state), static_cast<int*>(k_sync),
+      static_cast<int*>(freq_error), static_cast<float*>(fine_total),
+      static_cast<float*>(power), static_cast<float*>(snr),
+      (cudaStream_t)stream)
 }

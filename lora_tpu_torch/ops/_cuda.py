@@ -31,7 +31,7 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "lora_tpu_to
 SOURCES = ("detect.cu", "track.cu", "payload.cu", "channelize.cu", "shift.cu")
 HEADERS = ("detect.cuh",)
 # no --use_fast_math: full-precision sincosf/log10f/sqrtf keep the dB values
-# and the derotation on the plain version's float32 rounding
+# and the derotator's two factors on the plain version's float32 rounding
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 

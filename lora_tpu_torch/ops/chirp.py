@@ -20,13 +20,15 @@ from .tables import dechirp_table_np
 def chirp_phase_nums(s, n_samples: int, N: int, ovs: int = 1,
                      down: bool = False, device=None):
     """Integer phase numerators of chirp symbols s (any int shape):
-    returns (num int64 [..., n_samples] in [0, D), carry int64 [...])."""
+    returns (num int64 [..., n_samples] in [0, D), carry int64 [...]).  A
+    tensor is used where it lies; host data goes to `device` (the card when
+    None, as in every entry point: ops/cplx.as_tensor)."""
     D = N * ovs * ovs
     if D & (D - 1):
         raise ValueError("oversampling ratio must be a power of two")
     if D * 2 > 1 << 31:
         raise ValueError("N*ovs^2 too large for exact int32 phase arithmetic")
-    s = torch.as_tensor(s, dtype=torch.int64, device=device)[..., None]
+    s = cplx.as_tensor(s, device, torch.int64)[..., None]
     i1 = torch.arange(1, n_samples + 1, dtype=torch.int64, device=s.device)
     A = s * ovs + (2 * D - N * ovs // 2) % D
     tri = ((i1 * (i1 + 1)) & (2 * D - 1)) >> 1
@@ -41,7 +43,8 @@ def chirp_phase_nums(s, n_samples: int, N: int, ovs: int = 1,
 
 
 @functools.lru_cache(maxsize=None)
-def dechirp_table(N: int, down: bool = False, device="cpu") -> torch.Tensor:
-    """Unit dechirp multiplier complex64 [N]; down=False flattens up-chirps."""
+def dechirp_table(N: int, down: bool = False, device=None) -> torch.Tensor:
+    """Unit dechirp multiplier complex64 [N] on `device` (the card when
+    None); down=False flattens up-chirps."""
     re, im = dechirp_table_np(N, down)
-    return cplx.from_planar(re, im, torch.device(device))
+    return cplx.from_planar(re, im, device)

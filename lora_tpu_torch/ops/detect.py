@@ -33,7 +33,11 @@ class DetectResult:
 def rotator(ferr, N: int, device=None) -> torch.Tensor:
     """Fine-CFO derotator exp(-2j*pi*ferr*n/N), ferr in bins, broadcasting
     over leading axes.  The angle is (c * ferr) * n in float32, c = -2*pi/N
-    rounded to float32, exactly as the JAX package and the kernels form it."""
+    rounded to float32, exactly as the JAX package forms it.  The kernels
+    take the same rot = c * ferr but run the rotator as a recurrence over a
+    thread's samples (csrc/detect.cuh: two sincosf a column, then complex
+    products), within 6.4e-6 of the exact rotator after at most 31 steps
+    (tests/test_torch_fft_model.py)."""
     ferr = torch.as_tensor(ferr, dtype=torch.float32, device=device)
     n = torch.arange(N, dtype=torch.float32, device=ferr.device)
     ang = (ferr * np.float32(-2 * math.pi / N))[..., None] * n

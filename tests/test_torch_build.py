@@ -106,8 +106,8 @@ def test_buffer_and_argument_checks():
 @pytest.mark.parametrize("N", [64, 1024, 4096])
 def test_kernel_constants_are_the_plain_versions(N):
     up, down, tw, rot_scale, db_scale = _cuda.consts(N, torch.device("cpu"))
-    assert torch.equal(up, chirp.dechirp_table(N, False))
-    assert torch.equal(down, chirp.dechirp_table(N, True))
+    assert torch.equal(up, chirp.dechirp_table(N, False, "cpu"))
+    assert torch.equal(down, chirp.dechirp_table(N, True, "cpu"))
     assert tw.dtype == torch.complex64 and tw.shape == (N // 2,)
     np.testing.assert_array_equal(torch.view_as_real(tw).numpy(),
                                   tables.fft_twiddles_np(N))

@@ -414,6 +414,68 @@ def test_payload_kernel_mag2(dev, N):
     assert torch.equal(first, got[0].long())
 
 
+@pytest.mark.parametrize("N", [128, 1024, 2048])
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_windows_abut_the_end_of_the_buffer(dev, N, offset):
+    """Kernels A and C over buffers that start `offset` samples into an
+    allocation (odd: 8-byte aligned only) and whose last window ends with
+    it: every sample around the buffers is NaN, so a read outside them shows
+    in the outputs."""
+    rng = np.random.default_rng(N + offset)
+    B, W, mtu = 3, 5, 4
+    x = torch.as_tensor(tone_windows(rng, B * W, N, False), device=dev)
+    base = torch.full((offset + B * W * N,), float("nan"),
+                      dtype=torch.complex64, device=dev)
+    base[offset:] = x.reshape(-1)
+    view = base[offset:].reshape(B, W, N)
+    before = cuda_detect.dechirp_detect.launches
+    got = cuda_detect.dechirp_detect(view)
+    assert cuda_detect.dechirp_detect.launches == before + 1
+    assert_detect_close(got, det_ops.dechirp_detect(x.reshape(B, W, N)), True)
+
+    # kernel C: rows of T samples, the last channel's windows at the row's
+    # end; T - mtu*N is odd or even with `offset`, the rows alternate.  The
+    # plain version cuts mtu + 1 rows, so it gets a row of zeros more.
+    T = (mtu + 1) * N + 1 + offset
+    args = list(_payload_args(rng, dev, N, mtu, (B,)))
+    rows = args[0][:, :T]
+    base = torch.full((offset + B * T,), float("nan"), dtype=torch.complex64,
+                      device=dev)
+    base[offset:] = rows.reshape(-1)
+    args[0] = base[offset:].reshape(B, T)
+    args[1] = torch.as_tensor([0, 1, T - mtu * N], device=dev)
+    for want_mag2 in (False, True):
+        got = cuda_demod.payload_detect(*args, want_mag2=want_mag2)
+        want = cuda_demod.payload_detect_plain(
+            torch.nn.functional.pad(rows, (0, N)), *args[1:],
+            want_mag2=want_mag2)
+        assert torch.equal(got[0], want[0])
+        for g, w in zip(got[1:3], want[1:3]):
+            assert (g - w).abs().max().item() <= TOL
+        if want_mag2:
+            peak = want[3].amax(-1, keepdim=True)
+            assert bool(((got[3] - want[3]).abs() <= 1e-4 * peak).all())
+
+
+@pytest.mark.parametrize("N", [2048, 4096])
+def test_payload_mag2_over_many_windows_of_large_teams(dev, N):
+    """N = 2048 and 4096 (teams of two and four warps, three passes) with
+    mag2 over more windows than the card holds teams at once, so every team
+    walks over several windows and reuses its exchange buffer."""
+    rng = np.random.default_rng(N)
+    B, mtu = 96, 24
+    args = _payload_args(rng, dev, N, mtu, (B,))
+    got = cuda_demod.payload_detect(*args, want_mag2=True)
+    want = cuda_demod.payload_detect_plain(*args, want_mag2=True)
+    assert torch.equal(got[0], want[0])
+    for g, w in zip(got[1:3], want[1:3]):
+        assert (g - w).abs().max().item() <= TOL
+    peak = want[3].amax(-1, keepdim=True)
+    assert bool(((got[3] - want[3]).abs() <= 1e-4 * peak).all())
+    first = (got[3] == got[3].amax(-1, keepdim=True)).to(torch.int8).argmax(-1)
+    assert torch.equal(first, got[0].long())
+
+
 @pytest.mark.parametrize("want_mag2", [False, True])
 def test_kernels_take_k_candidates(dev, want_mag2):
     """Kernels B and C over [B, K] offsets equal K launches over [B]

@@ -28,7 +28,8 @@ def test_phase_numerators_exact(N, ovs):
     syms = np.concatenate([[0, 1, N - 1], rng.integers(0, N, 5)])
     for down in (False, True):
         for n_samples in (N * ovs, N * ovs // 4):
-            mine, carry = chirp.chirp_phase_nums(syms, n_samples, N, ovs, down)
+            mine, carry = chirp.chirp_phase_nums(syms, n_samples, N, ovs, down,
+                                                 device="cpu")
             want, wcarry = jax.vmap(lambda s: jchirp.chirp_phase_nums(
                 s, n_samples, N, ovs, down))(jnp.asarray(syms))
             np.testing.assert_array_equal(mine.numpy(), np.asarray(want))
@@ -42,7 +43,7 @@ def test_phase_numerators_exact(N, ovs):
 def test_modulate_matches_jax(sf, cr, pre, sync):
     cfg = lora_tpu.LoRaConfig(sf=sf, cr=cr, ampl=0.7, preamble_symbols=pre,
                               sync=sync)
-    head, carry = tmod.preamble_nums(cfg)
+    head, carry = tmod.preamble_nums(cfg, "cpu")
     jhead, jcarry = jmod.preamble_nums(cfg)
     np.testing.assert_array_equal(head.numpy(), np.asarray(jhead))
     assert carry == int(jcarry)
@@ -73,3 +74,44 @@ def test_iq_converts_between_packages():
     real = cplx.as_iq(re, "cpu")
     np.testing.assert_array_equal(real.real.numpy(), re)
     assert not bool(real.imag.any())
+
+
+def _record_default_device(monkeypatch):
+    """Stand a CPU in for the card and record what resolve_device is asked:
+    None is the request for the card."""
+    asked = []
+
+    def resolve(device=None):
+        asked.append(device)
+        return torch.device("cpu")
+
+    assert cplx.resolve_device(None).type == "cuda"
+    monkeypatch.setattr(cplx, "resolve_device", resolve)
+    return asked
+
+
+def test_chirp_phase_nums_follows_the_device_rule(monkeypatch):
+    """Host symbols go to the card unless a device is named; a tensor is
+    used where it lies."""
+    asked = _record_default_device(monkeypatch)
+    num, carry = chirp.chirp_phase_nums(np.arange(3), 16, 16)
+    assert asked == [None] and num.shape == (3, 16)
+    chirp.chirp_phase_nums(5, 16, 16, device="cpu")
+    assert asked == [None, "cpu"]
+    on_cpu, _ = chirp.chirp_phase_nums(torch.arange(3), 16, 16)
+    assert asked == [None, "cpu"] and on_cpu.device.type == "cpu"
+    assert torch.equal(on_cpu, num)
+
+
+def test_dechirp_table_follows_the_device_rule(monkeypatch):
+    """The dechirp table goes to the card unless a device is named."""
+    asked = _record_default_device(monkeypatch)
+    chirp.dechirp_table.cache_clear()
+    try:
+        t = chirp.dechirp_table(64)
+        assert asked == [None, None]  # the two planes
+        named = chirp.dechirp_table(64, False, "cpu")
+        assert asked == [None, None, "cpu", "cpu"]
+        assert torch.equal(t, named) and t.dtype == torch.complex64
+    finally:
+        chirp.dechirp_table.cache_clear()

@@ -193,7 +193,7 @@ def test_golden_encoder_symbols():
     ],
 )
 def test_golden_chirp_waveforms(key, N, ovs, nn, s, down, phase0):
-    num, _ = chirp.chirp_phase_nums(s, nn, N, ovs, down)
+    num, _ = chirp.chirp_phase_nums(s, nn, N, ovs, down, device="cpu")
     D = N * ovs * ovs
     iq = cplx.from_turns(num.to(torch.float32) / D + np.float32(phase0))
     np.testing.assert_allclose(iq.numpy(), golden_iq(key), atol=2e-3)
