@@ -13,7 +13,8 @@
       them: integer outputs equal (except windows whose plain spectrum at
       the kernel's bin is within 1e-5 relative of the peak: float32 FFTs
       of another order may order a near tie the other way), dB values,
-      f_index and fine_total within 1e-3;
+      f_index and fine_total within 1e-3; prints how many windows a
+      candidate of kernel B transforms (it ends its scan at the sync);
    b. runs demodulate(fused="auto") and decode: every frame byte-exact,
       frame fields equal to fused="off", kernels A, B, C launched; then a
       4096-channel bank whose CFOs span the whole bin (half-bin offsets
@@ -22,10 +23,13 @@
    c. times each stage and the whole demodulate, kernel against plain.
 4. Config-3 wideband bank (256 streams x 64 channels = 16,384 channels,
    SF7 CR 4/8, mtu 50, 10,240 samples per channel, 1.34 GB in):
-   a. holds kernel D (channelize) against its plain version, the block-
-      Toeplitz matrix product, with a random state: the full-width bank and
-      16 streams at K = 16, 32 and 192; max |y_D - y_plain| <= 1e-4 of
-      max |y_plain| (float32 sums over 8K terms in another order),
+   a. holds kernel D (channelize), which reads the filter history and the
+      block through two pointers, against its plain version, the block-
+      Toeplitz matrix product over their concatenation, with a random
+      state and with none (a null history): the full-width bank, 16 streams
+      at K = 16, 32 (one pass of the register FFT) and 192 (the direct
+      sum), 8 at K = 128 and 2 at K = 1024 (two passes); max |y_D -
+      y_plain| <= 1e-4 of max |y_plain| (float32 sums in another order),
       new_state equal;
    b. runs channelized_demodulate(fused="auto") and decode over frames on
       every even channel (16-byte payloads, delay in [0, N), CFO k + u bins
@@ -49,8 +53,10 @@
       beside a control: the plain route against itself with complex noise
       of that rounding's rms added to the plain bank.  No comparison may
       differ on an occupied channel;
-   d. times kernel D against its plain version and the path on both
-      routes, with the peak device memory above the input.
+   d. times kernel D on (history, block) as the path gives them (no
+      history: a null pointer) against its plain version on the
+      concatenated stream, and the path on both routes, with the peak
+      device memory above the input.
 5. The receive options on the flagship bank (4096 channels, SF10, mtu 68):
    a. holds kernel E (the sub-window shift) against its plain version,
       bit-equal (it is a copy), at the payload geometry (mtu + 1 rows, the
@@ -80,7 +86,7 @@
       bank.
    Times are CUDA events, the median of 7 after a warm-up, the better of
    two interleaved sets (plain, kernel, kernel, plain).  With the option
-   --profile, step 5 also prints each path's device time by kernel
+   --profile, steps 3, 4 and 5 also print each path's device time by kernel
    (torch.profiler over three warm calls) and the device's idle share.
 
 Prints the kernels' JSON line (kernels A to E: launches summed over the
@@ -114,9 +120,13 @@ RUNS = 7
 C3_STREAMS = 256
 C3_K = 64
 C3_SIGMA = 0.01
-# kernel D parity shapes (K, streams): the full-width bank, then each
-# geometry the JAX package gives its other kernels, and K = 192
-C3_PARITY = ((C3_K, C3_STREAMS), (16, 16), (32, 16), (192, 16))
+# kernel D parity shapes (K, streams, samples per channel; None: the
+# config's): the full-width bank, then each geometry the JAX package gives
+# its other kernels, K = 192 (the direct sum) and two more widths that take
+# two passes of the register FFT (an odd M keeps the plain product's matrix
+# at K = 1024 small)
+C3_PARITY = ((C3_K, C3_STREAMS, None), (16, 16, None), (32, 16, None),
+             (192, 16, None), (128, 8, None), (1024, 2, 2049))
 D_RTOL = 1e-4
 # Empty config-3 channels hold their neighbours' leakage, on which the sync
 # scan's decisions may go either way.  Shares of the 8,192 empty channels on
@@ -433,11 +443,36 @@ def both_routes(run, sync):
     return ms
 
 
+def scan_windows(torch, x, t0, cfg):
+    """What kernel B's scan costs on these candidates, replayed from the
+    plain scan's step log: -> (windows a candidate transforms: its steps up
+    to the sync, or all 13 without one, a lookahead at each step whose sync
+    test reads it, and the downchirp pair; distinct windows it reads)."""
+    from lora_tpu_torch.ops import cuda_demod
+    from lora_tpu_torch.ops import detect as det_ops
+    from lora_tpu_torch.ops.tables import N_SCAN
+
+    log = []
+    trk = cuda_demod.track_plain(x, t0, cfg.sync, cfg.thresh, cfg.N,
+                                 detect=logged(det_ops.dechirp_detect, log))
+    _, v, s = (torch.stack(c) for c in zip(*log[:-1]))  # [steps, candidates]
+    q = (v[..., 0] + 4) // 8
+    prev_q = torch.cat([torch.full_like(q[:1], 999), q[:-1]])
+    look = (s >= cfg.thresh) & (prev_q == 0) & (q == cfg.sync >> 4)
+    synced, k_sync = trk["synced"].reshape(-1), trk["k_sync"].reshape(-1)
+    last = torch.where(synced, k_sync, N_SCAN - 1)
+    active = torch.arange(N_SCAN, device=x.device)[:, None] <= last
+    transformed = active.sum(0) + (look & active).sum(0) + 2
+    distinct = torch.where(synced, k_sync + 4, N_SCAN)
+    return transformed, distinct
+
+
 def hold_window_kernels(torch, bank, cfg, dev, sync):
     """Step 3a: kernels A, B and C against their plain versions at the
     shapes the flagship bank gives them, on whatever library the wrappers
-    load.  -> (checks by kernel, t0, data_start, fine_total): the inputs of
-    the track and payload stages, taken from the plain versions."""
+    load.  -> (checks by kernel, t0, data_start, fine_total, scan): the
+    inputs of the track and payload stages, taken from the plain versions,
+    and scan_windows of the track stage."""
     from lora_tpu_torch.models import demodulator as dm
     from lora_tpu_torch.ops import cuda_demod, cuda_detect
     from lora_tpu_torch.ops import detect as det_ops
@@ -469,8 +504,12 @@ def hold_window_kernels(torch, bank, cfg, dev, sync):
     for f in ("fine_total", "power", "snr"):
         chk_b.close(f, kb[f], pb[f])
     sync()
-    print(f"kernel B parity: ok, max |err| {chk_b.max_abs_err:.3g}",
-          flush=True)
+    scan = scan_windows(torch, bank, t0, cfg)
+    print(f"kernel B parity: ok, max |err| {chk_b.max_abs_err:.3g}; a "
+          f"candidate transforms {float(scan[0].float().mean()):.2f} windows "
+          f"on average (at most {int(scan[0].max())}) and reads "
+          f"{float(scan[1].float().mean()):.2f} distinct ones; the plain scan "
+          "transforms 28 and reads 17", flush=True)
 
     head, fine_total = dm._head(pb, cfg, t0, t_cand, found_pre, T)
     ds = head.consumed
@@ -485,10 +524,10 @@ def hold_window_kernels(torch, bank, cfg, dev, sync):
     print(f"kernel C parity: ok, {chk_c.ties} near-tie windows, "
           f"max |err| {chk_c.max_abs_err:.3g}", flush=True)
     checks = {"detect": chk_a, "track": chk_b, "payload": chk_c}
-    return checks, t0, ds, fine_total
+    return checks, t0, ds, fine_total, scan
 
 
-def flagship(torch, dev, card, sync):
+def flagship(torch, dev, card, sync, profile=False):
     """Step 3: the SF10 flagship bank.  -> (checks, launches, ms)."""
     from lora_tpu_torch import api
     from lora_tpu_torch.models import demodulator as dm
@@ -505,8 +544,8 @@ def flagship(torch, dev, card, sync):
           f"{bank.numel() * 8 / 1e9:.2f} GB complex64", flush=True)
 
     # ---- a. kernels vs plain at the flagship shapes ----------------------
-    checks, t0, ds, fine_total = hold_window_kernels(torch, bank, cfg, dev,
-                                                     sync)
+    checks, t0, ds, fine_total, scan = hold_window_kernels(torch, bank, cfg,
+                                                           dev, sync)
 
     # ---- b. the slice through the kernels --------------------------------
     dem, launches = count_launches(
@@ -582,11 +621,16 @@ def flagship(torch, dev, card, sync):
         rate = B * T / (e2e[route] * 1e-3) / 1e6
         print(f"time demodulate fused={route!r}: {e2e[route]:.3f} ms, "
               f"{rate:.1f} Msamples/s (B={B}, T={T}) [{card}]", flush=True)
-    n_track = dm.TRACK_ROWS - 1  # windows a channel's track stage reads
+    if profile:
+        device_breakdown("demodulate(fused='auto')",
+                         lambda: api.demodulate(bank, cfg, fused="auto"),
+                         e2e["auto"], sync, top=12)
+    # the track stage ends a candidate's scan at its sync: the windows this
+    # bank makes it read and transform (scan_windows), not the most it could
     bounds = {
         "detect": bound(B * W * (N * 8 + 12), B * W * window_flops(N, False)),
-        "track": bound(B * (n_track * N * 8 + 24),
-                       B * 28 * window_flops(N, True)),
+        "track": bound(float(scan[1].sum()) * N * 8 + B * 24,
+                       float(scan[0].sum()) * window_flops(N, True)),
         "payload": bound(B * mtu * (N * 8 + 12),
                          B * mtu * window_flops(N, True)),
     }
@@ -741,7 +785,7 @@ def differing(what, a, b, occupied):
     return out
 
 
-def config3(torch, dev, card, sync, checks):
+def config3(torch, dev, card, sync, checks, profile=False):
     """Step 4: the config-3 wideband bank.  -> (check, launches, ms)."""
     from lora_tpu_torch import api
     from lora_tpu_torch.ops import channelizer as chz
@@ -758,17 +802,23 @@ def config3(torch, dev, card, sync, checks):
     # ---- a. kernel D vs plain --------------------------------------------
     gen = torch.Generator(device=dev).manual_seed(SEED + 10)
     chk_d = Check("channelize")
-    for k, s in C3_PARITY:
-        x = awgn((s, k * M), 1.0, gen, dev)
-        st = awgn((s, L * k - 1), 1.0, gen, dev)
-        yk, sk = chz.channelize(x, k, state=st)
-        yp, sp = chz.channelize(x, k, state=st, impl="xla")
-        rel = chk_d.close_rel(f"K={k}", yk, yp, D_RTOL)
-        if not torch.equal(sk, sp):
-            raise AssertionError(f"channelize: new_state differs at K={k}")
-        print(f"kernel D parity K={k} S={s} M={M}: max |y_D - y_plain| = "
-              f"{rel:.3g} of max |y_plain|, new_state equal", flush=True)
-        del x, st, yk, yp
+    for k, s, m in C3_PARITY:
+        m = m or M
+        x = awgn((s, k * m), 1.0, gen, dev)
+        rel = {}
+        for st in (awgn((s, L * k - 1), 1.0, gen, dev), None):
+            yk, sk = chz.channelize(x, k, state=st)
+            yp, sp = chz.channelize(x, k, state=st, impl="xla")
+            rel[st is None] = chk_d.close_rel(f"K={k}", yk, yp, D_RTOL)
+            if not torch.equal(sk, sp):
+                raise AssertionError(f"channelize: new_state differs at "
+                                     f"K={k}")
+            del yk, yp, sk, sp
+        print(f"kernel D parity K={k} S={s} M={m} (route "
+              f"{cuda_channelize.route(k, L)}): max |y_D - y_plain| = "
+              f"{rel[False]:.3g} of max |y_plain| with a state, "
+              f"{rel[True]:.3g} with none; new_state equal", flush=True)
+        del x, st
     sync()
 
     # ---- b. the path through the kernels ---------------------------------
@@ -881,12 +931,13 @@ def config3(torch, dev, card, sync, checks):
     del ref
 
     # ---- d. times ---------------------------------------------------------
-    xp = torch.cat([wide.new_zeros((S, hist)), wide], -1)
-    ms = interleaved(lambda: cuda_channelize.filterbank(xp, K, L, M),
+    xp = chz.prepended(wide, None, hist)
+    ms = interleaved(lambda: cuda_channelize.filterbank(wide, K, L),
                      lambda: cuda_channelize.filterbank_plain(xp, K, L, M),
                      sync)
-    print(f"time channelize: kernel {ms[0]:.3f} ms, plain {ms[1]:.3f} ms "
-          f"(S={S}, K={K}, M={M}) [{card}]", flush=True)
+    print(f"time channelize: kernel {ms[0]:.3f} ms on (no history, block), "
+          f"plain {ms[1]:.3f} ms on the concatenated stream (S={S}, K={K}, "
+          f"M={M}) [{card}]", flush=True)
     del xp
     e2e = both_routes(
         lambda route: api.channelized_demodulate(wide, K, cfg, fused=route),
@@ -901,9 +952,13 @@ def config3(torch, dev, card, sync, checks):
               f"{S * K} channels, peak {peak:.2f} GB above the "
               f"{wide.numel() * 8 / 1e9:.2f} GB input (S={S}, T={T}) "
               f"[{card}]", flush=True)
+    if profile:
+        device_breakdown(
+            "channelized_demodulate(fused='auto')",
+            lambda: api.channelized_demodulate(wide, K, cfg, fused="auto"),
+            e2e["auto"], sync, top=12)
     # each sample in and out once; per output sample 4L flop for the FIR
     # and 5 log2 K for the K-point IDFT, the fewest a fast transform needs
-    # (kernel D's direct sum spends 8K there; the bound is the function's)
     bound_d = bound(2 * S * K * M * 8,
                     S * K * M * (5 * math.log2(K) + 4 * L))
     return chk_d, launches, ms, bound_d
@@ -1172,6 +1227,7 @@ def receive_options(torch, dev, card, sync, checks, profile=False):
         chk_b.equal(f"{f} with [B, 2] candidates", kb[f], pb[f])
     for f in ("fine_total", "power", "snr"):
         chk_b.close(f"{f} with [B, 2] candidates", kb[f], pb[f])
+    scan2 = scan_windows(torch, two, t0, cfg)
     head, fine = dm._head(pb, cfg, t0, t_cand, found_pre, T2)
     ds = head.consumed
     if tuple(ds.shape) != (B, 2):
@@ -1189,7 +1245,9 @@ def receive_options(torch, dev, card, sync, checks, profile=False):
     sync()
     print(f"kernels B and C parity with [B, 2] candidates (B={B}, "
           f"T={T2}): ok; B's synced, k_sync, freq_error equal and "
-          f"fine_total, power, snr within {TOL}; C's values equal but for "
+          f"fine_total, power, snr within {TOL}, "
+          f"{float(scan2[0].float().mean()):.2f} windows transformed a "
+          f"candidate; C's values equal but for "
           f"{chk_c.ties - ties} near-tie windows, power and noise within "
           f"{TOL}, mag2 within {err:.3g} of each window's peak", flush=True)
     del kc, pc, ok, head, fine, ds, t0, t_cand, found_pre
@@ -1254,14 +1312,15 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t:.1f} s "
           f"({_cuda.library_path().name})", flush=True)
 
-    checks, launches, ms, bounds = flagship(torch, dev, card, sync)
+    profile = "--profile" in sys.argv[1:]
+    checks, launches, ms, bounds = flagship(torch, dev, card, sync, profile)
     torch.cuda.empty_cache()
     (checks["channelize"], c3_launches, ms["channelize"],
-     bounds["channelize"]) = config3(torch, dev, card, sync, checks)
+     bounds["channelize"]) = config3(torch, dev, card, sync, checks, profile)
     torch.cuda.empty_cache()
     (checks["shift"], by_path, ms["shift"], lib_shift,
      bounds["shift"]) = receive_options(torch, dev, card, sync, checks,
-                                        "--profile" in sys.argv[1:])
+                                        profile)
     # every driven path's run, each counted from 0
     by_path = {"demodulate(fused='auto')": launches,
                "channelized_demodulate(fused='auto')": c3_launches, **by_path}

@@ -4,52 +4,337 @@
 // _filterbank_fir (pallas_call at :376, the factorized FIR + IDFT form with
 // channel-major output) and _filterbank (pallas_call at :187, the dense
 // block-Toeplitz product y = z0*W1 + z1*W2 with channel-minor output).  The
-// two exist to fit the TPU's lanes and VMEM; this kernel computes the
+// two exist to fit the TPU's lanes and VMEM; here one entry computes the
 // factorized form for any K and L whose tile fits shared memory:
 //
 //   u[m, q] = sum_l hp[l, q] * x2[m + L-1-l, q]          per-lane FIR
 //   y[k, m] = sum_q u[m, q] * W[((K-1-q) * k) mod K]     K-point IDFT
 //
-// with x2[r, q] = xp[r*K + q] the (rows, K) view of the state-prepended
-// stream, hp the taps with the commutator's lane flip folded in
+// with x2[r, q] = xp[r*K + q] the (rows, K) view of the stream xp = history
+// ++ block, hp the taps with the commutator's lane flip folded in
 // (tables.fir_taps_flipped) and W the K-entry table e^{+2 pi i j/K}, rounded
-// from float64 as tables.idft_k rounds it.  The caller concatenates
-// state ++ x before the launch (one extra pass, as the JAX package does), so
-// the kernel reads one stream pointer with a row stride.  The output is
-// channel-major complex64 [S, K, M], contiguous, so that reshape(S*K, M) is
-// the demod bank with no copy.
+// from float64 as tables.idft_k rounds it.  The output is channel-major
+// complex64 [S, K, M], contiguous, so that reshape(S*K, M) is the demod bank
+// with no copy.
 //
-// What bounds it on the H100: per output sample the FIR costs 4L flop and
-// the IDFT 8K (544 flop at K = 64, L = 8), while the sample moves 16 bytes
-// (8 in, 8 out).  At the config-3 bank (256 streams x 64 channels x 10,240
-// samples) that is 91 GFLOP against 2.7 GB: about 1.4 ms at the 67 TFLOP/s
-// float32 rate and 0.8 ms at 3.35 TB/s.  This direct sum is therefore bound by
-// its float32 arithmetic (the function itself is not: a fast K-point transform
-// needs about 5 log2 K = 30 flop per sample, which leaves the 0.8 ms of
-// traffic as the bound), and the design feeds the FMA pipes: each thread
-// keeps a register tile of kKB channels x kMB samples, so one u value loaded
-// from shared memory serves kKB complex multiply-adds and one twiddle serves
-// kMB; the twiddle index steps by -k per q with one conditional wrap, no
-// integer division.  The dense form (about 8*(L+G-1)*K flop per sample, 14x
-// more at G = 8) is the plain version's matrix product, not this kernel's.
+// The stream is read through two pointers: sample i of stream s is
+// hist[s, i] for i < L*K - 1 (a null `hist` reads as zeros: a filter that
+// starts from rest) and x[s, i - (L*K - 1)] after, each with its own row
+// stride.  Nobody concatenates history and block in device memory, and
+// nobody allocates a zero history.  The block's part starts at an odd
+// sample, so every load is 8 bytes.
 //
-// Block: one (stream, tile of TM output samples).  It stages the TM + L - 1
-// rows of K samples it needs into shared memory (row stride K + 1 against
-// bank conflicts; rows past the stream's M + L - 1 read as zero), runs the
-// FIR into u[K][TM], then the IDFT with threads mapped to m, so each channel
-// row's stores are coalesced.  Outputs past M are masked.  TM is chosen per
-// (K, L) here, in lora_channelize_tile, which the wrapper
-// (ops/cuda_channelize.py) also asks so that a width with no tile raises
-// ValueError before the launch; wgmma and TMA are for a later version.
+// The second line is a forward K-point DFT in disguise:
+//   W[((K-1-q) k) mod K] = e^{-2 pi i (q+1) k / K},
+// so with u'[p] = u[m, (p - 1) mod K] (the phases rotated by one, which costs
+// only an index) y[k, m] = sum_p u'[p] e^{-2 pi i p k / K}: no per-channel
+// twist is left to multiply.
+//
+// What bounds it on the H100: a sample moves 16 bytes of device memory (8
+// in, 8 out: 2.7 GB, 0.80 ms at 3.35 TB/s for the bank of 256 streams x 64
+// channels x 10,240 samples) and costs 4L flop for the FIR and about
+// 5 log2 K for a fast transform (62 at K = 64, L = 8: 0.16 ms at the float32
+// rate), so device memory is the floor.  Next above it is the data path of
+// shared memory and L1, 128 bytes a clock on each SM: the FIR reads L
+// staged samples (8L bytes) and L taps for each output sample.
+//
+// Two routes, chosen by K alone (lora_channelize_route):
+//
+// 1. K a power of two from 8 to 1024: channelize_fft_kernel<log2 K, LT>.  A
+//    block owns one stream's tile of TM output samples.  It stages the
+//    TM + L - 1 rows of K samples it needs in shared memory, once, by
+//    cp.async, so that every load of the tile is in flight at once and none
+//    waits in a register (row stride K + 1, so that lanes on consecutive
+//    rows hit different banks; rows past the stream's end are stored as
+//    zero).  The lanes of a warp run
+//    along m: thread (m, c) computes the R0 values u'[c + (K/R0) j] of its
+//    sample by the FIR straight into registers, transforms them (fft.cuh:
+//    radix-2 in registers, every index a literal), multiplies output m' by
+//    the pass twiddle W_K^(c m') from a table in shared memory and writes
+//    position c + (K/R0) m' of the exchange buffer [position][TM]; after one
+//    barrier thread (m, f) reads the R1 consecutive positions of run f,
+//    transforms them and stores channel f + R0 m'' of its sample.  K = 8,
+//    16, 32 take one pass (no exchange); 64 = 8 x 8, 128 = 16 x 8, 256 =
+//    16 x 16, 512 = 32 x 16, 1024 = 32 x 32 take two.  With the lanes along
+//    m every store of a channel row is TM consecutive samples and every
+//    access of the exchange buffer is a run of consecutive 8-byte words: no
+//    bank conflict at TM >= 16.  At K = 1024 only TM = 8 fits; there a
+//    half-warp holds two columns, the staged rows have stride K + 2 and the
+//    exchange buffer one padding row per run, which keeps both conflict-free.
+//    The exchange buffer lies over the staged rows (a barrier between the
+//    FIR and the exchange), so shared memory is what the rows take.
+// 2. every other K (24, 192, ...): channelize_kernel, the direct sum over q,
+//    8K flop a sample, bound by its float32 arithmetic (4.6 ms for the bank
+//    above when it was the only route).  Each thread keeps a register tile
+//    of kKB channels x kMB samples, so one u value loaded from shared memory
+//    serves kKB complex multiply-adds and one twiddle serves kMB; the
+//    twiddle index steps by -k per q with one conditional wrap.
+//
+// The dense form of the JAX package (about 8*(L+G-1)*K flop per sample) is
+// the plain version's matrix product, not this kernel's.  wgmma and TMA have
+// no part here: the transform is not a matrix product on this route.
+//
+// Measured (NVIDIA H100 80GB HBM3, 700.00 W; 256 streams x 64 channels x
+// 10,240 samples, L = 8, no history; every row one call, in turns): the
+// direct sum alone 4.60 ms, 5.73 with the concatenation it needed; route 1
+// with the rows staged through registers one load at a time 1.50 ms; eight
+// loads in flight a thread 1.27; cp.async 1.19; the FIR loop unrolled in full
+// for L = 8 (LT) 1.10 to 1.16.  Other widths (2^25 samples, L = 8, route 1
+// against the direct sum): K = 8 0.22 against 0.46 ms, 128 0.27 / 1.55, 1024
+// 0.46 / 12.75.  Route 2 with two pointers and cp.async stays within 7% of
+// the one-pointer kernel it was (K = 24 0.60 against 0.63 ms, K = 192 2.22
+// against 2.08), without the pass over the bank that kernel needed first.
+// A warp a staged row on route 2 (no index divided by K): K = 192 2.17 ms,
+// K = 24 0.66 (24 of 32 lanes busy): not kept.
+// Tried and not kept: TM = 64 at K = 64 (512 threads, a ninth of the rows
+// re-read by the next tile instead of a fifth), 1.28 against 1.21 ms.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
+#include "fft.cuh"
+
 namespace lora {
+
+constexpr size_t kMaxSmem = 232448;  // bytes of shared memory per block, sm_90
+
+// One stream: `hist` (n_hist samples, or null for zeros) followed by `x`.
+struct Stream {
+  const float2* hist;
+  const float2* x;
+  long long n_hist;
+};
+
+// Start the copy of sample i of the stream to `dst` in shared memory, past
+// the registers (cp.async, 8 bytes); zeros are stored at once.
+__device__ __forceinline__ void stage_async(float2* dst, const Stream& st,
+                                            long long i) {
+  if (i >= st.n_hist)
+    __pipeline_memcpy_async(dst, st.x + (i - st.n_hist), sizeof(float2));
+  else if (st.hist != nullptr)
+    __pipeline_memcpy_async(dst, st.hist + i, sizeof(float2));
+  else
+    *dst = make_float2(0.f, 0.f);
+}
+
+// ---------------------------------------------------------------------------
+// route 1: K a power of two, FIR into registers and a register FFT
+// ---------------------------------------------------------------------------
+
+// The passes of each width K = 2^LK: radices R0 (first pass) and R1 (second
+// pass; 1: a single pass), and the tile TM of output samples a block owns.
+// A block has TM * R1 threads.
+template <int LK> struct BankPlan;
+template <> struct BankPlan<3>  { enum { R0 = 8,  R1 = 1,  TM = 256 }; };
+template <> struct BankPlan<4>  { enum { R0 = 16, R1 = 1,  TM = 256 }; };
+template <> struct BankPlan<5>  { enum { R0 = 32, R1 = 1,  TM = 128 }; };
+template <> struct BankPlan<6>  { enum { R0 = 8,  R1 = 8,  TM = 32 }; };
+template <> struct BankPlan<7>  { enum { R0 = 16, R1 = 8,  TM = 32 }; };
+template <> struct BankPlan<8>  { enum { R0 = 16, R1 = 16, TM = 16 }; };
+template <> struct BankPlan<9>  { enum { R0 = 32, R1 = 16, TM = 16 }; };
+template <> struct BankPlan<10> { enum { R0 = 32, R1 = 32, TM = 8 }; };
+
+template <int LK> struct BankGeo {
+  using Pl = BankPlan<LK>;
+  static constexpr int K = 1 << LK;
+  static constexpr int R0 = Pl::R0, R1 = Pl::R1, TM = Pl::TM;
+  static constexpr bool kTwoPass = R1 > 1;
+  static constexpr int kThreads = TM * R1;
+  // row stride of the staged input: lanes on consecutive rows, and the two
+  // columns of a half-warp at TM = 8, fall into different 8-byte banks
+  static constexpr int KP = K + (TM >= 16 ? 1 : 2);
+  static constexpr int kPadShift = ilog2(R1);
+  // float2 elements of the exchange buffer [position][TM]; at TM < 16 one
+  // padding position per run of R1
+  static constexpr int kEx = kTwoPass ? (K + (TM < 16 ? K / R1 : 0)) * TM : 0;
+  static constexpr int kTw = kTwoPass ? K : 0;  // W_K^(c m') as [m'][c]
+  static_assert(R0 * R1 == K, "plan");
+  static_assert(!kTwoPass || R0 % R1 == 0, "plan");
+  static_assert((TM & (TM - 1)) == 0 && kThreads <= 1024, "plan");
+
+  __host__ __device__ static constexpr int pad(int p) {
+    return TM < 16 ? p + (p >> kPadShift) : p;
+  }
+  // shared memory of a block: the pass twiddles, then the staged rows, over
+  // which the exchange buffer lies
+  static size_t smem_bytes(int L) {
+    const size_t rows = (size_t)(TM + L - 1) * KP;
+    return sizeof(float2) * (kTw + (rows > (size_t)kEx ? rows : (size_t)kEx));
+  }
+};
+
+// One row of the FIR: v[j] += hrow[q_j] * xr[q_j] for the thread's R0 phases
+// q_0 = q0 and q_j = c - 1 + R1 j.
+template <int R0, int R1>
+__device__ __forceinline__ void fir_row(float2* v, const float* hrow,
+                                        const float2* xr, int c, int q0) {
+#pragma unroll
+  for (int j = 0; j < R0; ++j) {
+    const int q = j == 0 ? q0 : c - 1 + R1 * j;
+    const float h = __ldg(hrow + q);
+    const float2 a = xr[q];
+    v[j].x = fmaf(h, a.x, v[j].x);
+    v[j].y = fmaf(h, a.y, v[j].y);
+  }
+}
+
+// The filter length whose FIR loop is unrolled in full (LT = kTapsUnrolled:
+// the default of ops/channelizer.channelize); any other L runs the same loop
+// with a runtime bound (LT = 0).
+constexpr int kTapsUnrolled = 8;
+
+template <int LK, int LT>
+__global__ void __launch_bounds__(BankGeo<LK>::kThreads)
+channelize_fft_kernel(const float2* __restrict__ hist, long long sH,
+                      const float2* __restrict__ x, long long sX, int taps,
+                      long long M, long long tiles,
+                      const float* __restrict__ hp,
+                      const float2* __restrict__ wk, float2* __restrict__ y) {
+  using G = BankGeo<LK>;
+  constexpr int K = G::K, R0 = G::R0, R1 = G::R1, TM = G::TM, KP = G::KP;
+  extern __shared__ float2 smem[];
+  float2* tw = smem;           // [K] pass twiddles (two passes only)
+  float2* xs = smem + G::kTw;  // [TM + L - 1][KP] staged input rows
+  float2* ex = xs;             // [K (+ padding)][TM] exchange, after the FIR
+  const int L = LT > 0 ? LT : taps;  // a literal where the loop is unrolled
+  const int tid = threadIdx.x;
+  const long long s = blockIdx.x / tiles;
+  const long long m0 = (blockIdx.x - s * tiles) * TM;
+  const int rows = TM + L - 1;
+  // rows m0 + r of the stream exist for m0 + r < M + L - 1
+  const long long avail = M + L - 1 - m0;
+  const int valid = avail < rows ? (int)avail : rows;
+  const Stream st{hist != nullptr ? hist + s * sH : nullptr, x + s * sX,
+                  (long long)L * K - 1};
+
+  if constexpr (G::kTwoPass) {
+    // tw[m' * R1 + c] = W_K^(c m') = conj(wk[(c m') mod K])
+    for (int i = tid; i < K; i += G::kThreads) {
+      const float2 w = __ldg(wk + (((i / R1) * (i % R1)) & (K - 1)));
+      tw[i] = make_float2(w.x, -w.y);
+    }
+  }
+  const long long g0 = m0 * K;  // the tile's first sample of the stream
+  for (int i = tid; i < rows * K; i += G::kThreads) {
+    const int r = i >> LK;
+    const int q = i & (K - 1);
+    if (r < valid)
+      stage_async(xs + r * KP + q, st, g0 + i);
+    else
+      xs[r * KP + q] = make_float2(0.f, 0.f);
+  }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+
+  // FIR: u'[p] = u[m, (p - 1) mod K] = sum_{d < L} hp[L-1-d, q] * x2[m + d, q]
+  // for the R0 positions p = c + R1 j of this thread, lanes along m
+  const int m = tid & (TM - 1);
+  const int c = tid / TM;
+  const int q0 = (c - 1) & (K - 1);  // j = 0; for j > 0 no wrap: c - 1 + R1 j
+  float2 v[R0];
+#pragma unroll
+  for (int j = 0; j < R0; ++j) v[j] = make_float2(0.f, 0.f);
+  const float2* xm = xs + m * KP;
+  if constexpr (LT > 0) {
+#pragma unroll
+    for (int d = 0; d < LT; ++d)
+      fir_row<R0, R1>(v, hp + (L - 1 - d) * K, xm + d * KP, c, q0);
+  } else {
+#pragma unroll 4
+    for (int d = 0; d < L; ++d)
+      fir_row<R0, R1>(v, hp + (L - 1 - d) * K, xm + d * KP, c, q0);
+  }
+  fft_reg<R0>(v);
+
+  const bool live = m0 + m < M;
+  if constexpr (!G::kTwoPass) {
+    // register p holds channel brev(p)
+    if (live) {
+      float2* out = y + s * K * M + m0 + m;
+#pragma unroll
+      for (int k = 0; k < R0; ++k) out[k * M] = v[brev<ilog2(R0)>(k)];
+    }
+  } else {
+    __syncthreads();  // every thread has read its rows: they become `ex`
+#pragma unroll
+    for (int mp = 0; mp < R0; ++mp) {
+      float2 a = v[brev<ilog2(R0)>(mp)];
+      if (mp) a = cmul(a, tw[mp * R1 + c]);
+      ex[G::pad(c + R1 * mp) * TM + m] = a;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int b = 0; b < R0 / R1; ++b) {
+      const int f = c + R1 * b;  // run f: positions f*R1 .. f*R1 + R1 - 1
+      float2 w[R1];
+#pragma unroll
+      for (int j = 0; j < R1; ++j) w[j] = ex[G::pad(f * R1 + j) * TM + m];
+      fft_reg<R1>(w);
+      if (live) {
+        // register p holds channel f + R0 * brev(p)
+        float2* out = y + (s * K + f) * M + m0 + m;
+#pragma unroll
+        for (int mq = 0; mq < R1; ++mq)
+          out[(long long)R0 * mq * M] = w[brev<ilog2(R1)>(mq)];
+      }
+    }
+  }
+}
+
+template <int LK>
+size_t fft_smem(int L) {
+  return BankGeo<LK>::smem_bytes(L);
+}
+
+template <int LK>
+int launch_fft(const float2* hist, long long sH, const float2* x, long long sX,
+               long long S, int L, long long M, const float* hp,
+               const float2* wk, float2* y, cudaStream_t stream) {
+  using G = BankGeo<LK>;
+  const size_t smem = G::smem_bytes(L);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const long long tiles = (M + G::TM - 1) / G::TM;
+  const long long blocks = S * tiles;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  auto kernel = L == kTapsUnrolled ? channelize_fft_kernel<LK, kTapsUnrolled>
+                                   : channelize_fft_kernel<LK, 0>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)blocks, G::kThreads, smem, stream>>>(hist, sH, x, sX, L, M,
+                                                          tiles, hp, wk, y);
+  return (int)cudaGetLastError();
+}
+
+// `return fn<log2 K>(args...);` for K a power of two in 8..1024, else
+// `otherwise`.
+#define LORA_FOR_BANK_WIDTH(K, otherwise, fn, ...) \
+  switch (K) {                                     \
+    case 8: return fn<3>(__VA_ARGS__);             \
+    case 16: return fn<4>(__VA_ARGS__);            \
+    case 32: return fn<5>(__VA_ARGS__);            \
+    case 64: return fn<6>(__VA_ARGS__);            \
+    case 128: return fn<7>(__VA_ARGS__);           \
+    case 256: return fn<8>(__VA_ARGS__);           \
+    case 512: return fn<9>(__VA_ARGS__);           \
+    case 1024: return fn<10>(__VA_ARGS__);         \
+    default: return otherwise;                     \
+  }
+
+// Shared memory of route 1 for (K, L); more than any block has where K is
+// not one of its widths.
+size_t fft_smem_of(int K, int L) {
+  LORA_FOR_BANK_WIDTH(K, kMaxSmem + 1, fft_smem, L)
+}
+
+// ---------------------------------------------------------------------------
+// route 2: any K, the direct sum
+// ---------------------------------------------------------------------------
 
 constexpr int kThreads = 256;
 constexpr int kMB = 2;  // output samples per thread
 constexpr int kKB = 8;  // channels per thread
-constexpr size_t kMaxSmem = 232448;  // bytes of shared memory per block, sm_90
 
 // Shared memory of one tile: the K-entry twiddle table, TM + L - 1 staged
 // rows of K samples (row stride K + 1) and the FIR output u[K][TM].
@@ -58,8 +343,22 @@ inline size_t smem_bytes(int K, int L, int TM) {
                            (size_t)K * TM);
 }
 
+// Output samples per block for (K, L), 0 when no tile fits: at least 64,
+// and enough that the block's threads all get channels (kThreads * kMB / TM
+// groups of kKB); then halved while the tile takes more than half the
+// shared memory (two blocks per SM) down to 32, and while it does not fit.
+int direct_tile(int K, int L) {
+  const int groups = (K + kKB - 1) / kKB;
+  int TM = 64;
+  while (TM < kMB * kThreads && kThreads * kMB / TM > groups) TM *= 2;
+  while (TM > 32 && smem_bytes(K, L, TM) > kMaxSmem / 2) TM /= 2;
+  while (TM > kMB && smem_bytes(K, L, TM) > kMaxSmem) TM /= 2;
+  return smem_bytes(K, L, TM) <= kMaxSmem ? TM : 0;
+}
+
 __global__ void __launch_bounds__(kThreads)
-channelize_kernel(const float2* __restrict__ xp, long long sS, int K, int L,
+channelize_kernel(const float2* __restrict__ hist, long long sH,
+                  const float2* __restrict__ x, long long sX, int K, int L,
                   long long M, int TM, int lg_tm, long long tiles,
                   const float* __restrict__ hp,
                   const float2* __restrict__ wk, float2* __restrict__ y) {
@@ -72,17 +371,24 @@ channelize_kernel(const float2* __restrict__ xp, long long sS, int K, int L,
   const int tid = threadIdx.x;
   const long long s = blockIdx.x / tiles;
   const long long m0 = (blockIdx.x - s * tiles) * TM;
-  const float2* xrow = xp + s * sS + m0 * K;
   // rows m0 + r of the stream exist for m0 + r < M + L - 1
   const long long avail = M + L - 1 - m0;
   const int valid = avail < rows ? (int)avail : rows;
+  const Stream st{hist != nullptr ? hist + s * sH : nullptr, x + s * sX,
+                  (long long)L * K - 1};
 
   for (int i = tid; i < K; i += kThreads) wsh[i] = wk[i];
+  const long long g0 = m0 * K;  // the tile's first sample of the stream
   for (int i = tid; i < rows * K; i += kThreads) {
     const int r = i / K;
     const int q = i - r * K;
-    xs[r * KP + q] = r < valid ? xrow[i] : make_float2(0.f, 0.f);
+    if (r < valid)
+      stage_async(xs + r * KP + q, st, g0 + i);
+    else
+      xs[r * KP + q] = make_float2(0.f, 0.f);
   }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
   __syncthreads();
 
   // FIR: u[m, q] = sum_{d < L} hp[L-1-d, q] * x2[m + d, q]; lanes run over m
@@ -151,35 +457,12 @@ channelize_kernel(const float2* __restrict__ xp, long long sS, int K, int L,
   }
 }
 
-}  // namespace lora
-
-// Output samples per block for (K, L), 0 when no tile fits: at least 64,
-// and enough that the block's threads all get channels (kThreads * kMB / TM
-// groups of kKB); then halved while the tile takes more than half the
-// shared memory (two blocks per SM) down to 32, and while it does not fit.
-extern "C" int lora_channelize_tile(int K, int L) {
-  using namespace lora;
-  if (K < 1 || L < 1) return 0;
-  const int groups = (K + kKB - 1) / kKB;
-  int TM = 64;
-  while (TM < kMB * kThreads && kThreads * kMB / TM > groups) TM *= 2;
-  while (TM > 32 && smem_bytes(K, L, TM) > kMaxSmem / 2) TM /= 2;
-  while (TM > kMB && smem_bytes(K, L, TM) > kMaxSmem) TM /= 2;
-  return smem_bytes(K, L, TM) <= kMaxSmem ? TM : 0;
-}
-
-// xp: S streams of complex64 at row stride sS, each holding at least
-// (M + L - 1) * K samples.  hp: float32 [L, K].  wk: complex64 [K].
-// y: complex64 [S, K, M].
-extern "C" int lora_channelize(const void* xp, long long sS, long long S,
-                               int K, int L, long long M, const void* hp,
-                               const void* wk, void* y, void* stream) {
-  using namespace lora;
-  if (S == 0 || M == 0) return 0;
-  const int TM = lora_channelize_tile(K, L);
+int launch_direct(const float2* hist, long long sH, const float2* x,
+                  long long sX, long long S, int K, int L, long long M,
+                  const float* hp, const float2* wk, float2* y,
+                  cudaStream_t stream) {
+  const int TM = direct_tile(K, L);
   if (TM == 0) return (int)cudaErrorInvalidValue;
-  int lg_tm = 0;
-  while ((1 << lg_tm) < TM) ++lg_tm;
   const size_t smem = smem_bytes(K, L, TM);
   const long long tiles = (M + TM - 1) / TM;
   const long long blocks = S * tiles;
@@ -188,10 +471,41 @@ extern "C" int lora_channelize(const void* xp, long long sS, long long S,
       channelize_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  channelize_kernel<<<(unsigned)blocks, kThreads, smem,
-                      (cudaStream_t)stream>>>(
-      static_cast<const float2*>(xp), sS, K, L, M, TM, lg_tm, tiles,
-      static_cast<const float*>(hp), static_cast<const float2*>(wk),
-      static_cast<float2*>(y));
+  channelize_kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
+      hist, sH, x, sX, K, L, M, TM, ilog2(TM), tiles, hp, wk, y);
   return (int)cudaGetLastError();
+}
+
+}  // namespace lora
+
+// The route of (K, L): 1 the register FFT (K a power of two from 8 to 1024
+// whose staged rows fit shared memory), 2 the direct sum (any other K, or a
+// filter too long for route 1, whose tile fits), 0 none.
+extern "C" int lora_channelize_route(int K, int L) {
+  using namespace lora;
+  if (K < 1 || L < 1) return 0;
+  if (fft_smem_of(K, L) <= kMaxSmem) return 1;
+  return direct_tile(K, L) > 0 ? 2 : 0;
+}
+
+// Sample i of stream s < S is hist[s*sH + i] for i < L*K - 1 and
+// x[s*sX + i - (L*K - 1)] after (complex64; a null hist reads as zeros); x
+// holds M*K samples a stream.  hp: float32 [L, K].  wk: complex64 [K].
+// y: complex64 [S, K, M].
+extern "C" int lora_channelize(const void* hist, long long sH, const void* x,
+                               long long sX, long long S, int K, int L,
+                               long long M, const void* hp, const void* wk,
+                               void* y, void* stream) {
+  using namespace lora;
+  if (S == 0 || M == 0) return 0;
+  const float2* h = static_cast<const float2*>(hist);
+  const float2* xx = static_cast<const float2*>(x);
+  const float* taps = static_cast<const float*>(hp);
+  const float2* w = static_cast<const float2*>(wk);
+  float2* out = static_cast<float2*>(y);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (lora_channelize_route(K, L) != 1)
+    return launch_direct(h, sH, xx, sX, S, K, L, M, taps, w, out, st);
+  LORA_FOR_BANK_WIDTH(K, (int)cudaErrorInvalidValue, launch_fft, h, sH, xx, sX,
+                      S, L, M, taps, w, out, st)
 }

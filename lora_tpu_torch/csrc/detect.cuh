@@ -25,8 +25,8 @@
 //           the total, the |X|^2 output and the fractional bin's
 //           neighbours all read those registers with the bin known from
 //           (lane, register).
-// The in-register FFTs are radix-2 with the twiddles as literals, fully
-// unrolled, so every register index is a compile-time constant.  A window
+// The in-register FFTs (fft.cuh) are radix-2 with the twiddles as literals,
+// fully unrolled, so every register index is a compile-time constant.  A window
 // of N <= 1024 crosses threads once: 16 bytes per sample through shared
 // memory (one write, one read, both free of bank conflicts: the buffer
 // has one float2 of padding per Rl), 8 for the dechirp entry and 8 for
@@ -66,6 +66,8 @@
 
 #include <atomic>
 
+#include "fft.cuh"
+
 namespace lora {
 
 struct DetectOut {
@@ -74,31 +76,6 @@ struct DetectOut {
   float noise;
   float findex;
 };
-
-__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
-  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
-}
-
-__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
-  return make_float2(a.x + b.x, a.y + b.y);
-}
-
-__device__ __forceinline__ float2 csub(float2 a, float2 b) {
-  return make_float2(a.x - b.x, a.y - b.y);
-}
-
-__host__ __device__ constexpr int ilog2(int n) {
-  int l = 0;
-  while ((1 << l) < n) ++l;
-  return l;
-}
-
-// bit reversal of p over kBits <= 5 bits
-template <int kBits>
-__host__ __device__ constexpr int brev(int p) {
-  return (((p & 1) << 4) | ((p & 2) << 2) | (p & 4) | ((p & 8) >> 2) |
-          ((p & 16) >> 4)) >> (5 - kBits);
-}
 
 // The passes of each window size: P of them with radices R0, R1 (and R2),
 // and the team size T.  Every pass has N/R FFTs, a multiple of T.  The
@@ -137,56 +114,6 @@ template <int L> struct Geo {
 
 __device__ __forceinline__ float to_db(float a, float scale) {
   return 20.0f * log10f(fmaxf(a, 1e-20f)) - scale;
-}
-
-// x * exp(-2*pi*i * idx/32), idx in [0, 16), a constant once the caller's
-// loops are unrolled
-__device__ __forceinline__ float2 mul_w32(float2 x, int idx) {
-  constexpr float kH = 0.70710678118654752f;
-  float c, s;  // cos and sin of 2*pi*idx/32
-  switch (idx) {
-    case 0: return x;
-    case 8: return make_float2(x.y, -x.x);
-    case 4: return make_float2((x.x + x.y) * kH, (x.y - x.x) * kH);
-    case 12: return make_float2((x.y - x.x) * kH, -(x.x + x.y) * kH);
-    case 1: c = 0.98078528040323043f; s = 0.19509032201612825f; break;
-    case 2: c = 0.92387953251128674f; s = 0.38268343236508978f; break;
-    case 3: c = 0.83146961230254524f; s = 0.55557023301960218f; break;
-    case 5: c = 0.55557023301960218f; s = 0.83146961230254524f; break;
-    case 6: c = 0.38268343236508978f; s = 0.92387953251128674f; break;
-    case 7: c = 0.19509032201612825f; s = 0.98078528040323043f; break;
-    case 9: c = -0.19509032201612825f; s = 0.98078528040323043f; break;
-    case 10: c = -0.38268343236508978f; s = 0.92387953251128674f; break;
-    case 11: c = -0.55557023301960218f; s = 0.83146961230254524f; break;
-    case 13: c = -0.83146961230254524f; s = 0.55557023301960218f; break;
-    case 14: c = -0.92387953251128674f; s = 0.38268343236508978f; break;
-    default: c = -0.98078528040323043f; s = 0.19509032201612825f; break;
-  }
-  return make_float2(x.x * c + x.y * s, x.y * c - x.x * s);
-}
-
-// One radix-2 stage of half-length H on v[0..R), and the stages below it.
-// Every loop bound is a template constant, so the loops unroll fully and
-// every index of v is a compile-time constant: v stays in registers.
-template <int R, int H>
-__device__ __forceinline__ void fft_stages(float2* v) {
-#pragma unroll
-  for (int b = 0; b < R; b += 2 * H) {
-#pragma unroll
-    for (int i = 0; i < H; ++i) {
-      const float2 a = v[b + i], c = v[b + i + H];
-      v[b + i] = cadd(a, c);
-      v[b + i + H] = mul_w32(csub(a, c), i * (16 / H));
-    }
-  }
-  if constexpr (H > 1) fft_stages<R, H / 2>(v);
-}
-
-// R-point DFT of v[0..R) in registers, radix-2 decimation in frequency:
-// natural order in, bit-reversed out (v[p] holds output brev<log2 R>(p)).
-template <int R>
-__device__ __forceinline__ void fft_reg(float2* v) {
-  fft_stages<R, R / 2>(v);
 }
 
 // The lanes of this thread's team within its warp (T <= 32).

@@ -29,11 +29,14 @@ from .chirp import dechirp_table
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "lora_tpu_torch"
 SOURCES = ("detect.cu", "track.cu", "payload.cu", "channelize.cu", "shift.cu")
-HEADERS = ("detect.cuh",)
+HEADERS = ("detect.cuh", "fft.cuh")
 # no --use_fast_math: full-precision sincosf/log10f/sqrtf keep the dB values
-# and the derotator's two factors on the plain version's float32 rounding
+# and the derotator's two factors on the plain version's float32 rounding.
+# -fno-gnu-unique: a static local of a launch template (its cache of launch
+# queries) stays this library's own when a process loads two builds of the
+# sources, as tools/torch_kernel_probe.py does to time them in turns
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC", "-Xcompiler", "-fno-gnu-unique")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,8 +49,8 @@ _ARGTYPES = {
                    _P, _P, _P, _P, _P, _P, _P],
     "lora_payload": [_P, _L, _L, _I, _L, _I, _I, _P, _P, _P, _P, _F, _F, _P,
                      _P, _P, _P, _P],
-    "lora_channelize": [_P, _L, _L, _I, _I, _L, _P, _P, _P, _P],
-    "lora_channelize_tile": [_I, _I],
+    "lora_channelize": [_P, _L, _P, _L, _L, _I, _I, _L, _P, _P, _P, _P],
+    "lora_channelize_route": [_I, _I],
     "lora_shift": [_P, _L, _L, _I, _I, _P, _P, _P],
 }
 

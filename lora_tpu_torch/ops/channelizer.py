@@ -13,10 +13,12 @@ components, then a K-point IDFT across phases.  Channel k is centred at
 `channelize` runs the filterbank through kernel D (csrc/channelize.cu,
 ops/cuda_channelize.filterbank) for a CUDA tensor and through its plain
 version, the JAX package's block-Toeplitz matrix product, for a CPU
-tensor.  `synthesize` (the TX combiner) is that same product with the
-synthesis matrix; the JAX package computes both products in XLA, outside
-any Pallas kernel, and the port leaves them to torch.matmul in full
-float32.  `upconvert` and `synthesize_tone` build test vectors.
+tensor.  Kernel D reads the filter history and the block through two
+pointers: only the plain version concatenates them.  `synthesize` (the TX
+combiner) is that same product with the synthesis matrix; the JAX package
+computes both products in XLA, outside any Pallas kernel, and the port
+leaves them to torch.matmul in full float32.  `upconvert` and
+`synthesize_tone` build test vectors.
 """
 
 from __future__ import annotations
@@ -122,18 +124,32 @@ def channelize(x, K: int, taps_per_phase: int = 8, state=None,
         raise ValueError(f"block length {T} not divisible by K={K}")
     L = taps_per_phase
     hist = L * K - 1  # filter length minus one
+    if state is not None:
+        state = cplx.as_iq(state, x.device)
+    if impl == "xla":
+        y = cuda_channelize.filterbank_plain(prepended(x, state, hist), K, L,
+                                             T // K)
+    else:
+        y = cuda_channelize.filterbank(x, K, L, state)
+    return y, next_state(x, state, hist)
+
+
+def prepended(x: torch.Tensor, state: torch.Tensor | None,
+              hist: int) -> torch.Tensor:
+    """state ++ x [..., hist + T], the stream the plain version reads; a
+    state of None is `hist` zeros."""
     if state is None:
         state = x.new_zeros((*x.shape[:-1], hist))
-    else:
-        state = cplx.as_iq(state, x.device)
-    xp = torch.cat([state, x], -1)  # [..., hist + T]
-    new_state = xp[..., T:].clone()
-    M = T // K
-    if impl == "xla":
-        y = cuda_channelize.filterbank_plain(xp, K, L, M)
-    else:
-        y = cuda_channelize.filterbank(xp, K, L, M)
-    return y, new_state
+    return torch.cat([state, x], -1)
+
+
+def next_state(x: torch.Tensor, state: torch.Tensor | None,
+               hist: int) -> torch.Tensor:
+    """The last `hist` samples of state ++ x, from the tails alone."""
+    T = x.shape[-1]
+    if T >= hist:
+        return x[..., T - hist:].clone()
+    return prepended(x, state, hist)[..., T:].clone()
 
 
 def synthesize(u, taps_per_phase: int = 8, state=None,

@@ -5,35 +5,42 @@ filterbank kernels: `_filterbank_fir` (entry `filterbank_fir`, factorized
 FIR + IDFT, channel-major output, for 64 <= K <= 256 with K % 64 == 0 and
 L <= 8) and `_filterbank` (entry `filterbank`, the dense block-Toeplitz
 product, channel-minor output, for the other geometries it fits).  Both
-exist to fit the TPU's lanes and VMEM; one CUDA kernel computes the
+exist to fit the TPU's lanes and VMEM; one CUDA entry computes the
 factorized form for any K and L whose tile fits shared memory and writes
-the channel-major [S, K, M] that the demod bank reads.
+the channel-major [S, K, M] that the demod bank reads.  It picks its route
+by K: a register FFT for the powers of two from 8 to 1024, the direct sum
+over the phases for every other K (`route`).
 
-`filterbank_plain` is the JAX package's XLA pipeline (flipped commutator,
-grouped rows, one block-Toeplitz matrix product, corner turn).  The wrapper
-`filterbank` takes it only for a tensor on the CPU; for a CUDA tensor it
-launches the kernel or raises.
+The kernel reads the filter history and the block through two pointers, so
+the wrapper `filterbank` takes them apart, (x, state), and nothing
+concatenates them on the card.  `filterbank_plain` is the JAX package's XLA
+pipeline (flipped commutator, grouped rows, one block-Toeplitz matrix
+product, corner turn) over the concatenated stream.  The wrapper takes it
+only for a tensor on the CPU; for a CUDA tensor it launches the kernel or
+raises.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 
 from . import _cuda, tables
-from .channelizer import _grouped_rows, bank_product, default_group
+from .channelizer import _grouped_rows, bank_product, default_group, prepended
+
 
 @functools.lru_cache(maxsize=None)
-def tile_m(K: int, taps_per_phase: int) -> int:
-    """Output samples per block that kernel D picks for (K, L) (csrc/
-    channelize.cu, lora_channelize_tile).  Raises ValueError when no tile
-    fits shared memory.  Needs the built library."""
-    TM = _cuda.library().lora_channelize_tile(K, taps_per_phase)
-    if TM == 0:
+def route(K: int, taps_per_phase: int) -> int:
+    """The route kernel D takes for (K, L) (csrc/channelize.cu,
+    lora_channelize_route): 1 the register FFT, 2 the direct sum.  Raises
+    ValueError when no tile fits shared memory.  Needs the built library."""
+    r = _cuda.library().lora_channelize_route(K, taps_per_phase)
+    if r == 0:
         raise ValueError(f"channelize kernel: no tile fits K={K}, "
                          f"L={taps_per_phase} in shared memory")
-    return TM
+    return r
 
 
 @functools.lru_cache(maxsize=None)
@@ -61,32 +68,49 @@ def filterbank_plain(xp: torch.Tensor, K: int, taps_per_phase: int,
     return y.reshape(*lead, M, K).transpose(-1, -2).contiguous()
 
 
-def filterbank(xp: torch.Tensor, K: int, taps_per_phase: int,
-               M: int) -> torch.Tensor:
-    """Kernel D wrapper: same contract as filterbank_plain."""
-    if xp.device.type == "cpu":
-        return filterbank_plain(xp, K, taps_per_phase, M)
-    if not xp.is_cuda:
-        raise ValueError(f"filterbank: unsupported device {xp.device}")
-    if xp.dtype != torch.complex64:
-        raise TypeError(f"filterbank: expected complex64, got {xp.dtype}")
+def filterbank(x: torch.Tensor, K: int, taps_per_phase: int,
+               state: torch.Tensor | None = None) -> torch.Tensor:
+    """Kernel D wrapper: the block x [..., M*K] after the filter history
+    state [..., L*K - 1] (None: zeros) -> channel-major y [..., K, M], what
+    filterbank_plain gives for prepended(x, state, L*K - 1)."""
     L = taps_per_phase
-    *lead, P = xp.shape
-    if P < (M + L - 1) * K:
-        raise ValueError(f"filterbank: {P} samples < (M + L - 1) * K = "
-                         f"{(M + L - 1) * K}")
-    tile_m(K, L)  # raises for a width the kernel does not take
-    x2 = xp.reshape(-1, P)
-    if x2.stride(-1) != 1:
-        x2 = x2.contiguous()
-    S = x2.shape[0]
-    dev = xp.device
+    *lead, T = x.shape
+    hist = L * K - 1
+    if T % K:
+        raise ValueError(f"filterbank: block length {T} not divisible by "
+                         f"K={K}")
+    if state is not None and tuple(state.shape) != (*lead, hist):
+        raise ValueError(f"filterbank: expected a state of shape "
+                         f"{(*lead, hist)}, got {tuple(state.shape)}")
+    M = T // K
+    if x.device.type == "cpu":
+        return filterbank_plain(prepended(x, state, hist), K, L, M)
+    if not x.is_cuda:
+        raise ValueError(f"filterbank: unsupported device {x.device}")
+    for name, t in (("x", x), ("state", state)):
+        if t is None:
+            continue
+        if t.dtype != torch.complex64:
+            raise TypeError(f"filterbank: expected complex64 {name}, got "
+                            f"{t.dtype}")
+        if t.device != x.device:
+            raise ValueError(f"filterbank: state on {t.device}, x on "
+                             f"{x.device}")
+    route(K, L)  # raises for a width the kernel does not take
+    S = math.prod(lead)
+    dev = x.device
     y = torch.empty((S, K, M), dtype=torch.complex64, device=dev)
     if S and M:
+        rows = lambda t, n: (t.reshape(S, n) if t.stride(-1) == 1
+                             else t.reshape(S, n).contiguous())
+        x2 = rows(x, T)
+        h2 = None if state is None else rows(state, hist)
         hp, wk = consts(K, L, dev)
         err = _cuda.library().lora_channelize(
-            x2.data_ptr(), x2.stride(0), S, K, L, M, hp.data_ptr(),
-            wk.data_ptr(), y.data_ptr(), _cuda.stream(dev),
+            None if h2 is None else h2.data_ptr(),
+            0 if h2 is None else h2.stride(0), x2.data_ptr(), x2.stride(0),
+            S, K, L, M, hp.data_ptr(), wk.data_ptr(), y.data_ptr(),
+            _cuda.stream(dev),
         )
         _cuda.check(err, "lora_channelize")
         filterbank.launches += 1

@@ -9,6 +9,7 @@ its XLA pipeline, and its Pallas filterbanks in interpret mode.
 """
 
 import dataclasses
+import re
 
 import numpy as np
 import pytest
@@ -24,7 +25,7 @@ from lora_tpu.ops.cplx import IQ
 from lora_tpu_torch import api as tapi
 from lora_tpu_torch.ops import channelizer as chz
 from lora_tpu_torch.ops import cuda_channelize as cc
-from lora_tpu_torch.ops import tables
+from lora_tpu_torch.ops import _cuda, tables
 
 torch.set_num_threads(1)
 
@@ -101,44 +102,220 @@ def test_fir_kernel_at_k192_matches_xla():
     np.testing.assert_allclose(y.numpy(), jnp_c(want), rtol=0, atol=1e-5)
 
 
-def kernel_d_model(xp, K, L, M, TM):
-    """csrc/channelize.cu's arithmetic in numpy (complex128), in tiles of TM
-    output samples: staged rows (zero past M + L - 1), flip-folded FIR, and
-    the IDFT over the K-entry twiddle table with the kernel's index
-    recurrence."""
-    hp, wk = (t.numpy() for t in cc.consts(K, L, torch.device("cpu")))
-    hp = hp.astype(np.float64)
-    wk = wk.astype(np.complex128)
-    k = np.arange(K)
-    y = np.zeros((xp.shape[0], K, M), np.complex128)
-    for s in range(xp.shape[0]):
-        for m0 in range(0, M, TM):
-            valid = min(TM + L - 1, M + L - 1 - m0)
-            xs = np.zeros((TM + L - 1, K), np.complex128)
-            xs[:valid] = xp[s, m0 * K : (m0 + valid) * K].reshape(valid, K)
-            u = sum(hp[L - 1 - d] * xs[d : d + TM] for d in range(L))
-            j = np.where(k == 0, 0, K - k)  # ((K-1)*k) mod K
-            acc = np.zeros((K, TM), np.complex128)
-            for q in range(K):
-                acc += wk[j][:, None] * u[None, :, q]
-                j = np.where(j - k < 0, j - k + K, j - k)
-            n = min(TM, M - m0)
-            y[s, :, m0 : m0 + n] = acc[:, :n]
+# --------------------------------------------------------------------------
+# a CPU model of kernel D (lora_tpu_torch/csrc/channelize.cu)
+# --------------------------------------------------------------------------
+
+CHANNELIZE_CU = (_cuda.CSRC / "channelize.cu").read_text()
+MAX_SMEM = int(re.search(r"kMaxSmem = (\d+);", CHANNELIZE_CU).group(1))
+W32 = np.exp(-2j * np.pi * np.arange(16) / 32)
+
+
+def bank_plan(K):
+    """(R0, R1, TM) of width K from channelize.cu's BankPlan table, or None
+    where K takes the direct-sum route."""
+    lk = K.bit_length() - 1
+    m = re.search(r"struct BankPlan<%d>\s*\{ enum \{ R0 = (\d+),\s*R1 = (\d+)"
+                  r",\s*TM = (\d+) \}" % lk, CHANNELIZE_CU)
+    if K != 1 << lk or m is None:
+        return None
+    return tuple(int(g) for g in m.groups())
+
+
+def brev(p, bits):
+    return int(format(p, f"0{bits}b")[::-1], 2) if bits else 0
+
+
+def fft_reg(v):
+    """fft.cuh's fft_reg<R> on the last axis, in place: radix-2 decimation
+    in frequency, natural order in, bit-reversed out."""
+    R = v.shape[-1]
+    h = R // 2
+    while h >= 1:
+        for b in range(0, R, 2 * h):
+            for i in range(h):
+                a, c = v[..., b + i].copy(), v[..., b + i + h].copy()
+                v[..., b + i] = a + c
+                v[..., b + i + h] = (a - c) * W32[i * (16 // h)]
+        h //= 2
+
+
+def stream_at(x, state, hist, i):
+    """Sample i of state ++ x through the kernel's two pointers: the history
+    below `hist` (zeros without a state), the block after."""
+    i = np.asarray(i)
+    out = np.zeros(i.shape, np.complex128)
+    blk = i >= hist
+    out[blk] = x[i[blk] - hist]
+    if state is not None:
+        out[~blk] = state[i[~blk]]
+    return out
+
+
+def conflict_free(addr, TM, R1):
+    """Shared-memory addresses (8-byte words) by (m, c): every 16 consecutive
+    threads (tid = c * TM + m) hit 16 different banks."""
+    flat = np.broadcast_to(addr, (TM, R1)).T.reshape(-1)
+    return all(len(set(int(a) % 16 for a in flat[lo : lo + 16])) == 16
+               for lo in range(0, flat.size, 16))
+
+
+def fft_route_model(x, state, K, L, M, hp, wk):
+    """channelize_fft_kernel<log2 K> on one stream: tiles of TM output
+    samples, the staged rows (stride KP, zero past M + L - 1), the FIR into
+    registers at the rotated phases, the first pass, the pass twiddles, the
+    exchange buffer over the staged rows, the second pass and the channel
+    each register holds."""
+    R0, R1, TM = bank_plan(K)
+    lk = K.bit_length() - 1
+    hist = L * K - 1
+    assert R0 * R1 == K and (R1 == 1 or R0 % R1 == 0)
+    KP = K + (1 if TM >= 16 else 2)
+    ps = R1.bit_length() - 1
+    pad = (lambda p: p + (p >> ps)) if TM < 16 else (lambda p: p)
+    n_ex = (K + (K // R1 if TM < 16 else 0)) * TM if R1 > 1 else 0
+    rows = TM + L - 1
+    smem = 8 * ((K if R1 > 1 else 0) + max(rows * KP, n_ex))
+    assert smem <= MAX_SMEM and TM * R1 <= 1024
+    # tw[m' * R1 + c] = conj(wk[(c m') mod K])
+    i = np.arange(K)
+    tw = np.conj(wk[((i // R1) * (i % R1)) & (K - 1)])
+    m = np.arange(TM)[:, None]
+    c = np.arange(R1)[None, :]
+    y = np.full((K, M), np.nan, np.complex128)
+    for m0 in range(0, M, TM):
+        valid = min(rows, M + L - 1 - m0)
+        xs = np.full(max(rows * KP, n_ex), np.nan, np.complex128)
+        i = np.arange(rows * K)
+        r, q = i >> lk, i & (K - 1)
+        xs[r * KP + q] = np.where(r < valid, stream_at(
+            x, state, hist, np.minimum(m0 * K + i, hist + x.size - 1)), 0)
+        q0 = (c - 1) & (K - 1)
+        v = np.zeros((TM, R1, R0), np.complex128)
+        for d in range(L):
+            for j in range(R0):
+                q = q0 if j == 0 else c - 1 + R1 * j
+                assert conflict_free((m + d) * KP + q, TM, R1)
+                v[:, :, j] += hp[L - 1 - d][q] * xs[(m + d) * KP + q]
+        assert not np.isnan(v).any()
+        fft_reg(v)
+        live = m0 + m[:, 0] < M
+        mm = m0 + m[live, 0]
+        if R1 == 1:
+            for k in range(R0):
+                y[k, mm] = v[live, 0, brev(k, lk)]
+            continue
+        ex = xs  # the exchange buffer lies over the staged rows
+        ex[:] = np.nan
+        for mp in range(R0):
+            a = v[:, :, brev(mp, R0.bit_length() - 1)]
+            if mp:
+                a = a * tw[mp * R1 + c]
+            addr = pad(c + R1 * mp) * TM + m
+            assert conflict_free(addr, TM, R1)
+            ex[addr] = a
+        for b in range(R0 // R1):
+            f = c + R1 * b
+            w = np.zeros((TM, R1, R1), np.complex128)
+            for j in range(R1):
+                addr = pad(f * R1 + j) * TM + m
+                assert conflict_free(addr, TM, R1)
+                w[:, :, j] = ex[addr]
+            assert not np.isnan(w).any()  # every position read was written
+            fft_reg(w)
+            for mq in range(R1):
+                k = (f + R0 * mq)[0]
+                y[k[:, None], mm[None, :]] = w[live, :, brev(mq, ps)].T
+    assert not np.isnan(y).any()  # every channel of every sample stored once
     return y
 
 
-@pytest.mark.parametrize("TM", [32, 64])
+def direct_route_model(x, state, K, L, M, hp, wk, TM=32):
+    """channelize_kernel (any K) on one stream, in tiles of TM output
+    samples: staged rows (zero past M + L - 1), flip-folded FIR, and the
+    IDFT over the K-entry twiddle table with the kernel's index
+    recurrence."""
+    hist = L * K - 1
+    k = np.arange(K)
+    y = np.zeros((K, M), np.complex128)
+    for m0 in range(0, M, TM):
+        valid = min(TM + L - 1, M + L - 1 - m0)
+        xs = np.zeros((TM + L - 1, K), np.complex128)
+        xs[:valid] = stream_at(
+            x, state, hist, m0 * K + np.arange(valid * K)).reshape(valid, K)
+        u = sum(hp[L - 1 - d] * xs[d : d + TM] for d in range(L))
+        j = np.where(k == 0, 0, K - k)  # ((K-1)*k) mod K
+        acc = np.zeros((K, TM), np.complex128)
+        for q in range(K):
+            acc += wk[j][:, None] * u[None, :, q]
+            j = np.where(j - k < 0, j - k + K, j - k)
+        n = min(TM, M - m0)
+        y[:, m0 : m0 + n] = acc[:, :n]
+    return y
+
+
+def kernel_d_model(x, state, K, L, M):
+    """csrc/channelize.cu's arithmetic in numpy (complex128) on streams
+    x [S, M*K] after histories state [S, L*K - 1] (None: zeros), on the route
+    lora_channelize_route picks by K."""
+    hp, wk = (t.numpy() for t in cc.consts(K, L, torch.device("cpu")))
+    hp = hp.astype(np.float64)
+    wk = wk.astype(np.complex128)
+    model = fft_route_model if bank_plan(K) else direct_route_model
+    return np.stack([
+        model(x[s].astype(np.complex128),
+              None if state is None else state[s].astype(np.complex128),
+              K, L, M, hp, wk) for s in range(x.shape[0])])
+
+
+def test_bank_plan_covers_the_powers_of_two():
+    """One pass for K = 8, 16, 32, two for 64 to 1024, radices the register
+    FFT has, whole warps along m where shared memory allows; every other K
+    takes the direct sum."""
+    for K in (8, 16, 32, 64, 128, 256, 512, 1024):
+        R0, R1, TM = bank_plan(K)
+        assert R0 * R1 == K and R0 in (8, 16, 32) and R1 in (1, 8, 16, 32)
+        assert (R1 == 1) == (K <= 32)
+        assert TM & (TM - 1) == 0 and 128 <= TM * R1 <= 512
+    assert [bank_plan(K) for K in (4, 24, 192, 2048)] == [None] * 4
+
+
+# M odd at the wide banks keeps the plain product's matrix small (G = 1)
+@pytest.mark.parametrize("with_state", [True, False])
 @pytest.mark.parametrize("K,L,M", [(8, 12, 600), (16, 8, 300), (24, 4, 50),
-                                   (64, 8, 130), (192, 8, 70), (256, 12, 40)])
-def test_kernel_d_arithmetic_matches_plain(K, L, M, TM):
-    """The kernel's factorized form, its tiles (a ragged last tile, rows
-    past the stream read as zero) and its twiddle indexing give what the
-    plain block-Toeplitz product gives."""
+                                   (32, 4, 333), (64, 8, 130), (128, 8, 70),
+                                   (192, 8, 70), (256, 12, 40), (512, 8, 37),
+                                   (1024, 4, 19)])
+def test_kernel_d_arithmetic_matches_plain(K, L, M, with_state):
+    """The kernel's two-pointer stream (the seam at L*K - 1, with a history
+    and with none), its radix plan per K, pass twiddles, bit-reversed
+    registers, rotated phases in place of a per-channel twist, exchange
+    positions and ragged last tile, and the direct sum where K is no power
+    of two, give what the plain block-Toeplitz product gives."""
     rng = np.random.default_rng(K + L)
-    xp = crandn(rng, (2, (M + L - 1) * K))
-    want = cc.filterbank_plain(torch.as_tensor(xp), K, L, M).numpy()
-    got = kernel_d_model(xp.astype(np.complex128), K, L, M, TM)
+    x = crandn(rng, (2, M * K))
+    state = crandn(rng, (2, L * K - 1)) if with_state else None
+    xp = chz.prepended(torch.as_tensor(x),
+                       None if state is None else torch.as_tensor(state),
+                       L * K - 1)
+    want = cc.filterbank_plain(xp, K, L, M).numpy()
+    got = kernel_d_model(x, state, K, L, M)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
+
+
+def test_next_state_is_the_tail_of_the_stream():
+    """new_state comes from the tails alone and equals the last L*K - 1
+    samples of state ++ x, for blocks longer and shorter than the history,
+    with a state and with none."""
+    rng = np.random.default_rng(11)
+    K, L = 16, 4
+    hist = L * K - 1
+    for T in (K, 3 * K, hist + 1, 6 * K):
+        for st in (torch.as_tensor(crandn(rng, (2, hist))), None):
+            x = torch.as_tensor(crandn(rng, (2, T)))
+            want = chz.prepended(x, st, hist)[..., T:]
+            assert torch.equal(chz.next_state(x, st, hist), want)
+            assert torch.equal(chz.channelize(x, K, L, state=st)[1], want)
 
 
 def test_streaming_continuity():

@@ -11,7 +11,7 @@ Integer outputs must be equal; dB values, f_index and fine_total agree
 within 1e-3 (float32 FFTs of another order).  The inputs are tones and
 chirps with clear peaks, so no window sits on a near tie.  Kernel D's
 channels agree with the plain block-Toeplitz product within 1e-4 of the
-largest output (float32 sums over 8K terms in another order).  Kernel E is
+largest output (float32 sums in another order).  Kernel E is
 a copy: bit-equal.  Kernel C's mag2 agrees within 1e-4 of each window's
 peak.
 """
@@ -114,22 +114,37 @@ def _bank(cfg, rng, B, noise):
     return x.astype(np.complex64)
 
 
-@pytest.mark.parametrize("sf", [6, 7, 10, 12])
-def test_track_kernel_matches_plain(dev, sf):
+@pytest.mark.parametrize("n_cand", [1, 2])
+@pytest.mark.parametrize("sf", [6, 7, 8, 9, 10, 11, 12])
+def test_track_kernel_matches_plain(dev, sf, n_cand):
+    """Kernel B (one team a candidate, the lookahead only where the sync test
+    reads it, the scan ended at the sync) against the plain scan of all 13
+    window pairs, at every window size, with one and two candidates a
+    channel, over a last block that is not full."""
     cfg = lora_tpu_torch.LoRaConfig(sf=sf, cr="4/8", ampl=1.0, mtu=12)
     rng = np.random.default_rng(sf)
-    x = torch.as_tensor(_bank(cfg, rng, 6, 0.2), device=dev)
+    B = 9
+    x = torch.as_tensor(_bank(cfg, rng, B, 0.2), device=dev)
     T = x.shape[1]
+    hi = T - tables.TRACK_ROWS * cfg.N
     v, snr0, pwr = dm._coarse_detect(x, cfg, False)
     _, t0, _ = dm._align_frame(v, snr0, pwr, cfg, T)
     # both ends of the range a caller may pass
-    t0[-2] = 0
-    t0[-1] = T - tables.TRACK_ROWS * cfg.N
+    t0[-3] = 0
+    t0[-2] = hi
+    if n_cand == 2:
+        later = torch.as_tensor(rng.integers(0, hi + 1, B), device=dev,
+                                dtype=t0.dtype)
+        t0 = torch.stack([t0, later], 1)
+    before = cuda_demod.track.launches
     got = cuda_demod.track(x, t0, cfg.sync, cfg.thresh, cfg.N)
+    torch.cuda.synchronize()
+    assert cuda_demod.track.launches == before + 1
     want = cuda_demod.track_plain(x, t0, cfg.sync, cfg.thresh, cfg.N)
-    assert bool(want["synced"][:3].all())
+    assert bool(want["synced"].reshape(B, -1)[:5, 0].all())
+    assert not bool(want["synced"].reshape(B, -1)[-1, 0])  # noise only
     for f in ("synced", "k_sync", "freq_error"):
-        assert torch.equal(got[f], want[f]), f
+        assert got[f].shape == t0.shape and torch.equal(got[f], want[f]), f
     for f in ("fine_total", "power", "snr"):
         d = (got[f] - want[f]).abs().max().item()
         assert d <= TOL, (f, d)
@@ -215,42 +230,82 @@ def crandn(rng, shape, dev):
     return torch.as_tensor(x.astype(np.complex64), device=dev)
 
 
-@pytest.mark.parametrize("K", [16, 32, 64, 128, 192, 256])
+def fenced(t, offset):
+    """A copy of t [S, n] inside an allocation that is NaN wherever t is not:
+    `offset` samples before the first row (so the rows are 8-byte aligned
+    only when it is odd), one NaN between rows, and nothing after the last
+    row, which ends the allocation."""
+    S, n = t.shape
+    base = torch.full((offset + S * (n + 1) - 1,), float("nan"),
+                      dtype=t.dtype, device=t.device)
+    view = base[offset:].as_strided((S, n), (n + 1, 1))
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("with_state", [True, False])
+@pytest.mark.parametrize("K", [8, 16, 24, 32, 64, 128, 192, 256, 512, 1024])
 @pytest.mark.parametrize("L", [4, 8, 12])
-def test_channelize_kernel_matches_plain(dev, K, L):
-    """Kernel D against the plain product with a random state, over a tile
-    seam and a ragged last tile, for one and three streams."""
+def test_channelize_kernel_matches_plain(dev, K, L, with_state):
+    """Kernel D against the plain product, with a random state and with none
+    (a null history pointer), over tile seams and a ragged last tile, for one
+    and three streams.  History and block are strided views into NaN-filled
+    allocations that end with their last row: a read outside them shows in
+    the output."""
     rng = np.random.default_rng(K * 100 + L)
-    M = 2 * cuda_channelize.tile_m(K, L) + 5
+    M = 517  # odd: no tile of any width divides it
     for S in (1, 3):
-        x = crandn(rng, (S, K * M), dev)
-        st = crandn(rng, (S, L * K - 1), dev)
+        x = fenced(crandn(rng, (S, K * M), dev), S)
+        st = fenced(crandn(rng, (S, L * K - 1), dev), 1) if with_state else None
         before = cuda_channelize.filterbank.launches
         y, s = chz.channelize(x, K, L, state=st)
         torch.cuda.synchronize()
         assert cuda_channelize.filterbank.launches == before + 1
-        yp, sp = chz.channelize(x, K, L, state=st, impl="xla")
+        yp, sp = chz.channelize(x.contiguous(), K, L,
+                                state=None if st is None else st.contiguous(),
+                                impl="xla")
         assert y.shape == (S, K, M) and y.is_contiguous()
         assert torch.equal(s, sp)
+        assert bool(torch.isfinite(torch.view_as_real(y)).all())
         err = (y - yp).abs().max().item()
         assert err <= D_RTOL * yp.abs().max().item(), (S, err)
 
 
 def test_channelize_tile_fits_every_width(dev):
-    """The kernel's own tile choice: a power of two in [2, 512] for every
-    width from 8 to 1024 channels; none for 4096."""
+    """The kernel's own choice of route: the register FFT for the powers of
+    two from 8 to 1024, the direct sum for every other width up to 1024;
+    none for 4096."""
     for L in (4, 8, 12):
         for K in range(8, 1025, 8):
-            TM = cuda_channelize.tile_m(K, L)
-            assert TM & (TM - 1) == 0 and 2 <= TM <= 512, (K, L, TM)
-    assert cuda_channelize.tile_m(64, 8) == 64
-    assert cuda_channelize.tile_m(16, 8) == 256
+            want = 1 if K & (K - 1) == 0 else 2
+            assert cuda_channelize.route(K, L) == want, (K, L)
+    assert cuda_channelize.route(24, 8) == 2
     with pytest.raises(ValueError, match="no tile fits"):
-        cuda_channelize.tile_m(4096, 8)
+        cuda_channelize.route(4096, 8)
+
+
+def test_channelize_kernel_takes_views_and_refuses_the_rest(dev):
+    """A block whose last axis is strided is made contiguous; a state of
+    another shape, type or device raises."""
+    rng = np.random.default_rng(12)
+    K, L, M = 64, 8, 40
+    x = crandn(rng, (2, K * M, 2), dev)[..., 0]
+    st = crandn(rng, (2, L * K - 1), dev)
+    assert x.stride(-1) == 2
+    y = cuda_channelize.filterbank(x, K, L, st)
+    want = cuda_channelize.filterbank(x.contiguous(), K, L, st)
+    assert torch.equal(y, want)
+    with pytest.raises(ValueError, match="state of shape"):
+        cuda_channelize.filterbank(x, K, L, st[:, :-1])
+    with pytest.raises(TypeError):
+        cuda_channelize.filterbank(x, K, L, st.to(torch.complex128))
+    with pytest.raises(ValueError, match="state on"):
+        cuda_channelize.filterbank(x, K, L, st.cpu())
 
 
 def test_channelize_kernel_streaming_continuity(dev):
-    """Two chunks through the kernel with carried state equal one shot."""
+    """Two chunks through the kernel with carried state (the second reads
+    the first's tail through the history pointer) equal one shot."""
     rng = np.random.default_rng(9)
     K, M = 64, 200
     x = crandn(rng, (2, K * M), dev)
@@ -325,9 +380,9 @@ def test_out_of_slice_options_raise_on_card(dev):
         chz.channelize(torch.zeros((1, 4096 * 4), dtype=torch.complex64,
                                    device=dev), 4096)
     with pytest.raises(TypeError):
-        cuda_channelize.filterbank(wide.real.contiguous(), 16, 8, 8)
-    with pytest.raises(ValueError):  # fewer samples than (M + L - 1) * K
-        cuda_channelize.filterbank(wide[:, :100], 16, 8, 8)
+        cuda_channelize.filterbank(wide.real.contiguous(), 16, 8)
+    with pytest.raises(ValueError):  # a block that is no multiple of K
+        cuda_channelize.filterbank(wide[:, :100], 16, 8)
 
 
 # --------------------------------------------------------------------------

@@ -1,33 +1,45 @@
 #!/usr/bin/env python3
-"""Probe the port's window kernels (A detect, B track, C payload) on one
-NVIDIA card: their registers and spills, and their times, alone or in turns
-against another copy of the sources.  Every copy is first held against the
-plain versions at the flagship shape by chip_smoke.py's own step 3a
-(hold_window_kernels).
+"""Probe the port's kernels on one NVIDIA card: the window kernels (A
+detect, B track, C payload) and the filterbank (D channelize): their
+registers and spills, and their times, alone or in turns against another
+copy of the sources.  Every copy is first held against the plain versions:
+A, B, C at the flagship shape by chip_smoke.py's own step 3a
+(hold_window_kernels), D at the config-3 shape against the plain product.
 
     python3 tools/torch_kernel_probe.py [--resources] [--sizes]
-                                        [--against DIR ...] [--runs N]
+                                        [--kernels abcd] [--against DIR ...]
+                                        [--runs N]
 
---resources   compile {detect,track,payload}.cu of the tree and of every
-              --against copy with `-Xptxas -v` and print every kernel's
-              registers, spill bytes and static shared memory (no library is
-              kept);
+--resources   compile every source of the tree and of every --against copy
+              with `-Xptxas -v` and print every kernel's registers, spill
+              bytes and static shared memory (no library is kept);
+--kernels     which kernels to hold and time: any of a, b, c (they share the
+              flagship bank) and d (the config-3 stream); default all;
 --sizes       hold kernels A and C (with mag2) against their plain versions
-              at every window size from 64 to 4096 and time kernel A there
-              (every copy in turns);
---against DIR build the kernels of DIR (a copy of lora_tpu_torch/csrc with
-              the same C entry points) too and time both in turns on one
-              card: DIR, tree, tree, DIR.  May be given several times.
+              at every window size from 64 to 4096 and time kernel A there,
+              and hold and time kernel D at every K from 8 to 1024 and at
+              K = 24, 192 (every copy in turns);
+--against DIR build the kernels of DIR (a copy of lora_tpu_torch/csrc) too
+              and time both in turns on one card: DIR, tree, tree, DIR.  May
+              be given several times.  A copy from before kernel D read
+              history and block through two pointers (it exports
+              lora_channelize_tile) is driven through its own entry, on the
+              concatenated stream, and timed with and without the
+              concatenation it needs.
 
-Without --against it times the tree alone.  The bank is chip_smoke.py's
-flagship bank (4096 channels, SF10, mtu 68, seed 1234); times are CUDA
-events, the median of --runs (7) after a warm-up, the better of the two
-turns.  Prints the card's name and power limit first.  Needs the card.
+Without --against it times the tree alone.  The banks are chip_smoke.py's:
+the flagship bank (4096 channels, SF10, mtu 68, seed 1234) and, for D, 256
+streams of 64 x 10,240 noise samples with no history, as config 3's path
+gives them.  Times are CUDA events, the median of --runs (7) after a
+warm-up, the better of the two turns.  Prints the card's name and power
+limit first.  Needs the card.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
+import math
 import os
 import pathlib
 import re
@@ -37,6 +49,12 @@ import sys
 REPO = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
+# lora_channelize as it was while the caller concatenated history and block:
+# (xp, row stride, S, K, L, M, hp, wk, y, stream)
+ONE_POINTER = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+               ctypes.c_int, ctypes.c_int, ctypes.c_longlong] + \
+    [ctypes.c_void_p] * 4
+
 
 def resources(_cuda) -> None:
     """Registers, spills and shared memory of every kernel, from ptxas."""
@@ -45,7 +63,8 @@ def resources(_cuda) -> None:
         [nvcc, *_cuda.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", os.devnull,
          str(_cuda.CSRC / src)], stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True))
-        for src in ("detect.cu", "track.cu", "payload.cu")]
+        for src in _cuda.SOURCES if (_cuda.CSRC / src).exists()]
+    worst = 0
     for src, p in procs:
         out = p.communicate()[0]
         if p.returncode:
@@ -56,34 +75,138 @@ def resources(_cuda) -> None:
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
                 name = m.group(1)
-                k = re.search(r"(\w+_kernel)ILi(\d+)(?:ELb(\d))?", name)
+                k = re.search(r"\d+(\w+_kernel)(?:ILi(\d+)(?:EL[bi](\d+))?)?",
+                              name)
                 if k:
-                    name = f"{k.group(1)}<{k.group(2)}" + (
-                        f", {k.group(3)}>" if k.group(3) else ">")
+                    args = ", ".join(g for g in k.groups()[1:] if g)
+                    name = k.group(1) + (f"<{args}>" if args else "")
             m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
                           r"stores, (\d+) bytes spill loads", line)
             if m:
                 spill = (f"stack {m.group(1)} B, spill stores {m.group(2)} B, "
                          f"loads {m.group(3)} B")
+                worst = max(worst, int(m.group(2)), int(m.group(3)))
             m = re.search(r"Used (\d+) registers(?:, used \d+ barriers)?"
                           r"(?:, (\d+) bytes smem)?", line)
             if m and name:
                 print(f"resources {src} {name}: {m.group(1)} registers, "
                       f"{spill}, static smem {m.group(2) or 0} B", flush=True)
                 name = None
+    print(f"resources: largest spill of any kernel {worst} B", flush=True)
 
 
 def load(_cuda, csrc):
-    """The library built from the sources in `csrc`."""
+    """The library built from the sources in `csrc`, bound by the entry
+    points it has."""
     _cuda.CSRC = pathlib.Path(csrc).resolve()
-    _cuda.library.cache_clear()
-    return _cuda.library()
+    _cuda.HEADERS = tuple(sorted(p.name for p in _cuda.CSRC.glob("*.cuh")))
+    lib = ctypes.CDLL(str(_cuda.build()))
+    for name, argtypes in _cuda._ARGTYPES.items():
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    if hasattr(lib, "lora_channelize_tile"):
+        lib.lora_channelize.argtypes = ONE_POINTER
+    return lib
+
+
+def in_turns(cs, order, use, fn, sync):
+    """{copy: [ms of each turn]} of fn under every library of `order`."""
+    ms = {}
+    for which in order:
+        use(which)
+        ms.setdefault(which, []).append(cs.timed(fn, sync))
+    use("tree")
+    return ms
+
+
+def show(ms) -> str:
+    return ", ".join(f"{w} {min(t):.3f} ms ({' '.join(f'{x:.3f}' for x in t)})"
+                     for w, t in ms.items())
+
+
+def probe_d(torch, cs, _cuda, libs, order, use, args, card, dev, sync):
+    """Kernel D of every copy against the plain product and in turns."""
+    from lora_tpu_torch.ops import channelizer as chz
+    from lora_tpu_torch.ops import cuda_channelize as cc
+
+    L = 8
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 10)
+    current = {}
+    cat_too = {"on": False}
+
+    def run(x, K, state=None):
+        """Kernel D of the library in use: through the wrapper, or through
+        a one-pointer copy's own entry on the concatenated stream."""
+        lib = _cuda.library()
+        if not hasattr(lib, "lora_channelize_tile"):
+            return cc.filterbank(x, K, L, state)
+        S, T = x.shape
+        M = T // K
+        key = (x.data_ptr(), None if state is None else state.data_ptr())
+        if cat_too["on"] or current.get("key") != key:
+            current["xp"] = chz.prepended(x, state, L * K - 1)
+            current["key"] = key
+        xp = current["xp"]
+        y = torch.empty((S, K, M), dtype=torch.complex64, device=dev)
+        hp, wk = cc.consts(K, L, dev)
+        _cuda.check(lib.lora_channelize(
+            xp.data_ptr(), xp.stride(0), S, K, L, M, hp.data_ptr(),
+            wk.data_ptr(), y.data_ptr(), _cuda.stream(dev)), "lora_channelize")
+        return y
+
+    def hold(K, S, M, what):
+        x = cs.awgn((S, K * M), 1.0, gen, dev)
+        st = cs.awgn((S, L * K - 1), 1.0, gen, dev)
+        rel = {}
+        for state in (st, None):
+            want = cc.filterbank_plain(chz.prepended(x, state, L * K - 1), K,
+                                       L, M)
+            for which in libs:
+                use(which)
+                c = cs.Check(f"channelize {which} K={K}")
+                rel[which, state is None] = c.close_rel(
+                    what, run(x, K, state), want, cs.D_RTOL)
+            del want
+        use("tree")
+        print(f"{what}: kernel D within " + ", ".join(
+            f"{w} {rel[w, False]:.3g} / {rel[w, True]:.3g}" for w in libs)
+            + " of the plain product's maximum (with a state / with none)",
+            flush=True)
+        return x
+
+    S, K, M = cs.C3_STREAMS, cs.C3_K, 10240
+    x = hold(K, S, M, f"config-3 shape S={S} K={K} M={M}")
+    bnd = cs.bound(2 * S * K * M * 8, S * K * M * (5 * math.log2(K) + 4 * L))
+    ms = in_turns(cs, order, use, lambda: run(x, K), sync)
+    print(f"time channelize (kernel alone): {show(ms)}, bound "
+          f"{bnd['bound_ms']:.3f} ms by {bnd['bound_by']} [{card}]", flush=True)
+    cat_too["on"] = True
+    ms = in_turns(cs, order, use, lambda: run(x, K), sync)
+    cat_too["on"] = False
+    print(f"time channelize (with the concatenation a one-pointer copy "
+          f"needs): {show(ms)} [{card}]", flush=True)
+    del x
+    if args.sizes:
+        for K in (8, 16, 32, 64, 128, 256, 512, 1024, 24, 192):
+            M = 4101  # odd: a ragged last tile, and a small plain matrix
+            S = max(1, (1 << 25) // (K * M))
+            x = hold(K, S, M, f"size K={K} S={S} M={M} route "
+                     f"{cc.route(K, L)}")
+            bnd = cs.bound(2 * S * K * M * 8,
+                           S * K * M * (5 * math.log2(K) + 4 * L))
+            ms = in_turns(cs, order, use, lambda: run(x, K), sync)
+            print(f"size K={K}: kernel D for {S * K * M} samples: {show(ms)}, "
+                  f"bound {bnd['bound_ms']:.3f} ms [{card}]", flush=True)
+            del x
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--resources", action="store_true")
     ap.add_argument("--sizes", action="store_true")
+    ap.add_argument("--kernels", default="abcd")
     ap.add_argument("--against", action="append", default=[])
     ap.add_argument("--runs", type=int, default=7)
     args = ap.parse_args()
@@ -102,7 +225,7 @@ def main() -> int:
     print(card, flush=True)
     dev = torch.device("cuda", 0)
     sync = torch.cuda.synchronize
-    tree_csrc = _cuda.CSRC
+    tree_csrc, tree_headers = _cuda.CSRC, _cuda.HEADERS
     if args.resources:
         for d in [tree_csrc, *args.against]:
             _cuda.CSRC = pathlib.Path(d).resolve()
@@ -112,8 +235,17 @@ def main() -> int:
     libs = {"tree": load(_cuda, tree_csrc)}
     for d in args.against:
         libs[d] = load(_cuda, d)
+    _cuda.CSRC, _cuda.HEADERS = tree_csrc, tree_headers
     use = lambda name: setattr(_cuda, "library", lambda: libs[name])
     use("tree")
+    others = list(args.against)
+    order = others + ["tree", "tree"] + others[::-1]
+
+    if "d" in args.kernels:
+        probe_d(torch, cs, _cuda, libs, order, use, args, card, dev, sync)
+    if not set("abc") & set(args.kernels):
+        _cuda.library = cached
+        return 0
 
     cfg = cs.flagship_cfg()
     N, mtu = cfg.N, cfg.mtu
@@ -127,8 +259,8 @@ def main() -> int:
     for which in libs:
         use(which)
         try:
-            _, t0, ds, fine = cs.hold_window_kernels(torch, bank, cfg, dev,
-                                                     sync)
+            _, t0, ds, fine, _ = cs.hold_window_kernels(torch, bank, cfg, dev,
+                                                        sync)
             print(f"{which}: parity ok; {int((ds % 2).sum())} of {B} data "
                   "starts odd", flush=True)
         except AssertionError as e:
@@ -137,8 +269,6 @@ def main() -> int:
             print(f"{which}: PARITY FAILED: {e}", flush=True)
     use("tree")
 
-    others = list(args.against)
-    order = others + ["tree", "tree"] + others[::-1]
     if args.sizes:
         for n in (64, 128, 256, 512, 1024, 2048, 4096):
             m = (1 << 25) // n
@@ -146,13 +276,8 @@ def main() -> int:
             f = torch.rand(m, generator=gen, device=dev) - 0.5
             c = cs.Check(f"detect N={n}")
             cs.check_detect(c, det_ops, cuda_detect, x, False, f, True)
-            ms = {}
-            for which in order:
-                use(which)
-                t = cs.timed(lambda: cuda_detect.dechirp_detect(
-                    x, want_f_index=False), sync)
-                ms[which] = min(ms.get(which, t), t)
-            use("tree")
+            ms = in_turns(cs, order, use, lambda: cuda_detect.dechirp_detect(
+                x, want_f_index=False), sync)
             rows = x.reshape(m // 8, 8 * n)
             d0 = torch.randint(0, n, (m // 8,), generator=gen, device=dev)
             fr = torch.rand(m // 8, generator=gen, device=dev) * 4 - 2
@@ -164,30 +289,40 @@ def main() -> int:
                             lambda i: want[3].reshape(-1, n)[i])
             c2.close("power", got[1], want[1], mask=okk)
             e2 = cs.windows_close(f"mag2 N={n}", got[3], want[3])
+            # kernel B at this size: candidates of 18 noise windows
+            cand = x.reshape(-1, 32 * n)
+            t00 = torch.randint(0, 14 * n, (cand.shape[0],), generator=gen,
+                                device=dev, dtype=torch.int32)
+            kb = cuda_demod.track(cand, t00, 0x12, cfg.thresh, n)
+            pb = cuda_demod.track_plain(cand, t00, 0x12, cfg.thresh, n)
+            c3 = cs.Check(f"track N={n}")
+            for fld in ("synced", "k_sync"):
+                c3.equal(fld, kb[fld], pb[fld])
+            mb = in_turns(cs, order, use, lambda: cuda_demod.track(
+                cand, t00, 0x12, cfg.thresh, n), sync)
             bnd = cs.bound(m * (n * 8 + 12), m * cs.window_flops(n, False))
             print(f"size N={n}: A and C parity ok ({c.ties + c2.ties} near "
                   f"ties, mag2 within {e2:.3g}); kernel A for {m} windows: "
-                  + ", ".join(f"{w} {t:.3f} ms" for w, t in ms.items())
-                  + f", bound {bnd['bound_ms']:.3f} ms [{card}]", flush=True)
-            del x, rows, got, want
+                  f"{show(ms)}, bound {bnd['bound_ms']:.3f} ms; kernel B for "
+                  f"{cand.shape[0]} candidates of noise (all 13 steps): "
+                  f"{show(mb)} [{card}]", flush=True)
+            del x, rows, got, want, cand
 
     stages = {
-        "detect": lambda: cuda_detect.dechirp_detect(win, want_f_index=False),
-        "track": lambda: cuda_demod.track(bank, t0, cfg.sync, cfg.thresh, N),
-        "payload": lambda: cuda_demod.payload_detect(bank, ds, fine, mtu, N),
-        "payload+mag2": lambda: cuda_demod.payload_detect(
-            bank, ds, fine, mtu, N, want_mag2=True),
-        "demodulate": lambda: api.demodulate(bank, cfg, fused="auto"),
+        "a": ("detect", lambda: cuda_detect.dechirp_detect(
+            win, want_f_index=False)),
+        "b": ("track", lambda: cuda_demod.track(bank, t0, cfg.sync,
+                                                cfg.thresh, N)),
+        "c": ("payload", lambda: cuda_demod.payload_detect(bank, ds, fine,
+                                                           mtu, N)),
+        "c2": ("payload+mag2", lambda: cuda_demod.payload_detect(
+            bank, ds, fine, mtu, N, want_mag2=True)),
+        "e2e": ("demodulate", lambda: api.demodulate(bank, cfg, fused="auto")),
     }
-    for name, fn in stages.items():
-        ms = {}
-        for which in order:
-            use(which)
-            t = cs.timed(fn, sync)
-            ms.setdefault(which, []).append(t)
-        print(f"time {name}: " + ", ".join(
-            f"{w} {min(t):.3f} ms ({' '.join(f'{x:.3f}' for x in t)})"
-            for w, t in ms.items()) + f" [{card}]", flush=True)
+    for key, (name, fn) in stages.items():
+        if key[0] in args.kernels or key == "e2e":
+            print(f"time {name}: {show(in_turns(cs, order, use, fn, sync))} "
+                  f"[{card}]", flush=True)
     _cuda.library = cached
     return 0
 
