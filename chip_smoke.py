@@ -88,10 +88,34 @@
    two interleaved sets (plain, kernel, kernel, plain).  With the option
    --profile, steps 3, 4 and 5 also print each path's device time by kernel
    (torch.profiler over three warm calls) and the device's idle share.
+6. The streaming runtime, slab execution and capture replay at the flagship
+   config (SF10, CR 4/8, mtu 68), data made on the card from the seed:
+   a. StreamDemodulator(channels=4096) on the card, driven by pump() over
+      host complex64 blocks of 16,384 samples (as an SDR delivers them):
+      each channel carries 3 frames at random gaps, one CFO a channel
+      (|u| < 0.4 bins), AWGN 0.1, over at least two device steps; frames
+      cross block seams and the first window's end.  Every frame found
+      once, byte-exact, t_start within 1 sample of where it was placed, no
+      extra frame with status OK, kernels A, B, C once a step; feed/run
+      gives the same frames and read pointers, and so does a save_state /
+      load_state round trip in the middle of the stream.  Prints the
+      steps, the ingest rate (channels x samples over the wall time), ms a
+      step and the peak device memory (with --profile, the idle share);
+   b. demodulate_bank over a host bank of 10,240 channels (BASELINE.json
+      config 5's 10k+ channels) in pinned slabs of 4096: every field
+      bit-equal to demodulate of each slab alone, every frame byte-exact;
+      ms per bank (with --profile, whether copies and kernels overlap);
+   c. replay_file of cf32 captures written from the port's tx path: at 8x
+      the channel rate with the frame on channel 3 and a DC offset
+      (dc_block=True; kernel D launched), and at the fractional ratio
+      4.096 with the frame across the 2^22-sample chunk seam (the
+      resampler, whose chunked output is bit-equal to the unchunked one on
+      the card): each frame byte-exact.
 
 Prints the kernels' JSON line (kernels A to E: launches summed over the
-driven paths and, in launches_by_path, of each path's run alone, every
-kernel counted from 0 on every path; the error against the plain version, the kernel's, the plain
+driven paths, step 6's StreamDemodulator.pump, demodulate_bank and both
+replays among them, and, in launches_by_path, of each path's run alone,
+every kernel counted from 0 on every path; the error against the plain version, the kernel's, the plain
 version's and, for kernel E, one PyTorch call's time, and the bound: the
 larger of the bytes each input and output must move over 3.35 TB/s and the
 float32 operations over 67 TFLOP/s; every other number of a row is measured
@@ -107,6 +131,8 @@ import os
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 SEED = 1234
 B_FLAGSHIP = 4096
@@ -143,6 +169,22 @@ TAP_RTOL = 1e-4
 # and float32 operations/s outside the tensor cores
 HBM_RATE = 3.35e12
 F32_RATE = 67e12
+# step 6 (flagship config): streams of host blocks, a slab bank (the "10k+
+# channels" of BASELINE.json config 5), capture replay
+STREAM_CHANNELS = 4096
+STREAM_BLOCK = 16384
+STREAM_FRAMES = 3
+STREAM_RUN_PASSES = 3
+SLAB_CHANNELS = 10240
+SLAB = 4096
+REPLAY_K = 8
+REPLAY_CHANNEL = 3
+REPLAY_CHUNK_K = 1 << 19
+REPLAY_RATIO = 4.096
+REPLAY_CHUNK = 1 << 22
+# the fields of a step's result that the stream's decisions read
+DECIDE = ("found", "found_pre", "payload_complete", "t_sync", "consumed",
+          "count", "freq_error", "symbols", "t_candidate")
 
 
 def window_flops(N: int, rotate: bool) -> float:
@@ -1289,6 +1331,495 @@ def receive_options(torch, dev, card, sync, checks, profile=False):
     return chk_e, by_path, ms_e, lib_e, bound_e
 
 
+def stream_bank(api, cfg, B: int, seed: int, dev):
+    """B channel streams of STREAM_FRAMES frames each (32-byte payloads), made
+    on the card: gaps in [0, 6N) plus, after a frame, its mtu overshoot (the
+    demodulator consumes mtu symbols), one transmitter a channel with a CFO
+    of u bins (|u| < 0.4), a random phase per frame, AWGN sigma SIGMA.  (A
+    fractional CFO leaks the preamble's peak into its neighbours, which the
+    coarse search reads as a lower SNR; with a CFO of its own each frame
+    of a channel may lose to the next frame's preamble at the window's end
+    by the 6 dB rule of the single-frame search, and both packages lose the
+    same frames: tests/test_torch_stream.py::
+    test_stream_cfo_per_frame_losses_match_jax.)
+    -> (host complex64 [B, L], payloads [B, F, 32], frame starts [B, F],
+    frame length)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    F, N = STREAM_FRAMES, cfg.N
+    payload = torch.randint(0, 256, (B * F, 32), generator=g, device=dev,
+                            dtype=torch.int64).to(torch.uint8)
+    frames = api.modulate(api.encode(payload, cfg), cfg)
+    Lf = frames.shape[1]
+    over = (cfg.mtu - cfg.num_symbols(32)) * N + N
+    gaps = torch.randint(0, 6 * N, (B, F), generator=g, device=dev)
+    gaps[:, 1:] += over
+    starts = torch.cumsum(gaps, 1) + torch.arange(F, device=dev) * Lf
+    L = int(starts[:, -1].max()) + Lf + 2 * N
+    u = ((torch.rand((B, 1), generator=g, device=dev) * 2 - 1) * 0.4
+         ).repeat_interleave(F, 0)
+    phase = torch.rand((B * F, 1), generator=g, device=dev) * 6.2831855
+    n = torch.arange(Lf, device=dev, dtype=torch.float32)
+    frames = frames * torch.polar(torch.ones_like(phase),
+                                  u * (6.2831855 / N) * n + phase)
+    stream = awgn((B, L), SIGMA, g, dev)
+    frames = frames.reshape(B, F, Lf)
+    rows = torch.arange(B, device=dev)[:, None]
+    for j in range(F):
+        idx = starts[:, j : j + 1] + torch.arange(Lf, device=dev)
+        stream[rows, idx] += frames[:, j]
+    del frames
+    return (stream.cpu().numpy(), payload.reshape(B, F, 32).cpu().numpy(),
+            starts.cpu().numpy(), Lf)
+
+
+def stream_frames_exact(what, frames, payload, starts, OK):
+    """Every sent frame found once, decoded byte-exact, t_start within one
+    sample of where it was placed; no other frame with status OK."""
+    B, F = starts.shape
+    good = {}
+    for f in frames:
+        if f.status == OK:
+            good.setdefault(f.channel, []).append(f)
+    extra, bad = 0, []
+    for b in range(B):
+        got = sorted(good.get(b, []), key=lambda f: f.t_start)
+        for j in range(F):
+            hit = [f for f in got if abs(f.t_start - int(starts[b, j])) <= 1]
+            if len(hit) != 1 or hit[0].payload != bytes(payload[b, j]):
+                bad.append((b, j))
+        extra += len(got) - sum(
+            1 for f in got
+            if any(abs(f.t_start - int(s)) <= 1 for s in starts[b]))
+    if bad or extra:
+        raise AssertionError(f"{what}: {len(bad)} of {B * F} frames not "
+                             f"found once byte-exact at their start "
+                             f"({bad[:10]}), {extra} extra frames with "
+                             "status OK")
+    return B * F
+
+
+def profile_once(what, fn, sync, wall_ms: float):
+    """With --profile: one call of fn under torch.profiler: the device's
+    busy time (kernels and copies) against wall_ms, the same path's wall
+    time without the profiler (which slows the host several times), the
+    idle share, and the time the host-to-device copies overlap kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    wall = wall_ms
+    dev_ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in dev_ev) / 1e3
+    copies = [e.time_range for e in dev_ev if "HtoD" in e.name]
+    kernels = [e.time_range for e in dev_ev if "Memcpy" not in e.name
+               and "Memset" not in e.name]
+    overlap = sum(max(0, min(c.end, k.end) - max(c.start, k.start))
+                  for c in copies for k in kernels) / 1e3
+    print(f"profile {what}: device busy {busy:.3f} ms of {wall:.3f} ms "
+          f"({100 * (1 - busy / wall):.0f}% idle), host-to-device copies "
+          f"{sum(c.elapsed_us() for c in copies) / 1e3:.3f} ms, of which "
+          f"{overlap:.3f} ms overlap kernels", flush=True)
+
+
+def streaming(torch, dev, card, sync, cfg, profile=False):
+    """Step 6a: StreamDemodulator over STREAM_CHANNELS channel streams of
+    host blocks.  -> {kernel: launches} of the pump run."""
+    import io
+
+    from lora_tpu_torch import api
+    from lora_tpu_torch.models.decoder import OK
+    from lora_tpu_torch.runtime import StreamDemodulator, decode_frames
+
+    B, blk = STREAM_CHANNELS, STREAM_BLOCK
+    host, payload, starts, Lf = stream_bank(api, cfg, B, SEED + 40, dev)
+    torch.cuda.empty_cache()
+    L = host.shape[1]
+    W = api.required_samples(cfg)
+    seam = int((starts // blk != (starts + Lf - 1) // blk).sum())
+    window = int(((starts < W) & (starts + Lf > W)).sum())
+    if not seam or not window:
+        raise AssertionError(f"streaming: {seam} frames cross a block seam, "
+                             f"{window} the first window's end")
+    print(f"stream: {B} channels x {L} samples ({host.nbytes / 1e9:.2f} GB "
+          f"complex64 on the host), {STREAM_FRAMES} frames of {Lf} samples a "
+          f"channel; blocks of {blk}; {seam} frames cross a block seam, "
+          f"{window} the first window's end (W={W})", flush=True)
+    blocks = lambda a, b: (host[:, i : min(i + blk, b)]
+                           for i in range(a, b, blk))
+
+    def drive(sd, pump, a=0, b=L, flush=True, step_ms=None):
+        out = []
+        if pump:
+            out.extend(sd.pump(blocks(a, b)))
+        else:
+            for x in blocks(a, b):
+                sd.feed(x)
+                while sd.ready():  # each step timed on its own
+                    sync()
+                    t = time.perf_counter()
+                    out.extend(sd.step())
+                    sync()
+                    step_ms.append((time.perf_counter() - t) * 1e3)
+        if flush:
+            out.extend(sd.flush())
+        return out
+
+    steps = []
+    observe = lambda *a: steps.append(1)
+    sync()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sd = StreamDemodulator(cfg, B, device=dev, observer=observe)
+    ring_gb = sd._ring.buf.numel() * 8 / 1e9
+    t = time.perf_counter()
+    frames, launches = count_launches(
+        "StreamDemodulator.pump", lambda: drive(sd, True), sync,
+        ("detect", "track", "payload"))
+    wall = time.perf_counter() - t
+    peak = (torch.cuda.max_memory_allocated() - base_mem) / 1e9
+    n_steps = len(steps)
+    for k in ("detect", "track", "payload"):
+        if launches[k] != n_steps:
+            raise AssertionError(f"streaming: kernel {k} launched "
+                                 f"{launches[k]} times in {n_steps} steps")
+    if n_steps < 2:
+        raise AssertionError(f"streaming: {n_steps} device steps")
+    frames = decode_frames(frames, cfg, dev)
+    n = stream_frames_exact("pump", frames, payload, starts, OK)
+    print(f"stream pump: {n}/{n} frames found once, byte-exact, t_start "
+          f"within 1 sample; {len(frames)} frames reported, none extra OK; "
+          f"{n_steps} steps, kernels A, B, C once a step", flush=True)
+    print(f"time stream pump: {wall * 1e3:.3f} ms for {n_steps} steps, "
+          f"flush included: ingest {B * L / wall / 1e6:.1f} Msamples/s ({B} x "
+          f"{L} samples over the wall time); peak device memory {peak:.2f} "
+          f"GB, the ring's {ring_gb:.2f} GB included [{card}]", flush=True)
+    key = lambda f: (f.channel, f.t_start, f.data_start, f.freq_error,
+                     f.payload, f.status)
+    want = [key(f) for f in frames]
+    offsets = sd.offsets.copy()
+    if profile:
+        profile_once("StreamDemodulator.pump",
+                     lambda: drive(StreamDemodulator(cfg, B, device=dev),
+                                   True), sync, wall * 1e3)
+    del sd
+    torch.cuda.empty_cache()
+
+    # the stream through feed and run, STREAM_RUN_PASSES times, each step
+    # of run timed on its own (the flush's steps are not)
+    step_ms, wall_run = [], []
+    for _ in range(STREAM_RUN_PASSES):
+        sd = StreamDemodulator(cfg, B, device=dev)
+        t = time.perf_counter()
+        run = decode_frames(drive(sd, False, step_ms=step_ms), cfg, dev)
+        sync()
+        wall_run.append((time.perf_counter() - t) * 1e3)
+        if [key(f) for f in run] != want or not (sd.offsets == offsets).all():
+            raise AssertionError("streaming: feed/run and pump differ")
+        del sd, run
+        torch.cuda.empty_cache()
+    print(f"stream feed/run: the frames and read pointers of pump in each "
+          f"of {STREAM_RUN_PASSES} passes; "
+          f"{', '.join(f'{x:.3f}' for x in wall_run)} ms a pass; a step "
+          f"(window gather, demodulate, one readback, the host's "
+          f"decisions), {len(step_ms)} in order: "
+          f"{', '.join(f'{x:.3f}' for x in step_ms)} ms; median "
+          f"{sorted(step_ms)[len(step_ms) // 2]:.3f}, from {min(step_ms):.3f} "
+          f"to {max(step_ms):.3f} [{card}]", flush=True)
+
+    cut = (L // 2) // blk * blk
+    first = StreamDemodulator(cfg, B, device=dev)
+    part = drive(first, True, 0, cut, flush=False)
+    buf = io.BytesIO()
+    t = time.perf_counter()
+    first.save_state(buf)
+    nbytes = buf.tell()
+    del first
+    torch.cuda.empty_cache()
+    buf.seek(0)
+    second = StreamDemodulator(cfg, B, device=dev)
+    second.load_state(buf)
+    sync()
+    t_ckpt = time.perf_counter() - t
+    del buf
+    part += drive(second, True, cut, L)
+    part = decode_frames(part, cfg, dev)
+    if [key(f) for f in part] != want or not (second.offsets
+                                              == offsets).all():
+        raise AssertionError("streaming: a save_state/load_state round trip "
+                             "changed the frames")
+    del second
+    torch.cuda.empty_cache()
+    print(f"stream checkpoint: save_state at sample {cut}, load_state into a "
+          f"new demodulator: the same frames and pointers ({nbytes / 1e9:.2f} "
+          f"GB, {t_ckpt * 1e3:.3f} ms round trip) [{card}]", flush=True)
+    return launches
+
+
+def slab_bank(torch, dev, card, sync, cfg, profile=False):
+    """Step 6b: demodulate_bank over a host bank of SLAB_CHANNELS channels
+    in slabs of SLAB.  -> {kernel: launches}."""
+    from lora_tpu_torch import api
+    from lora_tpu_torch.runtime import demodulate_bank
+
+    parts = []
+    for i, s in enumerate(range(0, SLAB_CHANNELS, SLAB)):
+        n = min(SLAB, SLAB_CHANNELS - s)
+        bank, pay = make_bank(api, cfg, n, SIGMA, SEED + 50 + i, dev)
+        parts.append((bank.real.cpu().numpy(), bank.imag.cpu().numpy(),
+                      pay.cpu().numpy()))
+        del bank
+    re = np.concatenate([p[0] for p in parts])
+    im = np.concatenate([p[1] for p in parts])
+    payload = np.concatenate([p[2] for p in parts])
+    del parts
+    torch.cuda.empty_cache()
+    B, T = re.shape
+    n_slabs = -(-B // SLAB)
+    gb = 2 * re.nbytes / 1e9
+    print(f"slab: host bank of {B} channels x {T} samples ({gb:.2f} GB "
+          f"planar float32), {n_slabs} slabs of {SLAB}", flush=True)
+    dem, launches = count_launches(
+        "demodulate_bank", lambda: demodulate_bank(re, im, cfg, SLAB,
+                                                   device=dev),
+        sync, ("detect", "track", "payload"), exactly=n_slabs)
+    for i, s in enumerate(range(0, B, SLAB)):
+        x = torch.complex(torch.as_tensor(re[s : s + SLAB], device=dev),
+                          torch.as_tensor(im[s : s + SLAB], device=dev))
+        one = api.demodulate(x, cfg)
+        for f in ("symbols", "count", "found", "freq_error", "fine_freq",
+                  "power", "snr", "t_sync", "consumed", "found_pre",
+                  "t_candidate", "payload_complete"):
+            if not torch.equal(getattr(dem, f)[s : s + SLAB],
+                               getattr(one, f).cpu()):
+                raise AssertionError(f"slab {i}: {f} differs from "
+                                     "demodulate of the slab alone")
+        del x, one
+    got = api.extract_payloads(api.decode(dem.symbols, cfg, device=dev))
+    bad = [i for i in range(B) if got[i] != bytes(payload[i])]
+    if bad:
+        raise AssertionError(f"slab: {len(bad)} of {B} payloads not "
+                             f"byte-exact: {bad[:20]}")
+    times = []
+    for _ in range(3):
+        sync()
+        t = time.perf_counter()
+        demodulate_bank(re, im, cfg, SLAB, device=dev)
+        sync()
+        times.append((time.perf_counter() - t) * 1e3)
+    times.sort()
+    print(f"slab: every field bit-equal to demodulate of each slab alone, "
+          f"{B}/{B} frames byte-exact", flush=True)
+    print(f"time demodulate_bank: {times[1]:.3f} ms per bank of {B} "
+          f"(median of 3: {', '.join(f'{x:.3f}' for x in times)}), "
+          f"{B * T / (times[1] * 1e-3) / 1e6:.1f} Msamples/s [{card}]",
+          flush=True)
+    if profile:
+        profile_once("demodulate_bank",
+                     lambda: demodulate_bank(re, im, cfg, SLAB, device=dev),
+                     sync, times[1])
+    return launches
+
+
+def replayed_stream(torch, path, dev, chunk, chk_d, K=1, ratio=1.0,
+                    channel=0, dc_block=False):
+    """The channel stream replay_file feeds its demodulator, rebuilt from
+    the file by the same steps and chunks.  At an integer ratio K, kernel D
+    is held on each chunk against filterbank_plain with the history that
+    replay_file carries across the chunk seams (within D_RTOL, new states
+    equal).  -> complex64 [n] on dev."""
+    from lora_tpu_torch.ops import channelizer as chz
+    from lora_tpu_torch.ops import cplx, cuda_channelize
+    from lora_tpu_torch.ops import dcblock as dcb
+    from lora_tpu_torch.ops import resample as rs
+    from lora_tpu_torch.runtime import iqio
+
+    parts, state, dstate, rstate, rel = [], None, None, None, 0.0
+    with open(path, "rb") as f:
+        while raw := f.read(chunk * 8):
+            x = cplx.from_planar(*iqio.convert(raw, "cf32"), dev)
+            if dc_block:
+                x, dstate = dcb.dcblock(x, state=dstate)
+            if K > 1:
+                x = x[: x.shape[-1] // K * K]
+                yk, sk = chz.channelize(x, K, state=state)
+                yp, sp = chz.channelize(x, K, state=state, impl="xla")
+                what = f"replay chunk {len(parts)} at K={K}"
+                rel = max(rel, chk_d.close_rel(what, yk, yp, D_RTOL))
+                if not torch.equal(sk, sp):
+                    raise AssertionError(f"channelize: new_state differs in "
+                                         f"{what}")
+                state = sk
+                parts.append(yk[channel])
+            else:
+                y, rstate = rs.resample_stream(x, ratio, rstate)
+                parts.append(y)
+    if K > 1:
+        print(f"kernel D parity on the replay's {len(parts)} chunks (K={K}, "
+              f"route {cuda_channelize.route(K, 8)}, the history carried "
+              f"across each seam): max |y_D - y_plain| = {rel:.3g} of max "
+              f"|y_plain|; new_state equal", flush=True)
+    return torch.cat(parts)
+
+
+def replay_windows_equal(torch, api, what, stream, steps, cfg):
+    """Kernels A, B, C at the replay's shape [1, W]: each window a replay
+    step demodulated (its offset before the step, the flush's zeros past
+    the stream) through fused='auto' and 'off'.  The kernels' fields equal
+    the replay's own step result, and the routes agree on every field the
+    stream's decisions read (t_candidate where a preamble was seen and no
+    frame found)."""
+    W = api.required_samples(cfg)
+    padded = torch.nn.functional.pad(stream, (0, W))
+    off = 0
+    for k, (own, after) in enumerate(steps):
+        win = padded[off : off + W][None]
+        a = api.demodulate(win, cfg, fused="auto")
+        o = api.demodulate(win, cfg, fused="off")
+        for f in DECIDE:
+            if not torch.equal(getattr(a, f).cpu(), own[f]):
+                raise AssertionError(f"{what}: step {k} (offset {off}): the "
+                                     f"window rebuilt from the file gives "
+                                     f"another {f} than the replay's step")
+        fields = DECIDE[:-1] + (DECIDE[-1:] if bool(a.found_pre[0])
+                                and not bool(a.found[0]) else ())
+        routes_equal(torch, f"{what} step {k} (offset {off})", a, o, fields)
+        off = int(after[0])
+    print(f"{what}: kernels A, B, C at [1, {W}] on the replay's {len(steps)} "
+          f"windows: the replay's own step results, and equal to fused='off' "
+          f"in {', '.join(DECIDE[:-1])} (t_candidate where a preamble was "
+          f"seen and no frame found)", flush=True)
+
+
+def replay(torch, dev, card, sync, cfg, chk_d, profile=False):
+    """Step 6c: capture files written with the port's tx path, replayed on
+    the card.  -> {path: {kernel: launches}}."""
+    import tempfile
+
+    from lora_tpu_torch import api, cli
+    from lora_tpu_torch.hw.capture import replay_file
+    from lora_tpu_torch.models.decoder import OK
+    from lora_tpu_torch.ops import channelizer as chz
+    from lora_tpu_torch.ops import resample as rs
+    from lora_tpu_torch.runtime import iqio
+
+    g = np.random.default_rng(SEED + 60)
+    by_path = {}
+    rate = 125e3
+
+    def observer(steps):
+        # each step's result and the read pointer after it
+        return lambda dem, frames, offsets: steps.append((
+            {f: getattr(dem, f).cpu() for f in DECIDE}, offsets))
+    with tempfile.TemporaryDirectory() as tmp:
+
+        def write(name, x):
+            path = os.path.join(tmp, name)
+            x = x.cpu()
+            with open(path, "wb") as f:
+                f.write(iqio.interleave_cf32(x.real.numpy(),
+                                             x.imag.numpy()).tobytes())
+            return path
+
+        def one_frame(what, frames, payload):
+            ok = [f for f in frames if f.status == OK]
+            if len(ok) != 1 or ok[0].payload != payload:
+                raise AssertionError(f"{what}: decoded {[f.payload for f in ok]}")
+            return ok[0]
+
+        # ---- 1. integer ratio: kernel D, with the DC blocker ------------
+        payload = bytes(g.integers(0, 256, 32).tolist())
+        body = cli.tx_samples(payload, cfg, dev)
+        nb = torch.complex(torch.as_tensor(body[0::2]),
+                           torch.as_tensor(body[1::2])).to(dev)
+        nb = torch.nn.functional.pad(nb, (3000, 4 * cfg.N))
+        wide = chz.upconvert(nb, REPLAY_K, REPLAY_CHANNEL) + (0.5 - 0.25j)
+        path = write("k8.cf32", wide)
+        what = f"replay_file(K={REPLAY_K})"
+        steps = []
+        frames, by_path[what] = count_launches(
+            what, lambda: replay_file(
+                path, "cf32", cfg, capture_rate=REPLAY_K * rate,
+                channel_rate=rate, channel=REPLAY_CHANNEL, dc_block=True,
+                chunk=REPLAY_CHUNK_K, observer=observer(steps), device=dev),
+            sync, ("channelize", "detect", "track", "payload"))
+        f = one_frame(what, frames, payload)
+        seam = REPLAY_CHUNK_K // REPLAY_K  # chunk seams, at the channel rate
+        end = 3000 + body.shape[0] // 2
+        print(f"{what}: {wide.shape[0]} capture samples with a DC offset, "
+              f"frame on channel {REPLAY_CHANNEL} (channel samples 3000 to "
+              f"{end}, over the chunk seam at {end // seam * seam}) "
+              f"byte-exact at t_start {f.t_start}, chunks of "
+              f"{REPLAY_CHUNK_K}", flush=True)
+        if 3000 // seam == end // seam:
+            raise AssertionError(f"{what}: the frame crosses no chunk seam")
+        stream = replayed_stream(torch, path, dev, REPLAY_CHUNK_K, chk_d,
+                                 K=REPLAY_K, channel=REPLAY_CHANNEL,
+                                 dc_block=True)
+        replay_windows_equal(torch, api, what, stream, steps, cfg)
+        del stream
+
+        # ---- 2. fractional ratio: the resampler; a frame over the seam ----
+        payload = bytes(g.integers(0, 256, 32).tolist())
+        body = cli.tx_samples(payload, cfg, dev)
+        fr = torch.complex(torch.as_tensor(body[0::2]),
+                           torch.as_tensor(body[1::2])).to(dev)
+        seam = int(REPLAY_CHUNK / REPLAY_RATIO)  # the chunk seam, channel rate
+        m0 = seam - fr.shape[0] // 2
+        nb = torch.nn.functional.pad(fr, (m0, 4 * cfg.N))
+        wide = rs.resample(nb, 1.0 / REPLAY_RATIO)
+        full = rs.resample(wide, REPLAY_RATIO)
+        state, parts = None, []
+        for a in range(0, wide.shape[0], REPLAY_CHUNK):
+            y, state = rs.resample_stream(wide[a : a + REPLAY_CHUNK],
+                                          REPLAY_RATIO, state)
+            parts.append(y)
+        chunked = torch.cat(parts)
+        n = min(chunked.shape[0], full.shape[0])
+        if n < full.shape[0] - 8 or not torch.equal(chunked[:n], full[:n]):
+            raise AssertionError("resample_stream chunked differs from "
+                                 "resample on the card")
+        print(f"resampler on the card: chunks of {REPLAY_CHUNK} bit-equal to "
+              f"the whole ({n} outputs of {wide.shape[0]} inputs, ratio "
+              f"{REPLAY_RATIO})", flush=True)
+        path = write("frac.cf32", wide)
+        what = f"replay_file(ratio={REPLAY_RATIO})"
+        steps = []
+        frames, by_path[what] = count_launches(
+            what, lambda: replay_file(
+                path, "cf32", cfg, capture_rate=REPLAY_RATIO * rate,
+                channel_rate=rate, observer=observer(steps), device=dev),
+            sync, ("detect", "track", "payload"))
+        f = one_frame(what, frames, payload)
+        print(f"{what}: {wide.shape[0]} capture samples, the frame "
+              f"(channel samples {m0} to {m0 + fr.shape[0]}) over the chunk "
+              f"seam at {seam}, byte-exact at t_start {f.t_start}",
+              flush=True)
+        stream = replayed_stream(torch, path, dev, REPLAY_CHUNK, chk_d,
+                                 ratio=REPLAY_RATIO)
+        replay_windows_equal(torch, api, what, stream, steps, cfg)
+    return by_path
+
+
+def step6(torch, dev, card, sync, checks, profile=False):
+    """Step 6: streaming, slab and replay on the flagship config."""
+    cfg = flagship_cfg()
+    by_path = {"StreamDemodulator.pump": streaming(torch, dev, card, sync,
+                                                   cfg, profile)}
+    torch.cuda.empty_cache()
+    by_path["demodulate_bank"] = slab_bank(torch, dev, card, sync, cfg,
+                                           profile)
+    torch.cuda.empty_cache()
+    by_path.update(replay(torch, dev, card, sync, cfg, checks["channelize"],
+                          profile))
+    return by_path
+
+
 def main() -> int:
     import torch
 
@@ -1321,9 +1852,12 @@ def main() -> int:
     (checks["shift"], by_path, ms["shift"], lib_shift,
      bounds["shift"]) = receive_options(torch, dev, card, sync, checks,
                                         profile)
+    torch.cuda.empty_cache()
+    by_path6 = step6(torch, dev, card, sync, checks, profile)
     # every driven path's run, each counted from 0
     by_path = {"demodulate(fused='auto')": launches,
-               "channelized_demodulate(fused='auto')": c3_launches, **by_path}
+               "channelized_demodulate(fused='auto')": c3_launches, **by_path,
+               **by_path6}
 
     sources = {
         "detect": ("lora_tpu_torch/csrc/detect.cu",

@@ -24,6 +24,7 @@ from .models.modulator import modulate
 from .models.softdec import decode_soft, guard_soft_status, soft_symbols
 from .ops import channelizer as chz
 from .ops import cplx
+from .roadmap import not_ported
 
 __all__ = [
     "LoRaConfig",
@@ -43,6 +44,7 @@ __all__ = [
     "extract_payloads",
     "channelized_demodulate",
     "loopback",
+    "aggregate_metrics",
 ]
 
 
@@ -62,6 +64,34 @@ def extract_payloads(result: DecodeResult) -> list[bytes | None]:
     return out
 
 
+def aggregate_metrics(dem: DemodResult, statuses=None) -> dict:
+    """Health report over a channel bank (lora_tpu/parallel/mesh.py:85):
+    frames, synced, the means over synced frames of snr, power and coarse
+    CFO, the symbol count and, given the decode statuses, decoded_ok and
+    dropped among the synced frames.  0-d tensors on the result's device."""
+    found = dem.found
+    n_found = found.sum(dtype=torch.int32)
+    denom = torch.clamp(n_found, min=1).to(torch.float32)
+
+    def mean_found(v):
+        return torch.where(found, v.to(torch.float32), 0.0).sum() / denom
+
+    out = {
+        "frames": torch.tensor(found.numel(), dtype=torch.int32,
+                               device=found.device),
+        "synced": n_found,
+        "mean_snr_db": mean_found(dem.snr),
+        "mean_power_db": mean_found(dem.power),
+        "mean_cfo_bins": mean_found(dem.freq_error),
+        "symbols": dem.count.sum(dtype=torch.int32),
+    }
+    if statuses is not None:
+        ok = torch.as_tensor(statuses, device=found.device) == OK
+        out["decoded_ok"] = (found & ok).sum(dtype=torch.int32)
+        out["dropped"] = (found & ~ok).sum(dtype=torch.int32)
+    return out
+
+
 def channelized_demodulate(wide, K: int, cfg: LoRaConfig,
                            taps_per_phase: int = 8, max_frames: int = 1,
                            state=None, fused: str = "auto",
@@ -77,8 +107,11 @@ def channelized_demodulate(wide, K: int, cfg: LoRaConfig,
 
     fused="auto" runs kernel D then the demod kernels for a CUDA tensor,
     and their plain versions for a CPU tensor; "off" runs the plain
-    channelizer and demodulator on any device."""
+    channelizer and demodulator on any device.  "bf16" is refused: lora_tpu
+    then runs the filterbank contraction in bfloat16 on every backend."""
     check_options(fused)
+    if fused == "bf16":
+        raise not_ported("channelized_demodulate(fused='bf16')", 5)
     wide = cplx.as_iq(wide, device)
     squeeze = wide.dim() == 1
     wb = wide[None] if squeeze else wide

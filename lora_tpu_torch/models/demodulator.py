@@ -22,7 +22,10 @@ its fused payload kernels for these taps.
 
 fused="auto" runs the kernels for a CUDA tensor and their plain versions
 for a CPU tensor; fused="off" runs the plain versions on any device and is
-the reference the tests and chip_smoke.py compare against.
+the reference the tests and chip_smoke.py compare against.  fused="bf16"
+is "auto": lora_tpu casts only its TPU Pallas kernels' DFT matmul operands
+to bfloat16 and takes exactly the "auto" route on every other backend; the
+port's kernels transform in float32 registers and have no matmul to cast.
 """
 
 from __future__ import annotations
@@ -40,7 +43,8 @@ from ..ops import detect as det_ops
 from ..ops import shift as shift_ops
 from ..ops.cuda_demod import trunc_half
 from ..ops.tables import TRACK_ROWS, payload_rows
-from ..roadmap import not_ported
+from ..roadmap import no_counterpart
+from ..utils import debugcheck
 
 
 @dataclasses.dataclass
@@ -227,11 +231,19 @@ def _payload_epilogue(head: DemodResult, value, power, noise, t0,
                                consumed=consumed.to(torch.int32))
 
 
+FUSED = ("auto", "bf16", "off")
+
+
 def check_options(fused: str = "auto") -> None:
-    """Raise for the one option of lora_tpu the port does not carry: a
-    `fused` route other than 'auto' or 'off'."""
-    if fused not in ("auto", "off"):
-        raise not_ported(f"fused={fused!r}", 13)
+    """Raise for a `fused` route the port does not take.  "auto" and its
+    twin "bf16" run the kernels on a CUDA tensor and the plain versions on a
+    CPU tensor; "off" the plain versions anywhere.  lora_tpu's "interpret"
+    and "interpret-bf16" run its Pallas kernels in the JAX interpreter and
+    have no CUDA counterpart."""
+    if fused in ("interpret", "interpret-bf16"):
+        raise no_counterpart(f"fused={fused!r}")
+    if fused not in FUSED:
+        raise ValueError(f"fused must be one of {FUSED}, got {fused!r}")
 
 
 def _payload(xb, data_start, fine_total, cfg: LoRaConfig, use_kernels: bool,
@@ -273,11 +285,19 @@ def demodulate(x, cfg: LoRaConfig, debug: bool = False, max_frames: int = 1,
     ports).
 
     fused="auto" runs the CUDA kernels for a CUDA tensor and their plain
-    versions for a CPU tensor; "off" runs the plain versions anywhere."""
+    versions for a CPU tensor; "bf16" is "auto" (see the module's note);
+    "off" runs the plain versions anywhere.
+
+    Inside utils.debugcheck.debug_checks() the result is checked on the
+    host before it is returned (DemodCheckError), and spectra are carried
+    so that the payload windows are checked too."""
     check_options(fused)
     if max_frames < 1:
         raise ValueError(f"max_frames must be >= 1, got {max_frames}")
-    use_kernels = fused == "auto"
+    use_kernels = fused != "off"
+    armed = debugcheck.armed()
+    if armed and not debug:
+        spectra = True
     x = cplx.as_iq(x, device)
     squeeze = x.dim() == 1
     xb = x[None] if squeeze else x
@@ -300,6 +320,8 @@ def demodulate(x, cfg: LoRaConfig, debug: bool = False, max_frames: int = 1,
         xb, head.consumed, fine_total, cfg, use_kernels, debug, spectra)
     res = _payload_epilogue(head, value, power, noise, t0, cfg)
     res = dataclasses.replace(res, dec=dec, fft_mag2=mag2, raw=raw)
+    if armed:
+        debugcheck.check_demod(res, cfg, T)
     if squeeze:
         res = DemodResult(**{
             f.name: None if getattr(res, f.name) is None

@@ -23,28 +23,15 @@ leaves them to torch.matmul in full float32.  `upconvert` and
 
 from __future__ import annotations
 
-import contextlib
 import functools
 
 import numpy as np
 import torch
 
-from ..roadmap import not_ported
+from ..roadmap import no_counterpart, not_ported
 from . import cplx, tables
 
 IMPLS = ("auto", "xla", "fir", "pallas")
-
-
-@contextlib.contextmanager
-def _full_float32():
-    """Full float32 matrix products, no TF32: the counterpart of
-    cplx.matmul(precision=HIGHEST) in the JAX package."""
-    prev = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("highest")
-    try:
-        yield
-    finally:
-        torch.set_float32_matmul_precision(prev)
 
 
 @functools.lru_cache(maxsize=None)
@@ -61,7 +48,7 @@ def bank_product(z: torch.Tensor, synthesis: bool, K: int,
                  taps_per_phase: int, G: int) -> torch.Tensor:
     """Grouped rows z [..., Q, (L+G-1)*K] times the bank matrix."""
     w = _bank_matrix(synthesis, K, taps_per_phase, G, z.device)
-    with _full_float32():
+    with cplx.full_float32():
         return torch.matmul(z, w)
 
 
@@ -111,9 +98,9 @@ def channelize(x, K: int, taps_per_phase: int = 8, state=None,
     plain product, is not taken: the plain version picks G itself.
     """
     if bf16:
-        raise not_ported("bf16=True", 13)
+        raise not_ported("bf16=True", 5)
     if impl in ("fir-interpret", "pallas-interpret"):
-        raise not_ported(f"impl={impl!r}", 13)
+        raise no_counterpart(f"impl={impl!r}")
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     from . import cuda_channelize
@@ -160,7 +147,7 @@ def synthesize(u, taps_per_phase: int = 8, state=None,
     causal: the prototype's group delay is not compensated, so chunked
     calls concatenate exactly."""
     if bf16:
-        raise not_ported("bf16=True", 13)
+        raise not_ported("bf16=True", 5)
     u = cplx.as_iq(u)
     K, M = u.shape[-2], u.shape[-1]
     L = taps_per_phase

@@ -10,6 +10,7 @@ two packages' arrays in tests.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import numpy as np
@@ -60,6 +61,13 @@ def from_planar(re, im, device=None) -> torch.Tensor:
     return torch.complex(re, im)
 
 
+def host(a) -> np.ndarray:
+    """A tensor's values (wherever it lies) or an array's, as numpy."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
 def to_planar(x: torch.Tensor) -> tuple[np.ndarray, np.ndarray]:
     """complex tensor -> planar float32 numpy (re, im)."""
     x = x.detach().cpu()
@@ -75,3 +83,15 @@ def from_turns(turns: torch.Tensor, ampl=1.0) -> torch.Tensor:
 
 def mag2(x: torch.Tensor) -> torch.Tensor:
     return x.real * x.real + x.imag * x.imag
+
+
+@contextlib.contextmanager
+def full_float32():
+    """Full float32 matrix products, no TF32: the counterpart of
+    cplx.matmul(precision=HIGHEST) in the JAX package."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)

@@ -269,3 +269,30 @@ def fir_taps_flipped(K: int, taps_per_phase: int) -> np.ndarray:
     pallas_channelize._fir_idft_consts, without its zero padding)."""
     H = prototype(K, taps_per_phase).reshape(taps_per_phase, K)
     return np.ascontiguousarray(H[:, ::-1])
+
+
+# --------------------------------------------------------------------------
+# fractional resampler bank (lora_tpu/ops/resample.py:28-47)
+# --------------------------------------------------------------------------
+
+RESAMPLE_PHASES = 128
+RESAMPLE_TAPS = 8
+
+
+@functools.lru_cache(maxsize=None)
+def resample_bank(cutoff_num: int, cutoff_den: int, taps: int,
+                  beta: float = 8.0) -> np.ndarray:
+    """[RESAMPLE_PHASES, taps] fractional-delay lowpass bank, float32: one
+    windowed-sinc prototype of length RESAMPLE_PHASES*taps (cutoff num/den
+    of the input Nyquist, Kaiser window) designed in float64 and split into
+    its polyphase components; subfilter p interpolates at delay
+    p/RESAMPLE_PHASES, each with unit DC gain."""
+    cutoff = min(1.0, cutoff_num / cutoff_den)
+    L = RESAMPLE_PHASES * taps
+    n = np.arange(L) - L / 2  # integer-centred: phase 0 is an exact delta
+    proto = np.sinc(cutoff * n / RESAMPLE_PHASES) * np.kaiser(L, beta)
+    h = np.zeros((RESAMPLE_PHASES, taps), np.float64)
+    for p in range(RESAMPLE_PHASES):
+        sub = proto[p::RESAMPLE_PHASES][:taps]
+        h[p, : sub.shape[0]] = sub / max(sub.sum(), 1e-9)
+    return h.astype(np.float32)

@@ -1,8 +1,8 @@
 """Channel impairments for loopback tests and simulation (port of
-lora_tpu/sim/channel.py): AWGN, static phase, CFO and a sample delay, on
-complex64 tensors.  Noise comes from a `torch.Generator`; it cannot give
-jax.random's numbers, so parity tests hand both packages the same numpy
-noise instead."""
+lora_tpu/sim/channel.py): AWGN, static phase, CFO, a sample delay and
+sample-clock drift, on complex64 tensors.  Noise comes from a
+`torch.Generator`; it cannot give jax.random's numbers, so parity tests
+hand both packages the same numpy noise instead."""
 
 from __future__ import annotations
 
@@ -10,6 +10,8 @@ import math
 
 import numpy as np
 import torch
+
+from ..ops import resample
 
 
 def awgn(x: torch.Tensor, amplitude: float, generator: torch.Generator
@@ -41,3 +43,15 @@ def cfo(x: torch.Tensor, offset_bins: float, N: int) -> torch.Tensor:
 def time_offset(x: torch.Tensor, samples: int) -> torch.Tensor:
     """Delay by prepending `samples` zeros; the length grows by `samples`."""
     return torch.nn.functional.pad(x, (samples, 0))
+
+
+def clock_drift(x: torch.Tensor, ppm: float) -> torch.Tensor:
+    """Sample-clock frequency offset between TX and RX: resample by
+    (1 + ppm*1e-6) through the polyphase fractional resampler, so each
+    received sample lands ppm*1e-6 later (in TX time) than the last, then
+    zero-pad back to the input's length.  The demodulator's preamble
+    retiming absorbs the drift accumulated over a frame up to about one
+    sample."""
+    T = x.shape[-1]
+    y = resample.resample(x, 1.0 + ppm * 1e-6)
+    return torch.nn.functional.pad(y, (0, T - y.shape[-1]))

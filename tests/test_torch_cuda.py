@@ -1,7 +1,11 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at small shapes and at every window size or channel count the kernels
-take, plus the demodulator and the channelized front end on both routes.  Marked `cuda`: each test asks the `dev`
-fixture for the card and skips without one (the kernels have no CPU mode).
+take, plus the demodulator and the channelized front end on both routes,
+and the streaming runtime's device parts (the mirrored ring, the pinned
+staging rule, streams through feed and pump, chunked resampling, the DC
+blocker, slabs) against the same code on the CPU.  Marked `cuda`: each
+test asks the `dev` fixture for the card and skips without one (the
+kernels have no CPU mode).
 The machine with the card has no jax, and tests/conftest.py imports it, so
 run them there without the conftest:
 
@@ -366,15 +370,23 @@ def test_out_of_slice_options_raise_on_card(dev):
     cfg = lora_tpu_torch.LoRaConfig(sf=7, mtu=8)
     wide = torch.zeros((1, 16 * api.required_samples(cfg)),
                        dtype=torch.complex64, device=dev)
-    for fused in ("bf16", "interpret", "interpret-bf16"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md item 13"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item 5"):
+        api.channelized_demodulate(wide, 16, cfg, fused="bf16")
+    for fused in ("interpret", "interpret-bf16"):
+        with pytest.raises(NotImplementedError, match="no CUDA counterpart"):
             api.channelized_demodulate(wide, 16, cfg, fused=fused)
-    for kw in (dict(bf16=True), dict(impl="fir-interpret"),
-               dict(impl="pallas-interpret")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md item 13"):
-            chz.channelize(wide, 16, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 13"):
-        api.loopback(np.zeros(4, np.uint8), cfg, fused="bf16", device=dev)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item 5"):
+        chz.channelize(wide, 16, bf16=True)
+    for impl in ("fir-interpret", "pallas-interpret"):
+        with pytest.raises(NotImplementedError, match="no CUDA counterpart"):
+            chz.channelize(wide, 16, impl=impl)
+    # fused="bf16" is "auto": the kernels run
+    before = cuda_detect.dechirp_detect.launches
+    dec, _ = api.loopback(np.arange(4, dtype=np.uint8),
+                          cfg.replace(mtu=cfg.num_symbols(4)), fused="bf16",
+                          device=dev)
+    assert cuda_detect.dechirp_detect.launches == before + 1
+    assert api.extract_payloads(dec) == [bytes(range(4))]
     # a width kernel D does not take raises; it never takes the plain route
     with pytest.raises(ValueError, match="no tile fits"):
         chz.channelize(torch.zeros((1, 4096 * 4), dtype=torch.complex64,
@@ -657,3 +669,157 @@ def test_host_data_lands_on_the_card(dev):
     assert not api.encode(torch.as_tensor(payload), cfg).is_cuda
     assert not api.demodulate(iq.cpu(), cfg).found.is_cuda
     assert not api.encode(payload, cfg, device="cpu").is_cuda
+
+
+# --------------------------------------------------------------------------
+# streaming, slab, capture replay: the ring and the staging on the card
+# --------------------------------------------------------------------------
+
+def test_device_ring_gather_matches_host_ring_at_a_wrap(dev):
+    """The ring on the card (one gather over its mirrored store) cuts the
+    windows the same ring on the CPU cuts, including windows that run over
+    the end of the store into the mirror, across growth and trims."""
+    from lora_tpu_torch.runtime.stream import _Ring
+
+    rng = np.random.default_rng(11)
+    B, W = 5, 300
+    card, host = _Ring(B, 512, W, dev), _Ring(B, 512, W, "cpu")
+    wrapped = 0
+    for _ in range(30):
+        x = crandn(rng, (B, int(rng.integers(50, 400))), "cpu")
+        card.append(x.to(dev))
+        host.append(x)
+        base = max(card.base, card.end - int(rng.integers(W, 900)))
+        card.trim(base)
+        host.trim(base)
+        if card.end - card.base < W:
+            continue
+        offs = card.base + rng.integers(0, card.end - card.base - W + 1, B)
+        wrapped += int(((offs % card.cap) + W > card.cap).sum())
+        got = card.gather(offs, W)
+        assert got.is_cuda
+        assert torch.equal(got.cpu(), host.gather(offs, W))
+        assert torch.equal(card.view(card.base, card.end - card.base).cpu(),
+                           host.view(host.base, host.end - host.base))
+    assert wrapped > 0 and card.cap == host.cap > 512
+
+
+def test_staging_buffer_reuse_never_changes_a_copied_block(dev):
+    """The pinned-buffer rule: with the copies held behind a busy stream, a
+    staging buffer handed out again is written only after its copy has
+    read it, so every block lands on the card as it was given."""
+    from lora_tpu_torch.runtime.staging import Staging
+
+    staging = Staging(2)
+    shape = (4, 1 << 16)
+    blocks = [np.full(shape, k + 1j * k, np.complex64) for k in range(6)]
+    outs = []
+    torch.cuda._sleep(200_000_000)  # the copies queue behind this
+    for blk in blocks:
+        slot, pinned = staging.take(shape)
+        pinned.numpy()[...] = blk
+        outs.append(pinned.to(dev, non_blocking=True))
+        staging.sent(slot, dev)
+    torch.cuda.synchronize()
+    for blk, out in zip(blocks, outs):
+        assert torch.equal(out.cpu(), torch.as_tensor(blk))
+
+
+def test_stream_on_card_matches_cpu(dev):
+    """StreamDemodulator on the card, fed host blocks (through the pinned
+    staging) and through pump: the frames and pointers of the same stream
+    on the CPU; kernels A, B, C launched once a step."""
+    from lora_tpu_torch.runtime import StreamDemodulator, decode_frames
+
+    cfg = lora_tpu_torch.LoRaConfig(sf=7, cr="4/8", ampl=1.0)
+    cfg = cfg.replace(mtu=cfg.num_symbols(8) + 2)
+    rng = np.random.default_rng(12)
+    B = 3
+    payload = rng.integers(0, 256, (B, 8)).astype(np.uint8)
+    fr = api.modulate(api.encode(payload, cfg, device="cpu"), cfg).numpy()
+    x = np.zeros((B, 4 * api.required_samples(cfg)), np.complex64)
+    for b in range(B):
+        d = 500 + 1700 * b
+        x[b, d : d + fr.shape[1]] = fr[b]
+    x += 0.05 * (rng.standard_normal(x.shape) + 1j * rng.standard_normal(x.shape))
+    blocks = [x[:, i : i + 3000] for i in range(0, x.shape[1], 3000)]
+    key = lambda f: (f.channel, f.t_start, f.data_start, f.payload, f.status)
+
+    def drive(device, pump):
+        steps = []
+        sd = StreamDemodulator(cfg, B, device=device,
+                               observer=lambda *a: steps.append(1))
+        if pump:
+            frames = list(sd.pump(iter(blocks)))
+        else:
+            frames = []
+            for blk in blocks:
+                sd.feed(blk)
+                frames.extend(sd.run())
+        frames.extend(sd.flush())
+        return decode_frames(frames, cfg, device), sd.offsets, len(steps)
+
+    want, offs, _ = drive("cpu", False)
+    assert [f.payload for f in want] == [bytes(p) for p in payload]
+    wrappers = (cuda_detect.dechirp_detect, cuda_demod.track,
+                cuda_demod.payload_detect)
+    for pump in (False, True):
+        before = [w.launches for w in wrappers]
+        got, goffs, steps = drive(dev, pump)
+        assert [w.launches - n for w, n in zip(wrappers, before)] == [steps] * 3
+        assert [key(f) for f in got] == [key(f) for f in want]
+        np.testing.assert_array_equal(goffs, offs)
+
+
+def test_resample_stream_bit_equal_on_card(dev):
+    """Chunked resample_stream equals the one-shot resample bit for bit on
+    the card (the taps summed in one fixed order), at ratios that decimate
+    and interpolate, and stays within 2e-6 of the CPU's result."""
+    from lora_tpu_torch.ops import resample as rs
+
+    rng = np.random.default_rng(13)
+    T = 200_003
+    x = crandn(rng, (2, T), dev)
+    cuts = [0, 1037, 1038, 65536, 65537, 150001, T]
+    for ratio in (4.096, 1.7, 0.37):
+        full = rs.resample(x, ratio)
+        assert full.is_cuda
+        state, parts = None, []
+        for a, b in zip(cuts[:-1], cuts[1:]):
+            y, state = rs.resample_stream(x[:, a:b], ratio, state)
+            parts.append(y)
+        got = torch.cat(parts, -1)
+        n = min(got.shape[-1], full.shape[-1])
+        assert n >= full.shape[-1] - 8
+        assert torch.equal(got[:, :n], full[:, :n]), ratio
+        cpu = rs.resample(x.cpu(), ratio)
+        assert (full.cpu() - cpu).abs().max().item() <= 2e-6
+
+
+def test_dcblock_and_slab_on_card_match_cpu(dev):
+    """The DC blocker on the card within 1e-5 of the CPU's (its block matrix
+    product in full float32), and demodulate_bank through pinned slabs
+    equal to the CPU's, field by field."""
+    from lora_tpu_torch.ops import dcblock
+    from lora_tpu_torch.runtime import demodulate_bank
+
+    rng = np.random.default_rng(14)
+    x = crandn(rng, (3, 300_001), "cpu") + (2.0 - 1.0j)
+    y, st = dcblock.dcblock(x.to(dev))
+    yc, stc = dcblock.dcblock(x)
+    assert (y.cpu() - yc).abs().max().item() <= 1e-5 * 3.0
+    cfg = lora_tpu_torch.LoRaConfig(sf=7, cr="4/7", ampl=1.0)
+    cfg = cfg.replace(mtu=cfg.num_symbols(5) + 2)
+    B, T = 11, api.required_samples(cfg)
+    payload = rng.integers(0, 256, (B, 5)).astype(np.uint8)
+    fr = api.modulate(api.encode(payload, cfg, device="cpu"), cfg).numpy()
+    bank = np.zeros((B, T), np.complex64)
+    bank[:, : fr.shape[1]] = fr[:, :T]
+    bank += 0.03 * (rng.standard_normal((B, T)) + 1j * rng.standard_normal((B, T)))
+    before = cuda_demod.payload_detect.launches
+    got = demodulate_bank(bank.real, bank.imag, cfg, slab=4, device=dev)
+    assert cuda_demod.payload_detect.launches == before + 3
+    want = demodulate_bank(bank.real, bank.imag, cfg, slab=4, device="cpu")
+    for f in ("found", "symbols", "count", "t_sync", "consumed", "freq_error"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert bool(got.found.all())

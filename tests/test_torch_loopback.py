@@ -148,18 +148,22 @@ def test_loopback_reference_operating_point(cr, L, seed):
 
 
 def test_out_of_slice_options_raise():
-    """The one option of lora_tpu.demodulate still outside the port is a
-    `fused` route other than "auto" and "off" (ROADMAP.md item 13); the
-    options of the receive slice (multi-frame, debug taps, spectra, soft
-    decoding) are accepted."""
+    """The `fused` routes of lora_tpu.demodulate that run its Pallas kernels
+    in the JAX interpreter have no CUDA counterpart and raise, saying so;
+    "bf16" is "auto" and every option of the receive slice (multi-frame,
+    debug taps, spectra, soft decoding) is accepted; an unknown route is a
+    ValueError."""
     cfg = lora_tpu.LoRaConfig(sf=7, mtu=8)
     x = torch.zeros(tapi.required_samples(cfg), dtype=torch.complex64)
-    for fused in ("bf16", "interpret", "interpret-bf16"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md item 13"):
+    for fused in ("interpret", "interpret-bf16"):
+        with pytest.raises(NotImplementedError, match="no CUDA counterpart"):
             tapi.demodulate(x, cfg, fused=fused)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md item 13"):
+        with pytest.raises(NotImplementedError, match="no CUDA counterpart"):
             tapi.loopback(np.zeros(4, np.uint8), cfg, fused=fused,
                           device="cpu")
+    with pytest.raises(ValueError, match="fused must be one of"):
+        tapi.demodulate(x, cfg, fused="fast")
+    assert not bool(tapi.demodulate(x, cfg, fused="bf16").found.any())
     for kw in (dict(max_frames=2), dict(debug=True), dict(spectra=True)):
         assert not bool(tapi.demodulate(x, cfg, **kw).found.any())
     dec, _ = tapi.loopback(np.arange(4, dtype=np.uint8),

@@ -17,8 +17,17 @@ for m in pkgutil.walk_packages(lora_tpu_torch.__path__, "lora_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
 for name in ("ops.channelizer", "ops.cuda_channelize", "roadmap", "config",
-             "ops._bitref", "ops.shift", "models.softdec"):
+             "ops._bitref", "ops.shift", "models.softdec", "runtime.stream",
+             "runtime.slab", "runtime.iqio", "hw.capture", "cli",
+             "utils.debugcheck", "ops.resample", "ops.dcblock"):
     assert "lora_tpu_torch." + name in sys.modules, name
+# the native ingest library builds under build/, never in the package
+from lora_tpu_torch.ops import _cuda
+from lora_tpu_torch.runtime import iqio
+assert iqio.get_lib() is not None
+assert iqio.library_path().parent == _cuda.BUILD_DIR
+assert iqio.library_path().exists()
+assert not list((_cuda.CSRC.parent / "runtime" / "native").glob("*.so"))
 bad = sorted(k for k in sys.modules if k == "jax" or k.startswith("jax."))
 assert not bad, bad
 # mind the prefix: lora_tpu_torch is the port, lora_tpu the JAX package
