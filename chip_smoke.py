@@ -111,12 +111,54 @@
       4.096 with the frame across the 2^22-sample chunk seam (the
       resampler, whose chunked output is bit-equal to the unchunked one on
       the card): each frame byte-exact.
+7. The multi-device paths (lora_tpu_torch.parallel) on ranks spawned by
+   parallel.dryrun.launch after the parent frees its banks: two ranks on
+   this one card over gloo (NCCL refuses two ranks on one device), then
+   one rank over NCCL; each rank makes the data on the card from the seed
+   and first checks that its backend takes comm.py's collectives for CUDA
+   tensors:
+   a. shard_demodulate of the flagship bank (2048 rows a rank; 4096 on
+      the NCCL rank), decode and aggregate_metrics under the sharding:
+      every field of the gathered result equal to rank 0's whole-bank
+      demodulate (floats within 1e-3, and whether bit-equal), every
+      payload byte-exact, the all-reduced counts equal and the means
+      within 1e-5 of their size (float32 sums in another order; gloo and
+      NCCL);
+   b. demodulate_stream at time 2, max_frames = 2, over 4096 flagship
+      channels of 2 x 102,400 samples: frames straddling the boundary, 2
+      samples before it, just after it and two in shard 0's region (one
+      CFO a channel, |u| < 0.4, AWGN 0.1): every frame claimed once, by
+      its owner, t_sync global within 1, byte-exact, and on every channel
+      the same t_sync as one demodulate(max_frames=2) of the global bank
+      (gloo);
+   c. channelize_stream of the config-3 bank (256 x 655,360, K = 64, L =
+      8) over the time shards, then shard_demodulate of the 16,384
+      channels: kernel D across the seam against one channelize of the
+      whole stream (within 1e-4, and whether bit-equal), the occupied
+      channels equal to single-process channelized_demodulate and
+      byte-exact (gloo and NCCL);
+   d. ChannelDispatcher with a mesh over 4096 channels, SF7 to SF12 round
+      robin, CR 4/8, 32-byte payloads, hard and soft: every channel found,
+      status 0, byte-exact, equal to the dispatcher without a mesh (gloo);
+      first, on rank 0, kernels A, B and C (C with and without mag2) at
+      each SF group's shapes against the plain route, as in 3b and 5d:
+      demodulate(fused="auto") and "off" equal in every decision field,
+      fine_freq, power and snr within 1e-3, fft_mag2 within 1e-4 of each
+      window's peak.
+   Every path counts the kernels from 0 in each rank (A, B, C on every
+   path, D in 7c, E on none) and prints its time (barrier to barrier)
+   beside the single-process call, the bytes and time of each collective
+   (comm.py's functions wrapped in the rank, a device sync on each side)
+   and each rank's peak device memory.  The ranks share the card's SMs and
+   gloo moves CUDA tensors through the host: these times are the
+   collectives' cost, not scaling.
 
 Prints the kernels' JSON line (kernels A to E: launches summed over the
 driven paths, step 6's StreamDemodulator.pump, demodulate_bank and both
-replays among them, and, in launches_by_path, of each path's run alone,
-every kernel counted from 0 on every path; the error against the plain version, the kernel's, the plain
-version's and, for kernel E, one PyTorch call's time, and the bound: the
+replays and step 7's paths (summed over their ranks) among them, and, in
+launches_by_path, of each path's run alone, every kernel counted from 0
+on every path; the error against the plain version, the kernel's, the
+plain version's and, for kernel E, one PyTorch call's time, and the bound: the
 larger of the bytes each input and output must move over 3.35 TB/s and the
 float32 operations over 67 TFLOP/s; every other number of a row is measured
 in this run), then {"ok": true, "device": {...}} last.  Any failure raises
@@ -125,6 +167,7 @@ and exits non-zero.  Imports no jax.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -1820,6 +1863,533 @@ def step6(torch, dev, card, sync, checks, profile=False):
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# step 7: the multi-device paths on ranks that share the card
+# ---------------------------------------------------------------------------
+
+S7_RUNS = 3
+S7_TIMEOUT = 600.0
+S7_SFS = (7, 8, 9, 10, 11, 12)
+S7_PATTERNS = 9  # step 7b's placements of a channel's frames (stream_plan)
+MEAN_RTOL = 1e-5  # 7a: sharded means against the whole bank's (float32 sums)
+# the collectives of lora_tpu_torch.parallel.comm, by the name each is
+# printed under; while S7_COMM["log"] is a list (the counted run of a path)
+# each call over a process group appends (op, bytes, ms) to it
+S7_OPS = {"shift": "all_to_all_single (shift)",
+          "all_to_all": "all_to_all_single", "all_gather": "all_gather",
+          "all_reduce_sum": "all_reduce"}
+S7_COMM = {"log": None}
+
+
+def time_collectives(torch, dist):
+    """Wrap comm.py's collectives in this rank (halo.py, channelize.py and
+    mesh.py call them through the module): while S7_COMM["log"] is a list,
+    each call over a process group appends its op, the bytes that reached
+    this rank from the others (from the shape of the tensor it was given)
+    and its host ms between two device synchronisations."""
+    from lora_tpu_torch.parallel import comm
+
+    def moved(name, x, group, by=1):
+        n = dist.get_world_size(group)
+        nbytes = x.numel() * x.element_size()
+        if name == "shift":
+            return nbytes if n > 1 and by % n else 0
+        if name == "all_to_all":
+            return nbytes // n * (n - 1)
+        return nbytes * (n - 1)
+
+    def wrap(name, fn):
+        def call(x, group, *args):
+            log = S7_COMM["log"]
+            if log is None or group is None:
+                return fn(x, group, *args)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(x, group, *args)
+            torch.cuda.synchronize()
+            log.append((S7_OPS[name], moved(name, x, group, *args),
+                        (time.perf_counter() - t) * 1e3))
+            return out
+        return call
+
+    for name in S7_OPS:
+        setattr(comm, name, wrap(name, getattr(comm, name)))
+
+
+def s7_record(torch, mesh, launches, ms, log):
+    """What a rank sends back of one path: its launches, the path's ms, the
+    bytes and ms of each collective (summed by op) and its peak device
+    memory."""
+    traffic = {}
+    for op, nbytes, t in log:
+        n, b, s = traffic.get(op, (0, 0, 0.0))
+        traffic[op] = (n + 1, b + nbytes, s + t)
+    return {"launches": launches, "ms": ms, "traffic": traffic,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def s7_drive(torch, dist, what, mesh, path, sync, expect, runs=S7_RUNS):
+    """One path on every rank: the counted and checked run (launches from 0,
+    every collective logged with a sync on each side), then `runs` timed
+    runs, each between two barriers (the median wall ms)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    log = S7_COMM["log"] = []
+    dist.barrier()
+    out, launches = count_launches(f"{what} [rank {mesh.rank}]", path, sync,
+                                   expect)
+    S7_COMM["log"] = None
+    times = []
+    for _ in range(runs):
+        dist.barrier()
+        t = time.perf_counter()
+        path()
+        sync()
+        dist.barrier()
+        times.append((time.perf_counter() - t) * 1e3)
+    times.sort()
+    return out, s7_record(torch, mesh, launches, times[len(times) // 2], log)
+
+
+def s7_alone(dist, mesh, fn, sync, runs=None):
+    """Rank 0's ms of the single-process call while the others wait: the
+    CUDA-event median of timed(), or with `runs` the host-clock median of
+    that many synchronised calls after a warm-up."""
+    ms = None
+    if mesh.rank == 0:
+        if runs is None:
+            ms = timed(fn, sync)
+        else:
+            fn()
+            sync()
+            times = []
+            for _ in range(runs):
+                t = time.perf_counter()
+                fn()
+                sync()
+                times.append((time.perf_counter() - t) * 1e3)
+            ms = sorted(times)[runs // 2]
+    dist.barrier()
+    return ms
+
+
+def s7_fields_equal(torch, what, got, want) -> bool:
+    """Every field of a gathered result against the single-process one:
+    integers and flags equal, floats within TOL; True when the floats are
+    bit-equal too."""
+    bit = True
+    for f in dataclasses.fields(want):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        if b is None:
+            continue
+        if a is None or a.shape != b.shape:
+            raise AssertionError(f"{what}: field {f.name} missing or of "
+                                 f"another shape")
+        if b.is_floating_point():
+            d = float((a - b).abs().max()) if b.numel() else 0.0
+            if not d <= TOL:
+                raise AssertionError(f"{what}: {f.name} differs by {d}")
+            bit = bit and torch.equal(a, b)
+        elif not torch.equal(a, b):
+            raise AssertionError(f"{what}: {f.name} differs in "
+                                 f"{int((a != b).sum())} places")
+    return bit
+
+
+def collectives_taken(torch, dist, dev) -> dict:
+    """Which collectives this group's backend takes for CUDA tensors:
+    comm.py's three (all_to_all_single with split sizes, the list
+    all_gather, all_reduce of float64) must; all_gather_into_tensor is
+    probed beside them and only reported."""
+    n, r = dist.get_world_size(), dist.get_rank()
+    x = torch.arange(8, dtype=torch.uint8, device=dev) + 16 * r
+    taken = {}
+    send = [0] * n
+    recv = [0] * n
+    send[(r + 1) % n] = 8
+    recv[(r - 1) % n] = 8
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, recv, send)
+    taken["all_to_all_single"] = out.tolist() == (
+        torch.arange(8) + 16 * ((r - 1) % n)).tolist()
+    outs = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(outs, x)
+    taken["all_gather"] = [int(o[0]) for o in outs] == [16 * i
+                                                       for i in range(n)]
+    y = torch.ones(2, dtype=torch.float64, device=dev)
+    dist.all_reduce(y)
+    taken["all_reduce"] = float(y[0]) == n
+    if not all(taken.values()):
+        raise AssertionError(f"{dist.get_backend()}: {taken}")
+    try:  # reported only: the port does not use it
+        flat = torch.empty(8 * n, dtype=torch.uint8, device=dev)
+        dist.all_gather_into_tensor(flat, x)
+        taken["all_gather_into_tensor"] = True
+    except (RuntimeError, ValueError) as e:
+        taken["all_gather_into_tensor"] = f"refused: {str(e)[:80]}"
+    return taken
+
+
+def s7a(torch, dist, dev, sync) -> dict:
+    """7a: shard_demodulate of the flagship bank, decode and
+    aggregate_metrics under the sharding, the gathered results against
+    rank 0's whole-bank api.demodulate."""
+    from lora_tpu_torch import api
+    from lora_tpu_torch.parallel import (aggregate_metrics, channel_sharding,
+                                         gather_result, make_mesh,
+                                         shard_demodulate)
+
+    mesh = make_mesh(device=dev)
+    cfg = flagship_cfg()
+    bank, payload = make_bank(api, cfg, B_FLAGSHIP, SIGMA, SEED, dev)
+    x = bank[channel_sharding(mesh, B_FLAGSHIP)]
+    if mesh.rank:
+        x = x.clone()
+        del bank
+
+    def path():
+        dem = shard_demodulate(x, cfg, mesh)
+        dec = api.decode(dem.symbols, cfg)
+        m = aggregate_metrics(dem, dec.status, mesh)
+        return gather_result(dem, mesh), gather_result(dec, mesh), m
+
+    (g, gdec, m), rec = s7_drive(torch, dist, "7a shard_demodulate", mesh,
+                                 path, sync, ("detect", "track", "payload"))
+    rec["rows"] = x.shape[0]
+    single = None
+    if mesh.rank == 0:
+        whole = api.demodulate(bank, cfg)
+        wdec = api.decode(whole.symbols, cfg)
+        wm = api.aggregate_metrics(whole, wdec.status)
+        rec["bit_equal"] = s7_fields_equal(torch, "7a", g, whole)
+        if not torch.equal(gdec.status, wdec.status):
+            raise AssertionError("7a: decode statuses differ")
+        rec["exact"] = byte_exact(api, "7a", gdec, payload)
+        for k in ("frames", "synced", "symbols", "decoded_ok", "dropped"):
+            if int(m[k]) != int(wm[k]):
+                raise AssertionError(f"7a: aggregate {k} {int(m[k])} != "
+                                     f"{int(wm[k])}")
+        rec["metrics"] = {k: float(v) for k, v in m.items()}
+        rec["mean_diff"] = 0.0
+        for k in m:
+            if k.startswith("mean_"):
+                d = abs(float(m[k]) - float(wm[k]))
+                if not d <= MEAN_RTOL * max(1.0, abs(float(wm[k]))):
+                    raise AssertionError(f"7a: aggregate {k} {float(m[k])} "
+                                         f"!= {float(wm[k])} beyond float32 "
+                                         "summation order")
+                rec["mean_diff"] = max(rec["mean_diff"], d)
+
+        def single():
+            d = api.demodulate(bank, cfg)
+            api.aggregate_metrics(d, api.decode(d.symbols, cfg).status)
+    rec["single_ms"] = s7_alone(dist, mesh, single, sync)
+    return {"7a shard_demodulate": rec}
+
+
+def stream_plan(T_local: int, FL: int, N: int):
+    """Step 7b's placements (tests/test_parallel.py:69-78 at the flagship
+    t_local, and two frames in shard 0's region): frame starts of
+    pattern p, a channel b taking pattern b % S7_PATTERNS."""
+    return [[0], [T_local - FL // 3], [T_local - 2], [T_local // 2],
+            [T_local + 5], [max(0, T_local - FL + 64)], [37],
+            [T_local - 8 * N], [64, 64 + FL + 500]]
+
+
+def s7b(torch, dist, dev, sync) -> dict:
+    """7b: demodulate_stream over time = 2 with max_frames = 2: every frame
+    claimed once by its owner, t_sync global within 1, byte-exact."""
+    from lora_tpu_torch import api
+    from lora_tpu_torch.parallel import (demodulate_stream, gather_result,
+                                         make_mesh)
+
+    mesh = make_mesh(time=2, device=dev)
+    cfg = flagship_cfg()
+    N, B = cfg.N, B_FLAGSHIP
+    t_local = api.required_samples(cfg) + 4 * N
+    T = 2 * t_local
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    u = (torch.rand((B, 1), generator=g, device=dev) * 2 - 1) * 0.4
+    bank = awgn((B, T), SIGMA, g, dev)
+    FL = api.modulate(api.encode(torch.zeros((1, 32), dtype=torch.uint8,
+                                             device=dev), cfg), cfg).shape[1]
+    plan = stream_plan(t_local, FL, N)
+    n = torch.arange(FL, device=dev, dtype=torch.float32)
+    sent = []  # (channel, start, payload)
+    for p, starts in enumerate(plan):
+        rows = torch.arange(p, B, S7_PATTERNS, device=dev)
+        for o in starts:
+            pay = torch.randint(0, 256, (rows.numel(), 32), generator=g,
+                                device=dev, dtype=torch.int64).to(torch.uint8)
+            fr = api.modulate(api.encode(pay, cfg), cfg)
+            phase = torch.rand((rows.numel(), 1), generator=g,
+                               device=dev) * 6.2831855
+            ang = u[rows] * (6.2831855 / N) * n + phase
+            bank[rows, o : o + FL] += fr * torch.polar(torch.ones_like(ang),
+                                                       ang)
+            sent += [(int(b), o, bytes(q)) for b, q in
+                     zip(rows.tolist(), pay.cpu().numpy().tolist())]
+    t = mesh.coord["time"]
+    x = bank[:, t * t_local : (t + 1) * t_local].contiguous()
+    if mesh.rank:
+        del bank
+
+    def path():
+        return gather_result(demodulate_stream(x, cfg, mesh, max_frames=2),
+                             mesh, "time")
+
+    dem, rec = s7_drive(torch, dist, "7b demodulate_stream", mesh, path, sync,
+                        ("detect", "track", "payload"))
+    rec["frames"] = len(sent)
+    single = None
+    if mesh.rank == 0:
+        found = dem.found.cpu().numpy()  # [time, B, 2]
+        t_sync = dem.t_sync.cpu().numpy()
+        pay = api.extract_payloads(api.decode(
+            dem.symbols.reshape(-1, cfg.mtu), cfg))
+        bad = []
+        for b, o, q in sent:
+            hit = [(s, k) for s in range(2) for k in range(2)
+                   if found[s, b, k] and abs(int(t_sync[s, b, k])
+                                             - (o + 10 * N)) <= 1]
+            if (len(hit) != 1 or hit[0][0] != o // t_local
+                    or pay[(hit[0][0] * B + b) * 2 + hit[0][1]] != q):
+                bad.append((b, o, hit))
+        extra = int(found.sum()) - len(sent)
+        if bad or extra:
+            raise AssertionError(f"7b: {len(bad)} of {len(sent)} frames not "
+                                 f"claimed once by their owner byte-exact "
+                                 f"({bad[:5]}), {extra} extra claims")
+        rec["straddling"] = sum(1 for _, o, _ in sent
+                                if o < t_local < o + FL)
+        whole = api.demodulate(bank, cfg, max_frames=2)
+        wf, wt = whole.found.cpu().numpy(), whole.t_sync.cpu().numpy()
+        rec["same_as_single"] = sum(
+            sorted(wt[b][wf[b]].tolist()) == sorted(
+                t_sync[:, b][found[:, b]].tolist()) for b in range(B))
+        if rec["same_as_single"] != B:
+            raise AssertionError(f"7b: the stream's t_sync equals one "
+                                 f"demodulate(max_frames=2) of the global "
+                                 f"bank on {rec['same_as_single']} of {B} "
+                                 "channels")
+        single = lambda: api.demodulate(bank, cfg, max_frames=2)
+    rec["single_ms"] = s7_alone(dist, mesh, single, sync)
+    return {"7b demodulate_stream": rec}
+
+
+def s7c(torch, dist, dev, sync) -> dict:
+    """7c: channelize_stream of the config-3 bank (kernel D on each time
+    shard with the neighbour's tail as history, the corner turn), then
+    shard_demodulate of the 16,384 channels."""
+    from lora_tpu_torch import api
+    from lora_tpu_torch.ops import channelizer as chz
+    from lora_tpu_torch.parallel import (channelize_stream, gather_result,
+                                         make_mesh, shard_demodulate)
+
+    n_time = dist.get_world_size()
+    mesh = make_mesh(time=n_time, device=dev)
+    cfg = config3_cfg()
+    K = C3_K
+    wide, payload = make_wideband(api, chz, cfg, C3_STREAMS, K, C3_SIGMA,
+                                  SEED, dev)
+    S, T = wide.shape
+    t = mesh.coord["time"]
+    t_local = T // n_time
+    x = wide[:, t * t_local : (t + 1) * t_local].contiguous()
+
+    def path():
+        y = channelize_stream(x, K, mesh)
+        k, M = y.shape[1:]
+        dem = shard_demodulate(y.reshape(S * k, M), cfg, mesh)
+        dem = dataclasses.replace(dem, **{
+            f.name: getattr(dem, f.name).reshape(S, k, *getattr(
+                dem, f.name).shape[1:])
+            for f in dataclasses.fields(dem)
+            if getattr(dem, f.name) is not None})
+        return y, gather_result(dem, mesh, ("channel", "time"))
+
+    (y, g), rec = s7_drive(torch, dist, "7c channelize_stream", mesh, path,
+                           sync, ("channelize", "detect", "track",
+                                  "payload"))
+    # kernel D across the seam against one channelize of the whole stream
+    ref = chz.channelize(wide, K)[0][:, t * y.shape[1] : (t + 1) * y.shape[1]]
+    rec["d_bit_equal"] = bool(torch.equal(y, ref))
+    rec["d_err"] = float((y - ref).abs().max()) / float(ref.abs().max())
+    if not rec["d_err"] <= D_RTOL:
+        raise AssertionError(f"7c: kernel D across the seam differs by "
+                             f"{rec['d_err']} of the largest output")
+    del y, ref
+    single = None
+    if mesh.rank == 0:
+        whole, _ = api.channelized_demodulate(wide, K, cfg)
+        occ = torch.zeros((S, K), dtype=torch.bool, device=dev)
+        occ[:, 0::2] = True
+        for f in ("found", "count", "symbols", "t_sync", "consumed",
+                  "freq_error"):
+            a, b = getattr(g, f), getattr(whole, f)
+            if not torch.equal(a[occ], b[occ]):
+                raise AssertionError(f"7c: {f} differs on occupied channels")
+        rec["empty_differ"] = int((
+            (g.found != whole.found) | (g.symbols != whole.symbols).any(-1)
+            | (g.t_sync != whole.t_sync))[~occ].sum())
+        dec = api.decode(g.symbols[:, 0::2].reshape(-1, cfg.mtu), cfg)
+        rec["exact"] = byte_exact(api, "7c", dec, payload.reshape(-1, 16))
+        single = lambda: api.channelized_demodulate(wide, K, cfg)
+    rec["single_ms"] = s7_alone(dist, mesh, single, sync)
+    return {"7c channelize_stream + shard_demodulate": rec}
+
+
+def s7_routes(torch, api, what, bank, cfg, spectra) -> float:
+    """Kernels A, B and C (C with mag2 when spectra) at one bank's shapes
+    against their plain versions: demodulate(fused='auto') and 'off' equal
+    in every decision field (t_candidate where a preamble was seen and no
+    frame found), fine_freq, power and snr within TOL, fft_mag2 within
+    TAP_RTOL of each window's peak.  -> the largest float difference."""
+    a = api.demodulate(bank, cfg, spectra=spectra, fused="auto")
+    o = api.demodulate(bank, cfg, spectra=spectra, fused="off")
+    routes_equal(torch, what, a, o, DECIDE[:-1])
+    pre = a.found_pre & ~a.found
+    if not torch.equal(a.t_candidate[pre], o.t_candidate[pre]):
+        raise AssertionError(f"{what}: fused='auto' and 'off' differ in "
+                             "t_candidate")
+    d = 0.0
+    for f in ("fine_freq", "power", "snr"):
+        d = max(d, float((getattr(a, f) - getattr(o, f)).abs().max()))
+    if not d <= TOL:
+        raise AssertionError(f"{what}: fine_freq, power or snr differ by {d}")
+    if spectra:
+        windows_close(f"{what}: fft_mag2", a.fft_mag2, o.fft_mag2)
+    return d
+
+
+def s7d(torch, dist, dev, sync) -> dict:
+    """7d: ChannelDispatcher over 4096 channels, SF7 to SF12 round robin,
+    hard and soft, against the dispatcher without a mesh; rank 0 first
+    holds kernels A, B and C (with and without mag2) against the plain
+    route on each SF group's bank."""
+    from lora_tpu_torch import api
+    from lora_tpu_torch.parallel import ChannelDispatcher, make_mesh
+    from lora_tpu_torch import LoRaConfig
+
+    mesh = make_mesh(device=dev)
+    cfgs = []
+    for sf in S7_SFS:
+        c = LoRaConfig(sf=sf, cr="4/8", ampl=1.0)
+        cfgs.append(c.replace(mtu=c.num_symbols(32) + 4))
+    B = B_FLAGSHIP
+    configs = [cfgs[ch % len(cfgs)] for ch in range(B)]
+    streams, payloads = [None] * B, [None] * B
+    routes = {}
+    for i, c in enumerate(cfgs):
+        members = list(range(i, B, len(cfgs)))
+        bank, pay = make_bank(api, c, len(members), SIGMA, SEED + i, dev)
+        if mesh.rank == 0:
+            routes[f"SF{c.sf}"] = [
+                s7_routes(torch, api, f"7d SF{c.sf} routes ({m})", bank, c,
+                          m == "soft") for m in ("hard", "soft")]
+            torch.cuda.empty_cache()
+        host = bank.cpu().numpy()
+        for j, ch in enumerate(members):
+            streams[ch] = host[j]
+            payloads[ch] = bytes(pay[j].cpu().numpy().tolist())
+        del bank
+    out = {}
+    for soft in (False, True):
+        what = f"7d ChannelDispatcher {'soft' if soft else 'hard'}"
+        disp = ChannelDispatcher(configs, soft=soft, mesh=mesh)
+        res, rec = s7_drive(torch, dist, what, mesh,
+                            lambda: disp.run(streams), sync,
+                            ("detect", "track", "payload"), runs=1)
+        alone = None
+        if mesh.rank == 0:
+            bad = [r.channel for r in res if not (
+                r.found and r.status == 0 and r.payload == payloads[r.channel])]
+            if bad:
+                raise AssertionError(f"{what}: {len(bad)} of {B} channels "
+                                     f"not found byte-exact: {bad[:10]}")
+            single = ChannelDispatcher(configs, soft=soft, device=dev)
+            ref = single.run(streams)
+            for a, b in zip(res, ref):
+                if (a.found, a.status, a.payload) != (b.found, b.status,
+                                                      b.payload) or \
+                        not np.array_equal(a.symbols, b.symbols):
+                    raise AssertionError(f"{what}: channel {a.channel} "
+                                         "differs from the single process")
+            rec["exact"] = B
+            alone = lambda: single.run(streams)
+        rec["single_ms"] = s7_alone(dist, mesh, alone, sync, runs=1)
+        if mesh.rank == 0:
+            rec["routes_float_diff"] = {k: v[soft] for k, v in routes.items()}
+        out[what] = rec
+    return out
+
+
+def rank7(steps) -> dict:
+    """One rank of step 7: the collectives its backend takes, then each
+    sub-step of `steps` in turn.  -> {path: record}."""
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    sync = torch.cuda.synchronize
+    out = {"collectives": collectives_taken(torch, dist, dev)}
+    time_collectives(torch, dist)
+    fns = {"7a": s7a, "7b": s7b, "7c": s7c, "7d": s7d}
+    for s in steps:
+        out.update(fns[s](torch, dist, dev, sync))
+    return out
+
+
+def step7(torch, card) -> dict:
+    """Step 7: the multi-device paths (lora_tpu_torch.parallel) on ranks
+    spawned by parallel.dryrun.launch: two ranks on this one card over
+    gloo (7a to 7d), then one rank over NCCL (7a, 7c).  Prints each path's
+    time beside the single-process call, the collectives' bytes and time
+    and each rank's peak device memory -> {path: launches summed over the
+    ranks}."""
+    import functools
+
+    from lora_tpu_torch.parallel import dryrun
+
+    by_path = {}
+    for world, backend, steps in ((2, "gloo", ("7a", "7b", "7c", "7d")),
+                                  (1, "nccl", ("7a", "7c"))):
+        t = time.perf_counter()
+        ranks = dryrun.launch(world, functools.partial(rank7, steps),
+                              backend=backend, device="cuda",
+                              timeout=S7_TIMEOUT)
+        who = f"{world} {backend} rank{'s' if world > 1 else ''}"
+        print(f"step 7 on {who} ({time.perf_counter() - t:.1f} s with the "
+              f"ranks' start); collectives taken for CUDA tensors: "
+              f"{ranks[0]['collectives']}", flush=True)
+        for path in ranks[0]:
+            if path == "collectives":
+                continue
+            recs = [r[path] for r in ranks]
+            r0 = recs[0]
+            launches = {k: sum(r["launches"][k] for r in recs)
+                        for k in r0["launches"]}
+            by_path[f"{path} ({who})"] = launches
+            traffic = "; ".join(
+                f"{op} x{n}: {b / 1e6:.3f} MB in {s:.3f} ms"
+                for op, (n, b, s) in r0["traffic"].items()) or "none"
+            extra = {k: v for k, v in r0.items() if k not in (
+                "launches", "ms", "traffic", "peak_gb", "single_ms")}
+            peaks = ", ".join("%.2f" % r["peak_gb"] for r in recs)
+            print(f"time {path} ({who}): {r0['ms']:.3f} ms (every rank, "
+                  f"barrier to barrier) against the single-process call "
+                  f"{r0['single_ms']:.3f} ms on the same bank; rank 0's "
+                  f"collectives: {traffic}; peak device memory by rank: "
+                  f"{peaks} GB; launches by rank: "
+                  f"{[r['launches'] for r in recs]}; {extra} [{card}]",
+                  flush=True)
+    print("step 7: the ranks share one card's SMs and gloo moves CUDA "
+          "tensors through the host, so these times measure the "
+          "collectives' cost, not scaling; NCCL runs one rank here (it "
+          "refuses two ranks on one device)", flush=True)
+    return by_path
+
+
 def main() -> int:
     import torch
 
@@ -1854,10 +2424,12 @@ def main() -> int:
                                         profile)
     torch.cuda.empty_cache()
     by_path6 = step6(torch, dev, card, sync, checks, profile)
+    torch.cuda.empty_cache()
+    by_path7 = step7(torch, card)
     # every driven path's run, each counted from 0
     by_path = {"demodulate(fused='auto')": launches,
                "channelized_demodulate(fused='auto')": c3_launches, **by_path,
-               **by_path6}
+               **by_path6, **by_path7}
 
     sources = {
         "detect": ("lora_tpu_torch/csrc/detect.cu",

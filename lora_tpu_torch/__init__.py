@@ -1,8 +1,9 @@
 """lora_tpu_torch: the LoRa PHY of lora_tpu, ported to PyTorch and CUDA.
 
 The receive path (encode, modulate, demodulate, decode, soft decisions),
-the wideband channelized front end, the streaming runtime, capture replay
-and the CLI run on an NVIDIA Hopper card through hand-written CUDA kernels
+the wideband channelized front end, the streaming runtime, capture replay,
+the CLI and the multi-device paths (parallel/, on torch.distributed) run
+on an NVIDIA Hopper card through hand-written CUDA kernels
 (csrc/) and on the CPU through their plain PyTorch versions.  The package
 imports torch and numpy: never jax, and nothing of the JAX package (the
 jax-free modules it needs are its own copies).
@@ -18,7 +19,8 @@ __all__ = ["LoRaConfig", "CODING_RATES"]
 _API = ("encode", "decode", "decode_soft", "soft_symbols", "modulate",
         "demodulate", "DecodeResult", "DemodResult", "loopback",
         "required_samples", "extract_payloads")
-_SUBPACKAGES = ("runtime", "api", "models", "ops", "sim", "utils", "hw")
+_SUBPACKAGES = ("runtime", "api", "models", "ops", "sim", "utils", "hw",
+                "parallel")
 
 
 def __getattr__(name):
@@ -34,10 +36,6 @@ def __getattr__(name):
         import importlib
 
         return importlib.import_module(f".{name}", __name__)
-    if name == "parallel":
-        from .roadmap import not_ported
-
-        raise not_ported("lora_tpu_torch.parallel", 3)
     if name == "IQ":
         raise AttributeError(
             "lora_tpu_torch has no IQ: the port keeps IQ as complex64 "

@@ -111,7 +111,7 @@ def channelized_demodulate(wide, K: int, cfg: LoRaConfig,
     then runs the filterbank contraction in bfloat16 on every backend."""
     check_options(fused)
     if fused == "bf16":
-        raise not_ported("channelized_demodulate(fused='bf16')", 5)
+        raise not_ported("channelized_demodulate(fused='bf16')", 4)
     wide = cplx.as_iq(wide, device)
     squeeze = wide.dim() == 1
     wb = wide[None] if squeeze else wide

@@ -98,7 +98,7 @@ def channelize(x, K: int, taps_per_phase: int = 8, state=None,
     plain product, is not taken: the plain version picks G itself.
     """
     if bf16:
-        raise not_ported("bf16=True", 5)
+        raise not_ported("bf16=True", 4)
     if impl in ("fir-interpret", "pallas-interpret"):
         raise no_counterpart(f"impl={impl!r}")
     if impl not in IMPLS:
@@ -147,7 +147,7 @@ def synthesize(u, taps_per_phase: int = 8, state=None,
     causal: the prototype's group delay is not compensated, so chunked
     calls concatenate exactly."""
     if bf16:
-        raise not_ported("bf16=True", 5)
+        raise not_ported("bf16=True", 4)
     u = cplx.as_iq(u)
     K, M = u.shape[-2], u.shape[-1]
     L = taps_per_phase

@@ -7,8 +7,7 @@ from __future__ import annotations
 
 ITEMS = {
     1: "the port's bench and BENCHMARK.json",
-    3: "parallel/ on torch.distributed",
-    5: "the channelizer's bfloat16 contraction",
+    4: "the channelizer's bfloat16 contraction",
 }
 
 

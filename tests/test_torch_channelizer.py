@@ -485,21 +485,21 @@ def test_every_even_channel_round_trip():
 def test_out_of_slice_options_raise():
     """The channelizer's bfloat16 contraction (which lora_tpu runs on every
     backend, also under channelized_demodulate(fused="bf16")) is not
-    ported yet (ROADMAP.md item 5); the interpret routes have no CUDA
+    ported yet (ROADMAP.md item 4); the interpret routes have no CUDA
     counterpart."""
     cfg = lora_tpu.LoRaConfig(sf=7, mtu=8)
     wide = torch.zeros(16 * tapi.required_samples(cfg), dtype=torch.complex64)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 5"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item 4"):
         tapi.channelized_demodulate(wide, 16, cfg, fused="bf16")
     for fused in ("interpret", "interpret-bf16"):
         with pytest.raises(NotImplementedError, match="no CUDA counterpart"):
             tapi.channelized_demodulate(wide, 16, cfg, fused=fused)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 5"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item 4"):
         chz.channelize(wide, 16, bf16=True)
     for impl in ("fir-interpret", "pallas-interpret"):
         with pytest.raises(NotImplementedError, match="no CUDA counterpart"):
             chz.channelize(wide, 16, impl=impl)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 5"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item 4"):
         chz.synthesize(torch.zeros((16, 8), dtype=torch.complex64), bf16=True)
     # the receive options are in the port: every K channel of an empty
     # wideband block reports no frame, with the spectra and candidate axes

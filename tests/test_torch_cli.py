@@ -152,8 +152,9 @@ def test_cli_bench_is_not_ported():
 
 
 def test_top_level_lazy_exports_match_jax():
-    """The port's lazy top-level names are lora_tpu's, but for IQ (the port
-    keeps complex64 tensors) and parallel (not ported yet): both raise."""
+    """The port's lazy top-level names are lora_tpu's, but for IQ, which
+    raises (the port keeps complex64 tensors); parallel resolves to the
+    port's multi-device package, with make_mesh as in lora_tpu."""
     for name in ("encode", "decode", "decode_soft", "soft_symbols",
                  "modulate", "demodulate", "loopback", "required_samples",
                  "extract_payloads", "debug_checks"):
@@ -162,7 +163,8 @@ def test_top_level_lazy_exports_match_jax():
     assert lora_tpu_torch.DemodResult is tapi.DemodResult
     assert lora_tpu_torch.DecodeResult is tapi.DecodeResult
     assert issubclass(lora_tpu_torch.DemodCheckError, AssertionError)
-    for sub in ("runtime", "api", "models", "ops", "sim", "utils", "hw"):
+    for sub in ("runtime", "api", "models", "ops", "sim", "utils", "hw",
+                "parallel"):
         assert getattr(lora_tpu_torch, sub).__name__ == f"lora_tpu_torch.{sub}"
     assert hasattr(lora_tpu_torch.runtime, "StreamDemodulator")
     assert hasattr(lora_tpu_torch.runtime, "demodulate_bank")
@@ -170,8 +172,7 @@ def test_top_level_lazy_exports_match_jax():
     assert lora_tpu.IQ is not None and hasattr(lora_tpu.parallel, "make_mesh")
     with pytest.raises(AttributeError, match="complex64"):
         lora_tpu_torch.IQ
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 3"):
-        lora_tpu_torch.parallel
+    assert callable(lora_tpu_torch.parallel.make_mesh)
     with pytest.raises(AttributeError):
         lora_tpu_torch.no_such_name
 

@@ -3,7 +3,8 @@ at small shapes and at every window size or channel count the kernels
 take, plus the demodulator and the channelized front end on both routes,
 and the streaming runtime's device parts (the mirrored ring, the pinned
 staging rule, streams through feed and pump, chunked resampling, the DC
-blocker, slabs) against the same code on the CPU.  Marked `cuda`: each
+blocker, slabs) against the same code on the CPU, and the multi-device
+paths on ranks that share the card against one process.  Marked `cuda`: each
 test asks the `dev` fixture for the card and skips without one (the
 kernels have no CPU mode).
 The machine with the card has no jax, and tests/conftest.py imports it, so
@@ -370,12 +371,12 @@ def test_out_of_slice_options_raise_on_card(dev):
     cfg = lora_tpu_torch.LoRaConfig(sf=7, mtu=8)
     wide = torch.zeros((1, 16 * api.required_samples(cfg)),
                        dtype=torch.complex64, device=dev)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 5"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item 4"):
         api.channelized_demodulate(wide, 16, cfg, fused="bf16")
     for fused in ("interpret", "interpret-bf16"):
         with pytest.raises(NotImplementedError, match="no CUDA counterpart"):
             api.channelized_demodulate(wide, 16, cfg, fused=fused)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 5"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item 4"):
         chz.channelize(wide, 16, bf16=True)
     for impl in ("fir-interpret", "pallas-interpret"):
         with pytest.raises(NotImplementedError, match="no CUDA counterpart"):
@@ -823,3 +824,54 @@ def test_dcblock_and_slab_on_card_match_cpu(dev):
     for f in ("found", "symbols", "count", "t_sync", "consumed", "freq_error"):
         assert torch.equal(getattr(got, f), getattr(want, f)), f
     assert bool(got.found.all())
+
+
+@pytest.mark.parametrize("world,backend", [(2, "gloo"), (1, "nccl")])
+def test_parallel_ranks_on_card_match_single_process(dev, world, backend):
+    """lora_tpu_torch.parallel on ranks that share this card: 2 spawned
+    ranks over gloo (NCCL refuses two ranks on one device) and 1 rank over
+    NCCL.  The gathered shard_demodulate of an SF7 bank equals demodulate of
+    the whole bank in one process (integers and flags equal, dB values and
+    fine CFO within 1e-3), with kernels A, B, C launched in the ranks;
+    channelize_stream over `world` time shards (kernel D on each, the left
+    neighbour's tail as its history, the corner turn) within 1e-4 of one
+    channelize of the whole stream."""
+    import functools
+
+    import torch_parallel_ranks as ranks
+    from lora_tpu_torch.ops import _cuda
+    from lora_tpu_torch.parallel.dryrun import launch
+
+    _cuda.library()  # built once, before the ranks load it
+    rng = np.random.default_rng(31)
+    cfg = lora_tpu_torch.LoRaConfig(sf=7, cr="4/8", ampl=1.0)
+    cfg = cfg.replace(mtu=cfg.num_symbols(8) + 2)
+    B, T = 16, api.required_samples(cfg)
+    payload = rng.integers(0, 256, (B, 8)).astype(np.uint8)
+    fr = api.modulate(api.encode(payload, cfg, device="cpu"), cfg).numpy()
+    x = np.zeros((B, T), np.complex64)
+    x[:, : fr.shape[1]] = fr[:, :T]
+    x += (0.05 * (rng.standard_normal((B, T))
+                  + 1j * rng.standard_normal((B, T)))).astype(np.complex64)
+    run = functools.partial(launch, world, backend=backend, device="cuda",
+                            timeout=300.0)
+    got = run(functools.partial(ranks.bank_demod, x, cfg, 1, device="cuda"))
+    want = api.demodulate(torch.as_tensor(x, device=dev), cfg)
+    for r in got:
+        assert r["local_rows"] == B // world
+        for f, a in r["dem"].items():
+            b = getattr(want, f).cpu().numpy()
+            if f in ("power", "snr", "fine_freq"):
+                assert np.abs(a - b).max() <= TOL, f
+            else:
+                np.testing.assert_array_equal(a, b, err_msg=f)
+        assert r["metrics"]["decoded_ok"] == B
+        assert r["launches"] == {"detect": 1, "track": 1, "payload": 1,
+                                 "channelize": 0}
+    wide = crandn(rng, (2, 16 * 1024), "cpu")
+    y = run(functools.partial(ranks.channelize, wide.numpy(), 16, world,
+                              device="cuda"))
+    whole, _ = chz.channelize(wide.to(dev), 16)
+    whole = whole.cpu().numpy()
+    for r in y:
+        assert np.abs(r["y"] - whole).max() <= D_RTOL * np.abs(whole).max()

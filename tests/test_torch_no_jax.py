@@ -19,7 +19,10 @@ import chip_smoke
 for name in ("ops.channelizer", "ops.cuda_channelize", "roadmap", "config",
              "ops._bitref", "ops.shift", "models.softdec", "runtime.stream",
              "runtime.slab", "runtime.iqio", "hw.capture", "cli",
-             "utils.debugcheck", "ops.resample", "ops.dcblock"):
+             "utils.debugcheck", "ops.resample", "ops.dcblock",
+             "parallel.mesh", "parallel.halo", "parallel.channelize",
+             "parallel.dispatch", "parallel.multihost", "parallel.comm",
+             "parallel.dryrun"):
     assert "lora_tpu_torch." + name in sys.modules, name
 # the native ingest library builds under build/, never in the package
 from lora_tpu_torch.ops import _cuda
