@@ -152,17 +152,41 @@
    and each rank's peak device memory.  The ranks share the card's SMs and
    gloo moves CUDA tensors through the host: these times are the
    collectives' cost, not scaling.
+8. The last modules of the port:
+   a. lora_tpu_torch.benchmarks --validate at its full rungs (SF10 "off"
+      at B = 512, "auto" at 2048 and 4096, SF12 "auto" at 1024): its
+      record printed, value > 0, every rung present with its median, min
+      and max, the bf16 decision check ok; each rung's run counted from 0
+      (A, B, C on the "auto" rungs, no kernel on the "off" rung);
+   b. kernel D's bf16 route (the direct sum at every K, FIR output and
+      twiddles rounded to bfloat16) against filterbank_fir_plain
+      at the config-3 shape and at K = 16 and 192, with a state and with
+      none: at least 99% of the samples within 1e-5 of the peak and all
+      within 1e-2 (a float32 step of the FIR output can move its bfloat16
+      rounding by one step), and whether bit-equal; within lora_tpu's bf16
+      bar, 3e-2, of the float32 kernel; channelized_demodulate(fused=
+      "bf16") on the config-3 bank: all 8,192 frames found and byte-exact,
+      kernels D, A, B, C launched, the occupied channels' fields that
+      differ from fused="auto" counted; times of kernel D bf16 against its
+      plain version and the float32 route, and of the bf16 path beside
+      "auto";
+   c. utils.trace.profile around one flagship demodulate(fused="auto")
+      call: the Chrome trace names kernels A, B and C once each (the
+      session's opening launches took torch.profiler's drop of its first
+      device records, which grows with the process's age); frame_events
+      gives one event a channel.
 
 Prints the kernels' JSON line (kernels A to E: launches summed over the
 driven paths, step 6's StreamDemodulator.pump, demodulate_bank and both
-replays and step 7's paths (summed over their ranks) among them, and, in
-launches_by_path, of each path's run alone, every kernel counted from 0
-on every path; the error against the plain version, the kernel's, the
-plain version's and, for kernel E, one PyTorch call's time, and the bound: the
-larger of the bytes each input and output must move over 3.35 TB/s and the
-float32 operations over 67 TFLOP/s; every other number of a row is measured
-in this run), then {"ok": true, "device": {...}} last.  Any failure raises
-and exits non-zero.  Imports no jax.
+replays, step 7's paths (summed over their ranks) and step 8's among them,
+and, in launches_by_path, of each path's run alone, every kernel counted
+from 0 on every path; the error against the plain version, the kernel's,
+the plain version's and, for kernel E, one PyTorch call's time, and the
+bound: the larger of the bytes each input and output must move over 3.35
+TB/s and the float32 operations over 67 TFLOP/s; kernel D's row carries
+its bf16 route's error, times and bound under "bf16"; every other number
+of a row is measured in this run), then {"ok": true, "device": {...}}
+last.  Any failure raises and exits non-zero.  Imports no jax.
 """
 
 from __future__ import annotations
@@ -171,7 +195,6 @@ import dataclasses
 import json
 import math
 import os
-import subprocess
 import sys
 import time
 
@@ -208,10 +231,12 @@ SAME_DIFFER = 0.005
 EMPTY_DIFFER = 0.01
 # step 5: taps and spectra, as a share of each window's largest value
 TAP_RTOL = 1e-4
-# the card's published peaks (H100 SXM data sheet): device memory bytes/s
-# and float32 operations/s outside the tensor cores
+# the card's published peaks (H100 SXM data sheet): device memory bytes/s,
+# float32 operations/s outside the tensor cores, and dense bfloat16
+# operations/s (tensor cores, float32 accumulation)
 HBM_RATE = 3.35e12
 F32_RATE = 67e12
+BF16_RATE = 989e12
 # step 6 (flagship config): streams of host blocks, a slab bank (the "10k+
 # channels" of BASELINE.json config 5), capture replay
 STREAM_CHANNELS = 4096
@@ -237,22 +262,15 @@ def window_flops(N: int, rotate: bool) -> float:
     return N * (5 * math.log2(N) + 6 + (8 if rotate else 0) + 4)
 
 
-def bound(nbytes: float, flops: float) -> dict:
+def bound(nbytes: float, flops: float, bf16_flops: float = 0.0) -> dict:
     """The least time the card could take: each input read once and each
-    output written once at the memory rate, or the operations at the
-    float32 rate, whichever is larger."""
-    by_bytes, by_ops = nbytes / HBM_RATE * 1e3, flops / F32_RATE * 1e3
+    output written once at the memory rate, or the operations at their
+    type's rate (float32 `flops`, products of two bfloat16 values summed in
+    float32 `bf16_flops`), whichever is larger."""
+    by_bytes = nbytes / HBM_RATE * 1e3
+    by_ops = (flops / F32_RATE + bf16_flops / BF16_RATE) * 1e3
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def flagship_cfg():
@@ -1085,18 +1103,19 @@ def device_breakdown(what, fn, e2e_ms: float, sync, calls: int = 3,
     (torch.profiler), per call, beside the path's CUDA-event time e2e_ms;
     what is left of that is the device's idle share."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+
+    from lora_tpu_torch.utils import trace
 
     fn()
     sync()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with trace.session() as prof:
         for _ in range(calls):
             fn()
         sync()
     rows = sorted(((e.self_device_time_total / 1e3 / calls, e.key)
                    for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA), reverse=True)
+                   if e.device_type == DeviceType.CUDA
+                   and not trace.absorbing(e.key)), reverse=True)
     busy = sum(t for t, _ in rows)
     print(f"profile {what}: device busy {busy:.3f} ms of {e2e_ms:.3f} ms per "
           f"call ({100 * (1 - busy / e2e_ms):.0f}% idle), {len(rows)} kernels",
@@ -1449,15 +1468,16 @@ def profile_once(what, fn, sync, wall_ms: float):
     time without the profiler (which slows the host several times), the
     idle share, and the time the host-to-device copies overlap kernels."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+
+    from lora_tpu_torch.utils import trace
 
     sync()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with trace.session() as prof:
         fn()
         sync()
     wall = wall_ms
-    dev_ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    dev_ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and not trace.absorbing(e.name)]
     busy = sum(e.time_range.elapsed_us() for e in dev_ev) / 1e3
     copies = [e.time_range for e in dev_ev if "HtoD" in e.name]
     kernels = [e.time_range for e in dev_ev if "Memcpy" not in e.name
@@ -2390,6 +2410,259 @@ def step7(torch, card) -> dict:
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# step 8: the benchmark, the channelizer's bf16 route, the trace hook
+# ---------------------------------------------------------------------------
+
+# kernel D's bf16 route against filterbank_fir_plain: the FIR
+# output may differ by a float32 step (fused multiply-adds) and then its
+# bfloat16 rounding by one bfloat16 step (tests/test_torch_channelizer.py,
+# BF16_FIR_*): at least BF16_SHARE of the samples within BF16_RTOL of the
+# peak, every sample within BF16_MAX_RTOL of it
+BF16_RTOL = 1e-5
+BF16_SHARE = 0.99
+BF16_MAX_RTOL = 1e-2
+# lora_tpu's bar for its bf16 kernels, absolute, on unit-variance noise
+# (tests/test_pallas_channelize.py:62-65)
+BF16_ATOL = 3e-2
+# (K, streams): the config-3 bank's width, then the direct sum's other
+# widths as step 4a gives them
+BF16_PARITY = ((C3_K, C3_STREAMS), (16, 16), (192, 16))
+
+
+def bf16_close(torch, chk, what, got, want) -> tuple:
+    """Kernel D's bf16 route against its plain version by the BF16_* bars.
+    -> (share within BF16_RTOL of the peak, max |diff| over the peak,
+    whether bit-equal)."""
+    d = (got - want).abs()
+    peak = float(want.abs().max())
+    err = float(d.max())
+    chk.max_abs_err = max(chk.max_abs_err, err)
+    share = float((d <= BF16_RTOL * peak).float().mean())
+    if share < BF16_SHARE or err > BF16_MAX_RTOL * peak:
+        raise AssertionError(f"{chk.name}: {what}: {share:.6f} of the "
+                             f"samples within {BF16_RTOL} of the peak (bar "
+                             f"{BF16_SHARE}), max {err / peak:.3g} of it "
+                             f"(bar {BF16_MAX_RTOL})")
+    return share, err / peak, torch.equal(got, want)
+
+
+def s8a_bench(torch, sync) -> dict:
+    """8a: lora_tpu_torch.benchmarks --validate at its full rungs, each
+    rung's run (warm-up and timed calls) counted from 0: kernels A, B, C on
+    the "auto" rungs, none on the "off" rung.  Prints the record; the
+    check must be ok.  -> {rung path: launches}."""
+    import contextlib
+    import io
+
+    from lora_tpu_torch import benchmarks
+
+    by_rung = {}
+    run_rung = benchmarks.run_rung
+
+    def counted(x, cfg, fused, calls):
+        what = f"benchmarks sf{cfg.sf}-{fused}/B{x.shape[0]}"
+        expect = () if fused == "off" else ("detect", "track", "payload")
+        rec, by_rung[what] = count_launches(
+            what, lambda: run_rung(x, cfg, fused, calls), sync, expect)
+        return rec
+
+    out, err = io.StringIO(), io.StringIO()
+    benchmarks.run_rung = counted
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = benchmarks.main(["--validate"])
+    finally:
+        benchmarks.run_rung = run_rung
+        print(out.getvalue() + err.getvalue(), end="", flush=True)
+    rec = json.loads(out.getvalue().strip().splitlines()[-1])
+    checks = [json.loads(line) for line in err.getvalue().splitlines()
+              if line.startswith("{")]
+    tags = {f"sf{sf}-{m}/B{b}" for sf, m, b in benchmarks.RUNGS}
+    if rc != 0 or not rec["value"] > 0 or set(rec["rungs"]) != tags:
+        raise AssertionError(f"benchmarks: rc {rc}, value {rec['value']}, "
+                             f"rungs {sorted(rec['rungs'])}")
+    if checks != [{"check": "bf16_vs_f32_decisions", "ok": True}]:
+        raise AssertionError(f"benchmarks --validate: {checks}")
+    for tag, r in rec["rungs"].items():
+        print(f"benchmark rung {tag}: median {r['median_ms']:.3f} ms (min "
+              f"{r['min_ms']:.3f}, max {r['max_ms']:.3f}, {r['calls']} "
+              f"calls), {r['msamples_s']:.1f} Msamples/s [{rec['device']}]",
+              flush=True)
+    return by_rung
+
+
+def s8b_bf16(torch, dev, card, sync, profile=False):
+    """8b: kernel D's bf16 route on config 3.  -> (its check, {path:
+    launches}, {ms, plain_ms, f32_ms}, its bound)."""
+    from lora_tpu_torch import api
+    from lora_tpu_torch.ops import channelizer as chz
+    from lora_tpu_torch.ops import cuda_channelize as cc
+
+    cfg = config3_cfg()
+    S, K, L = C3_STREAMS, C3_K, 8
+    M = api.required_samples(cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    chk = Check("channelize bf16")
+    for k, n in BF16_PARITY:
+        x = awgn((n, k * M), 1.0, gen, dev)
+        for st in (awgn((n, L * k - 1), 1.0, gen, dev), None):
+            yk = cc.filterbank(x, k, L, st, bf16=True)
+            xp = chz.prepended(x, st, L * k - 1)
+            share, rel, same = bf16_close(
+                torch, chk, f"K={k}", yk,
+                cc.filterbank_fir_plain(xp, k, L, M))
+            del xp
+            y32 = cc.filterbank(x, k, L, st)
+            far = float(torch.view_as_real(yk - y32).abs().max())
+            if not far < BF16_ATOL:
+                raise AssertionError(f"channelize bf16: {far} from the "
+                                     f"float32 kernel at K={k}")
+            print(f"kernel D bf16 parity K={k} S={n} M={M} (route "
+                  f"{cc.route(k, L, True)}), with "
+                  f"{'a state' if st is not None else 'none'}: "
+                  f"{share:.6f} of the samples within {BF16_RTOL} of the "
+                  f"plain bf16 version's peak, max {rel:.3g} of it, "
+                  f"bit-equal: {same}; {far:.3g} from the float32 kernel "
+                  f"(bar {BF16_ATOL})", flush=True)
+            del yk, y32
+        del x, st
+    sync()
+
+    wide, payload = make_wideband(api, chz, cfg, S, K, C3_SIGMA, SEED + 11,
+                                  dev)
+    (dem, _), launches = count_launches(
+        "channelized_demodulate(fused='bf16')",
+        lambda: api.channelized_demodulate(wide, K, cfg, fused="bf16"),
+        sync, ("channelize", "detect", "track", "payload"))
+    lost = int((~dem.found[:, 0::2]).sum())
+    if lost:
+        raise AssertionError(f"bf16 path: {lost} of {S * K // 2} frames "
+                             "not found")
+    got = outcome(api, dem, cfg)[1]
+    want = payload.cpu().numpy()
+    bad = [(s, k) for s in range(S) for k in range(0, K, 2)
+           if got[s * K + k] != bytes(want[s, k // 2])]
+    if bad:
+        raise AssertionError(f"bf16 path: {len(bad)} of {S * K // 2} "
+                             f"payloads not byte-exact: {bad[:20]}")
+    auto, _ = api.channelized_demodulate(wide, K, cfg, fused="auto")
+    # occupied channels whose decision differs from fused="auto", by field;
+    # the symbols of the frame (16-byte payload) apart from the mtu's last
+    # two windows, which hold noise
+    occ = lambda t: t[:, 0::2].reshape(S * K // 2, -1)
+    differ = {f: int((occ(getattr(dem, f)) != occ(getattr(auto, f)))
+                     .any(-1).sum()) for f in DECIDE}
+    frame = cfg.num_symbols(16)
+    differ["symbols of the frame"] = int(
+        (occ(dem.symbols)[:, :frame] != occ(auto.symbols)[:, :frame])
+        .any(-1).sum())
+    print(f"bf16 path: {S * K // 2}/{S * K // 2} frames found and "
+          f"byte-exact; occupied channels whose field differs from "
+          f"fused='auto': {differ}", flush=True)
+    del dem, auto
+
+    xp = chz.prepended(wide, None, L * K - 1)
+    ms = dict(zip(("ms", "plain_ms"), interleaved(
+        lambda: cc.filterbank(wide, K, L, bf16=True),
+        lambda: cc.filterbank_fir_plain(xp, K, L, M), sync)))
+    del xp
+    ms["f32_ms"] = timed(lambda: cc.filterbank(wide, K, L), sync)
+    print(f"time channelize bf16: kernel {ms['ms']:.3f} ms (route "
+          f"{cc.route(K, L, True)}), plain {ms['plain_ms']:.3f} ms; the "
+          f"float32 kernel {ms['f32_ms']:.3f} ms (route {cc.route(K, L)}) "
+          f"(S={S}, K={K}, M={M}) [{card}]", flush=True)
+    e2e = {}
+    for mode in ("bf16", "auto", "auto", "bf16"):
+        t_ms = timed(lambda: api.channelized_demodulate(wide, K, cfg,
+                                                        fused=mode), sync)
+        e2e[mode] = min(e2e.get(mode, t_ms), t_ms)
+    T = wide.shape[1]
+    for mode in ("bf16", "auto"):
+        print(f"time channelized_demodulate fused={mode!r}: "
+              f"{e2e[mode]:.3f} ms, {S * T / (e2e[mode] * 1e-3) / 1e6:.1f} "
+              f"wide Msamples/s (S={S}, T={T}) [{card}]", flush=True)
+    if profile:
+        device_breakdown(
+            "channelized_demodulate(fused='bf16')",
+            lambda: api.channelized_demodulate(wide, K, cfg, fused="bf16"),
+            e2e["bf16"], sync, top=12)
+    # each sample in and out once; per output sample 4L float32 flop of FIR
+    # and 8K of IDFT on bfloat16 operands (a dense K x K product, the
+    # tensor cores' type): bound by its bytes
+    bnd = bound(2 * S * K * M * 8, S * K * M * 4 * L, S * K * M * 8 * K)
+    return chk, {"channelized_demodulate(fused='bf16')": launches}, ms, bnd
+
+
+def s8c_trace(torch, dev, sync) -> dict:
+    """8c: utils.trace.profile around one flagship demodulate(fused="auto")
+    writes a Chrome trace that names kernels A, B and C once each, at the
+    end of a run of minutes, where torch.profiler alone drops a session's
+    first device records (kernel A among them: tools/torch_kernel_probe.py
+    --trace; utils/trace.py); frame_events gives one event per channel.
+    -> {path: launches}."""
+    import tempfile
+
+    from lora_tpu_torch import api
+    from lora_tpu_torch.utils import trace
+
+    cfg = flagship_cfg()
+    bank, _ = make_bank(api, cfg, B_FLAGSHIP, SIGMA, SEED, dev)
+    api.demodulate(bank, cfg, fused="auto")  # warm: the trace holds one call
+    sync()
+    what = "demodulate(fused='auto') under utils.trace.profile"
+    with tempfile.TemporaryDirectory() as tmp:
+        def traced():
+            with trace.profile(tmp):
+                d = api.demodulate(bank, cfg, fused="auto")
+                sync()
+            return d
+
+        dem, launches = count_launches(
+            what, traced, sync, ("detect", "track", "payload"), exactly=1)
+        files = [f for f in os.listdir(tmp) if f.endswith(".pt.trace.json")]
+        if len(files) != 1:
+            raise AssertionError(f"trace: {files} in the trace directory")
+        path = os.path.join(tmp, files[0])
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        size = os.path.getsize(path)
+    names = [str(e.get("name", "")) for e in events
+             if e.get("cat") == "kernel"]
+    named = {k: sum(f"{k}_kernel" in n for n in names)
+             for k in ("detect", "track", "payload")}
+    absorbed = sum(trace.ABSORB_KERNEL in n for n in names)
+    if set(named.values()) != {1}:
+        raise AssertionError(f"trace: kernels named {named} of "
+                             f"{len(names)} device kernels")
+    ev = trace.frame_events(dem, cfg)
+    if [e["channel"] for e in ev] != list(range(B_FLAGSHIP)):
+        raise AssertionError(f"frame_events: {len(ev)} events for "
+                             f"{B_FLAGSHIP} channels")
+    print(f"trace of one call: {size} bytes, {len(names)} device kernels, "
+          f"of them detect/track/payload {named}; {absorbed} of the "
+          f"{trace.ABSORB} launches that open the session kept; "
+          f"frame_events: "
+          f"{len(ev)} events, one a channel; first {ev[0]}", flush=True)
+    return {what: launches}
+
+
+def step8(torch, dev, card, sync, profile=False):
+    """Step 8: 8a the benchmark, 8b kernel D's bf16 route and the bf16
+    path on config 3, 8c the trace hook.  -> (kernel D bf16's check, ms and
+    bound; {path: launches})."""
+    t = time.perf_counter()
+    by_path = s8a_bench(torch, sync)
+    torch.cuda.empty_cache()
+    chk, paths, ms, bnd = s8b_bf16(torch, dev, card, sync, profile)
+    by_path.update(paths)
+    torch.cuda.empty_cache()
+    by_path.update(s8c_trace(torch, dev, sync))
+    torch.cuda.empty_cache()
+    print(f"step 8: {time.perf_counter() - t:.1f} s", flush=True)
+    return chk, ms, bnd, by_path
+
+
 def main() -> int:
     import torch
 
@@ -2398,6 +2671,7 @@ def main() -> int:
                          "run only on the card")
     repo = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, repo)
+    from lora_tpu_torch.benchmarks import card_line
     from lora_tpu_torch.ops import _cuda
 
     card = card_line()
@@ -2426,10 +2700,11 @@ def main() -> int:
     by_path6 = step6(torch, dev, card, sync, checks, profile)
     torch.cuda.empty_cache()
     by_path7 = step7(torch, card)
+    chk16, ms16, bound16, by_path8 = step8(torch, dev, card, sync, profile)
     # every driven path's run, each counted from 0
     by_path = {"demodulate(fused='auto')": launches,
                "channelized_demodulate(fused='auto')": c3_launches, **by_path,
-               **by_path6, **by_path7}
+               **by_path6, **by_path7, **by_path8}
 
     sources = {
         "detect": ("lora_tpu_torch/csrc/detect.cu",
@@ -2466,6 +2741,10 @@ def main() -> int:
         }
         for name in ("detect", "track", "payload", "channelize", "shift")
     ]
+    # kernel D's bf16 route (step 8b): its time against its plain version
+    # and the float32 route's, its error and the direct sum's bound
+    row_d = next(k for k in kernels if k["name"] == "channelize")
+    row_d["bf16"] = {"max_abs_err": chk16.max_abs_err, **ms16, **bound16}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

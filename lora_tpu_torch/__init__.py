@@ -2,8 +2,9 @@
 
 The receive path (encode, modulate, demodulate, decode, soft decisions),
 the wideband channelized front end, the streaming runtime, capture replay,
-the CLI and the multi-device paths (parallel/, on torch.distributed) run
-on an NVIDIA Hopper card through hand-written CUDA kernels
+the CLI, the multi-device paths (parallel/, on torch.distributed) and the
+headline benchmark (benchmarks.py) run on an NVIDIA Hopper card through
+hand-written CUDA kernels
 (csrc/) and on the CPU through their plain PyTorch versions.  The package
 imports torch and numpy: never jax, and nothing of the JAX package (the
 jax-free modules it needs are its own copies).

@@ -24,7 +24,6 @@ from .models.modulator import modulate
 from .models.softdec import decode_soft, guard_soft_status, soft_symbols
 from .ops import channelizer as chz
 from .ops import cplx
-from .roadmap import not_ported
 
 __all__ = [
     "LoRaConfig",
@@ -107,17 +106,17 @@ def channelized_demodulate(wide, K: int, cfg: LoRaConfig,
 
     fused="auto" runs kernel D then the demod kernels for a CUDA tensor,
     and their plain versions for a CPU tensor; "off" runs the plain
-    channelizer and demodulator on any device.  "bf16" is refused: lora_tpu
-    then runs the filterbank contraction in bfloat16 on every backend."""
+    channelizer and demodulator on any device.  "bf16" channelizes with
+    bf16=True (ops/channelizer.channelize: kernel D's bf16 route on the
+    card, the bfloat16 product on the CPU, as lora_tpu rounds on a TPU and
+    off it) and demodulates as "auto"."""
     check_options(fused)
-    if fused == "bf16":
-        raise not_ported("channelized_demodulate(fused='bf16')", 4)
     wide = cplx.as_iq(wide, device)
     squeeze = wide.dim() == 1
     wb = wide[None] if squeeze else wide
     y, new_state = chz.channelize(
-        wb, K, taps_per_phase, state=state,
-        impl="auto" if fused == "auto" else "xla")
+        wb, K, taps_per_phase, state=state, bf16=fused == "bf16",
+        impl="xla" if fused == "off" else "auto")
     S, _, M = y.shape
     dem = demodulate(y.reshape(S * K, M), cfg, max_frames=max_frames,
                      fused=fused, spectra=spectra)

@@ -8,10 +8,10 @@ two-radio relay/client).  The same end-to-end configurations run headless:
     python -m lora_tpu_torch.cli ber-sweep --sf 7 8 9 --cr 4/8 --points 8
     python -m lora_tpu_torch.cli tx        --sf 7 --payload 48656c6c6f --out f.cf32
     python -m lora_tpu_torch.cli replay    --file f.cf32 --fmt cf32 --sf 7
+    python -m lora_tpu_torch.cli bench     [--device cpu] [--validate]
 
 Each runs on --device (the card by default; --device cpu, in place of
-lora_tpu's --cpu, runs the plain PyTorch versions on the host).  `bench` is
-not ported yet and says so.
+lora_tpu's --cpu, runs the plain PyTorch versions on the host).
 """
 
 from __future__ import annotations
@@ -218,9 +218,13 @@ def cmd_replay(args) -> int:
 
 
 def cmd_bench(args) -> int:
-    from .roadmap import not_ported
+    """The headline benchmark (lora_tpu_torch.benchmarks): one JSON line."""
+    from . import benchmarks
 
-    raise not_ported("bench", 1)
+    argv = ["--validate"] if args.validate else []
+    if args.device is not None:
+        argv += ["--device", args.device]
+    return benchmarks.main(argv)
 
 
 def main(argv=None) -> int:
@@ -303,7 +307,15 @@ def main(argv=None) -> int:
     )
     p.set_defaults(fn=cmd_replay)
 
-    p = sub.add_parser("bench", help="not ported yet (ROADMAP.md item 1)")
+    p = sub.add_parser("bench", help=cmd_bench.__doc__)
+    p.add_argument(
+        "--device", default=None,
+        help="torch device (default: the card; 'cpu' prints the CPU record)",
+    )
+    p.add_argument(
+        "--validate", action="store_true",
+        help="check fused='bf16' decisions against 'auto' first (stderr)",
+    )
     p.set_defaults(fn=cmd_bench)
 
     args = ap.parse_args(argv)

@@ -70,9 +70,29 @@
 //    serves kKB complex multiply-adds and one twiddle serves kMB; the
 //    twiddle index steps by -k per q with one conditional wrap.
 //
+// bf16 (channelize(bf16=True)): the JAX package's factorized kernel with
+// bf16=True (pallas_channelize.py:296-330) rounds the float32 FIR output u
+// and its IDFT matrix to bfloat16 and accumulates their products in float32.
+// Route 1's transform has no matrix to round (a product of rounded pass
+// twiddles is not a rounded W), so bf16 takes route 2 for every K: each FIR
+// output and each staged twiddle is rounded to bfloat16 (nearest even, re
+// and im apart) and back, and the IDFT multiplies the values the TPU kernel
+// multiplies (but for W's zeros, cos and sin at multiples of pi/2: below
+// 1e-12 in both tables, reduced from their angles in another order).  A
+// product of two bfloat16 values is exact in float32, so only the order of
+// the sums differs from the TPU kernel.  The route does its 4L + 8K flop a
+// sample on the float32 cores at every K, powers of two included, and is
+// held by them: 4.73 ms for the bank above, against route 1's 1.22 ms in
+// float32 (NVIDIA H100 80GB HBM3, 700.00 W, chip_smoke.py step 8b).  The
+// work itself is bound by its bytes (0.80 ms there): its IDFT is a dense
+// K x K product of bfloat16 operands with float32 sums, the tensor cores'
+// type.  A wgmma route for bf16 is the design that would approach that
+// bound; this one is the simple kernel that is right.
+//
 // The dense form of the JAX package (about 8*(L+G-1)*K flop per sample) is
-// the plain version's matrix product, not this kernel's.  wgmma and TMA have
-// no part here: the transform is not a matrix product on this route.
+// the plain version's matrix product, not this kernel's.  The float32
+// routes use no wgmma or TMA: a float32 product on the tensor cores would
+// round its operands to TF32.
 //
 // Measured (NVIDIA H100 80GB HBM3, 700.00 W; 256 streams x 64 channels x
 // 10,240 samples, L = 8, no history; every row one call, in turns): the
@@ -89,6 +109,7 @@
 // Tried and not kept: TM = 64 at K = 64 (512 threads, a ninth of the rows
 // re-read by the next tile instead of a fifth), 1.28 against 1.21 ms.
 
+#include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
@@ -356,6 +377,16 @@ int direct_tile(int K, int L) {
   return smem_bytes(K, L, TM) <= kMaxSmem ? TM : 0;
 }
 
+// x rounded to bfloat16 (nearest even) and back, where kBf16.
+template <bool kBf16>
+__device__ __forceinline__ float2 operand(float2 v) {
+  if constexpr (kBf16)
+    return make_float2(__bfloat162float(__float2bfloat16_rn(v.x)),
+                       __bfloat162float(__float2bfloat16_rn(v.y)));
+  return v;
+}
+
+template <bool kBf16>
 __global__ void __launch_bounds__(kThreads)
 channelize_kernel(const float2* __restrict__ hist, long long sH,
                   const float2* __restrict__ x, long long sX, int K, int L,
@@ -377,7 +408,7 @@ channelize_kernel(const float2* __restrict__ hist, long long sH,
   const Stream st{hist != nullptr ? hist + s * sH : nullptr, x + s * sX,
                   (long long)L * K - 1};
 
-  for (int i = tid; i < K; i += kThreads) wsh[i] = wk[i];
+  for (int i = tid; i < K; i += kThreads) wsh[i] = operand<kBf16>(wk[i]);
   const long long g0 = m0 * K;  // the tile's first sample of the stream
   for (int i = tid; i < rows * K; i += kThreads) {
     const int r = i / K;
@@ -405,7 +436,7 @@ channelize_kernel(const float2* __restrict__ hist, long long sH,
       u.x = fmaf(h, v.x, u.x);
       u.y = fmaf(h, v.y, u.y);
     }
-    ut[i] = u;
+    ut[i] = operand<kBf16>(u);
   }
   __syncthreads();
 
@@ -459,7 +490,7 @@ channelize_kernel(const float2* __restrict__ hist, long long sH,
 
 int launch_direct(const float2* hist, long long sH, const float2* x,
                   long long sX, long long S, int K, int L, long long M,
-                  const float* hp, const float2* wk, float2* y,
+                  const float* hp, const float2* wk, float2* y, bool bf16,
                   cudaStream_t stream) {
   const int TM = direct_tile(K, L);
   if (TM == 0) return (int)cudaErrorInvalidValue;
@@ -467,11 +498,11 @@ int launch_direct(const float2* hist, long long sH, const float2* x,
   const long long tiles = (M + TM - 1) / TM;
   const long long blocks = S * tiles;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  auto kernel = bf16 ? channelize_kernel<true> : channelize_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      channelize_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  channelize_kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
+  kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
       hist, sH, x, sX, K, L, M, TM, ilog2(TM), tiles, hp, wk, y);
   return (int)cudaGetLastError();
 }
@@ -479,23 +510,25 @@ int launch_direct(const float2* hist, long long sH, const float2* x,
 }  // namespace lora
 
 // The route of (K, L): 1 the register FFT (K a power of two from 8 to 1024
-// whose staged rows fit shared memory), 2 the direct sum (any other K, or a
-// filter too long for route 1, whose tile fits), 0 none.
-extern "C" int lora_channelize_route(int K, int L) {
+// whose staged rows fit shared memory, in float32), 2 the direct sum (any
+// other K, a filter too long for route 1, or bf16, whose tile fits), 0 none.
+extern "C" int lora_channelize_route(int K, int L, int bf16) {
   using namespace lora;
   if (K < 1 || L < 1) return 0;
-  if (fft_smem_of(K, L) <= kMaxSmem) return 1;
+  if (!bf16 && fft_smem_of(K, L) <= kMaxSmem) return 1;
   return direct_tile(K, L) > 0 ? 2 : 0;
 }
 
 // Sample i of stream s < S is hist[s*sH + i] for i < L*K - 1 and
 // x[s*sX + i - (L*K - 1)] after (complex64; a null hist reads as zeros); x
 // holds M*K samples a stream.  hp: float32 [L, K].  wk: complex64 [K].
-// y: complex64 [S, K, M].
+// y: complex64 [S, K, M].  bf16: the FIR output and the twiddles rounded to
+// bfloat16 before the IDFT (route 2 at every K); last, so that a caller of
+// the float32 entry that passes no flag binds as before.
 extern "C" int lora_channelize(const void* hist, long long sH, const void* x,
                                long long sX, long long S, int K, int L,
                                long long M, const void* hp, const void* wk,
-                               void* y, void* stream) {
+                               void* y, void* stream, int bf16) {
   using namespace lora;
   if (S == 0 || M == 0) return 0;
   const float2* h = static_cast<const float2*>(hist);
@@ -504,8 +537,9 @@ extern "C" int lora_channelize(const void* hist, long long sH, const void* x,
   const float2* w = static_cast<const float2*>(wk);
   float2* out = static_cast<float2*>(y);
   cudaStream_t st = (cudaStream_t)stream;
-  if (lora_channelize_route(K, L) != 1)
-    return launch_direct(h, sH, xx, sX, S, K, L, M, taps, w, out, st);
+  if (lora_channelize_route(K, L, bf16) != 1)
+    return launch_direct(h, sH, xx, sX, S, K, L, M, taps, w, out, bf16 != 0,
+                         st);
   LORA_FOR_BANK_WIDTH(K, (int)cudaErrorInvalidValue, launch_fft, h, sH, xx, sX,
                       S, L, M, taps, w, out, st)
 }

@@ -38,6 +38,25 @@ def preamble_nums(cfg: LoRaConfig, device=None):
     return torch.cat(segs), carry
 
 
+def tx_frame_events(cfg: LoRaConfig, num_symbols: int) -> dict:
+    """Sample offsets of a frame's parts in a `modulate` output row (static
+    per config and symbol count; lora_tpu/models/modulator.py:51-70), for
+    aligning captures with emitted frames."""
+    NN = cfg.NN
+    t_sync = cfg.preamble_symbols * NN
+    t_down = t_sync + 2 * NN
+    t_data = t_down + 2 * NN + NN // 4
+    t_end = t_data + num_symbols * NN
+    return {
+        "t_preamble": 0,
+        "t_sync": t_sync,
+        "t_downchirps": t_down,
+        "t_data": t_data,
+        "tx_end": t_end,
+        "t_pad_end": t_end + cfg.padding * NN,
+    }
+
+
 def modulate(symbols, cfg: LoRaConfig, device=None) -> torch.Tensor:
     """symbols int [B, S] (or [S]) -> complex64 [B, T], T =
     cfg.frame_samples(S), at cfg.ovs samples per chip.  A tensor is

@@ -19,6 +19,12 @@ combiner) is that same product with the synthesis matrix; the JAX package
 computes both products in XLA, outside any Pallas kernel, and the port
 leaves them to torch.matmul in full float32.  `upconvert` and
 `synthesize_tone` build test vectors.
+
+bf16=True follows lora_tpu's rounding backend by backend: where lora_tpu
+runs its factorized TPU kernel (a CUDA tensor here) kernel D rounds the FIR
+output and the IDFT twiddles to bfloat16; where it runs the XLA product
+(a CPU tensor, or impl="xla") both operands of the product are rounded to
+bfloat16.  Both accumulate in float32.
 """
 
 from __future__ import annotations
@@ -28,7 +34,7 @@ import functools
 import numpy as np
 import torch
 
-from ..roadmap import no_counterpart, not_ported
+from ..roadmap import no_counterpart
 from . import cplx, tables
 
 IMPLS = ("auto", "xla", "fir", "pallas")
@@ -45,9 +51,14 @@ def _bank_matrix(synthesis: bool, K: int, taps_per_phase: int, G: int,
 
 
 def bank_product(z: torch.Tensor, synthesis: bool, K: int,
-                 taps_per_phase: int, G: int) -> torch.Tensor:
-    """Grouped rows z [..., Q, (L+G-1)*K] times the bank matrix."""
+                 taps_per_phase: int, G: int,
+                 bf16: bool = False) -> torch.Tensor:
+    """Grouped rows z [..., Q, (L+G-1)*K] times the bank matrix; bf16
+    rounds both operands to bfloat16 first (lora_tpu's cplx.matmul with
+    bf16=True: float32 accumulation, up to the order of the sums)."""
     w = _bank_matrix(synthesis, K, taps_per_phase, G, z.device)
+    if bf16:
+        z, w = cplx.round_bf16(z), cplx.round_bf16(w)
     with cplx.full_float32():
         return torch.matmul(z, w)
 
@@ -96,9 +107,12 @@ def channelize(x, K: int, taps_per_phase: int = 8, state=None,
     On a CUDA tensor a (K, taps_per_phase) that kernel D does not take
     raises ValueError.  The JAX package's `group`, a tuning knob of its
     plain product, is not taken: the plain version picks G itself.
+
+    bf16=True rounds to bfloat16 as lora_tpu does on the same route:
+    kernel D's bf16 route for a CUDA tensor (impl "auto", "fir", "pallas";
+    lora_tpu's filterbank_fir on a TPU), the product with both operands
+    rounded for a CPU tensor and under "xla" (lora_tpu off a TPU).
     """
-    if bf16:
-        raise not_ported("bf16=True", 4)
     if impl in ("fir-interpret", "pallas-interpret"):
         raise no_counterpart(f"impl={impl!r}")
     if impl not in IMPLS:
@@ -115,9 +129,9 @@ def channelize(x, K: int, taps_per_phase: int = 8, state=None,
         state = cplx.as_iq(state, x.device)
     if impl == "xla":
         y = cuda_channelize.filterbank_plain(prepended(x, state, hist), K, L,
-                                             T // K)
+                                             T // K, bf16)
     else:
-        y = cuda_channelize.filterbank(x, K, L, state)
+        y = cuda_channelize.filterbank(x, K, L, state, bf16)
     return y, next_state(x, state, hist)
 
 
@@ -145,9 +159,8 @@ def synthesize(u, taps_per_phase: int = 8, state=None,
     channels u [..., K, M] -> (x [..., M*K] wideband, new_state
     [..., K, L-1] tail channel samples for the next block).  The output is
     causal: the prototype's group delay is not compensated, so chunked
-    calls concatenate exactly."""
-    if bf16:
-        raise not_ported("bf16=True", 4)
+    calls concatenate exactly.  bf16=True rounds both operands of the
+    product to bfloat16, as lora_tpu does on every backend."""
     u = cplx.as_iq(u)
     K, M = u.shape[-2], u.shape[-1]
     L = taps_per_phase
@@ -159,7 +172,7 @@ def synthesize(u, taps_per_phase: int = 8, state=None,
     # rows[m, k]: the state's rows first, then the block's
     rows = torch.cat([state.transpose(-1, -2), u.transpose(-1, -2)], -2)
     G = default_group(M)
-    x = bank_product(_grouped_rows(rows, K, L, G), True, K, L, G)
+    x = bank_product(_grouped_rows(rows, K, L, G), True, K, L, G, bf16)
     return x.reshape(*u.shape[:-2], M * K), new_state
 
 

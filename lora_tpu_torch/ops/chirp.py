@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 from . import cplx
@@ -40,6 +41,34 @@ def chirp_phase_nums(s, n_samples: int, N: int, ovs: int = 1,
         num = (D - num) & (D - 1)
         carry = (D - carry) & (D - 1)
     return num, carry
+
+
+def chirp_phase_turns(s, n_samples: int, N: int, ovs: int = 1,
+                      down: bool = False, device=None):
+    """Phase in turns (mod 1) of chirp symbols s: (turns float32
+    [..., n_samples], end carry numerator int32 [...]).  D is a power of
+    two, so num / D is exact in float32."""
+    D = N * ovs * ovs
+    num, carry = chirp_phase_nums(s, n_samples, N, ovs, down, device)
+    return num.to(torch.float32) / np.float32(D), carry.to(torch.int32)
+
+
+def gen_chirp(s, N: int, ovs: int = 1, n_samples: int | None = None,
+              down: bool = False, ampl: float = 1.0, phase0_turns=0.0,
+              device=None):
+    """Chirp symbols s as complex64 [..., n_samples] (NN by default),
+    starting at phase0_turns (turns; a scalar or one per symbol), and the
+    end phase in turns mod 1, for phase continuity across symbols
+    (lora_tpu/ops/chirp.py:86-109)."""
+    if n_samples is None:
+        n_samples = N * ovs
+    turns, carry = chirp_phase_turns(s, n_samples, N, ovs, down, device)
+    D = N * ovs * ovs
+    phase0 = cplx.as_tensor(phase0_turns, turns.device, torch.float32)
+    iq = cplx.from_turns(turns + phase0[..., None], ampl)
+    end = torch.remainder(phase0 + carry.to(torch.float32) / np.float32(D),
+                          1.0)
+    return iq, end
 
 
 @functools.lru_cache(maxsize=None)

@@ -85,6 +85,14 @@ def mag2(x: torch.Tensor) -> torch.Tensor:
     return x.real * x.real + x.imag * x.imag
 
 
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """Complex x with re and im each rounded to bfloat16 (nearest even) and
+    back to float32: the operands of lora_tpu's bf16 contractions
+    (lora_tpu/ops/cplx.py:114-134), whose products are exact in float32."""
+    r = lambda t: t.to(torch.bfloat16).to(torch.float32)
+    return torch.complex(r(x.real), r(x.imag))
+
+
 @contextlib.contextmanager
 def full_float32():
     """Full float32 matrix products, no TF32: the counterpart of

@@ -18,6 +18,14 @@ pipeline (flipped commutator, grouped rows, one block-Toeplitz matrix
 product, corner turn) over the concatenated stream.  The wrapper takes it
 only for a tensor on the CPU; for a CUDA tensor it launches the kernel or
 raises.
+
+With bf16=True the kernel takes its direct-sum route at every K and rounds
+the FIR output and the twiddles to bfloat16, as the JAX package's
+`_filterbank_fir` rounds its FIR output and IDFT matrix on a TPU.  Its
+plain version is `filterbank_fir_plain`, the factorized form with the same
+roundings, which the tests and chip_smoke.py hold it against.  For a CPU
+tensor the wrapper gives what the JAX package gives off a TPU, the plain
+product with both operands rounded (`filterbank_plain(..., bf16=True)`).
 """
 
 from __future__ import annotations
@@ -27,16 +35,17 @@ import math
 
 import torch
 
-from . import _cuda, tables
+from . import _cuda, cplx, tables
 from .channelizer import _grouped_rows, bank_product, default_group, prepended
 
 
 @functools.lru_cache(maxsize=None)
-def route(K: int, taps_per_phase: int) -> int:
+def route(K: int, taps_per_phase: int, bf16: bool = False) -> int:
     """The route kernel D takes for (K, L) (csrc/channelize.cu,
-    lora_channelize_route): 1 the register FFT, 2 the direct sum.  Raises
-    ValueError when no tile fits shared memory.  Needs the built library."""
-    r = _cuda.library().lora_channelize_route(K, taps_per_phase)
+    lora_channelize_route): 1 the register FFT, 2 the direct sum (every K
+    with bf16).  Raises ValueError when no tile fits shared memory.  Needs
+    the built library."""
+    r = _cuda.library().lora_channelize_route(K, taps_per_phase, int(bf16))
     if r == 0:
         raise ValueError(f"channelize kernel: no tile fits K={K}, "
                          f"L={taps_per_phase} in shared memory")
@@ -56,23 +65,64 @@ def consts(K: int, taps_per_phase: int, device: torch.device):
 
 
 def filterbank_plain(xp: torch.Tensor, K: int, taps_per_phase: int,
-                     M: int) -> torch.Tensor:
+                     M: int, bf16: bool = False) -> torch.Tensor:
     """State-prepended wideband xp [..., P], P >= (M + L - 1) * K ->
-    channel-major y [..., K, M] (lora_tpu/ops/channelizer.py:273-299)."""
+    channel-major y [..., K, M] (lora_tpu/ops/channelizer.py:273-299); bf16
+    rounds both operands of the product to bfloat16."""
     L = taps_per_phase
     lead = xp.shape[:-1]
     rows = M + L - 1
     xrev = xp[..., : rows * K].reshape(*lead, rows, K).flip(-1)
     G = default_group(M)
-    y = bank_product(_grouped_rows(xrev, K, L, G), False, K, L, G)
+    y = bank_product(_grouped_rows(xrev, K, L, G), False, K, L, G, bf16)
     return y.reshape(*lead, M, K).transpose(-1, -2).contiguous()
 
 
+@functools.lru_cache(maxsize=None)
+def idft_flipped(K: int, device: torch.device) -> torch.Tensor:
+    """complex64 [K, K] W'[q, k] = W[K-1-q, k], W = tables.idft_k (the
+    commutator's lane flip folded in), rounded to bfloat16: the matrix of
+    lora_tpu's _fir_idft_consts (pallas_channelize.py:264) with bf16=True."""
+    wre, wim = tables.idft_k(K)
+    w = torch.complex(torch.from_numpy(wre), torch.from_numpy(wim)).flip(0)
+    return cplx.round_bf16(w).to(device)
+
+
+def filterbank_fir_plain(xp: torch.Tensor, K: int, taps_per_phase: int,
+                         M: int) -> torch.Tensor:
+    """Kernel D's bf16 route in plain PyTorch, the factorized form with
+    bf16=True (lora_tpu/ops/pallas_channelize.py:296-330): the FIR over the
+    flipped commutator in float32, taps in kernel D's order
+    (tables.fir_taps_flipped) and rounded as its fmaf chain rounds them;
+    its output rounded to bfloat16, then the K-point IDFT by the rounded
+    matrix as one product in full float32.  State-prepended xp [..., P] ->
+    channel-major y [..., K, M]."""
+    L = taps_per_phase
+    lead = xp.shape[:-1]
+    x2 = torch.view_as_real(xp[..., : (M + L - 1) * K].reshape(
+        *lead, M + L - 1, K))
+    hp = torch.from_numpy(tables.fir_taps_flipped(K, L)).to(xp.device)
+    u = hp[L - 1, :, None] * x2[..., :M, :, :]
+    for d in range(1, L):
+        # fmaf(h, x, u): the float32 product is exact in float64, so the
+        # step rounds once to float32 after the add (twice, through
+        # float64, only on a float32 midpoint the double sum lands on)
+        h = hp[L - 1 - d, :, None].double()
+        u = (h * x2[..., d : d + M, :, :].double() + u.double()).float()
+    u = cplx.round_bf16(torch.view_as_complex(u))
+    with cplx.full_float32():
+        y = torch.matmul(u, idft_flipped(K, xp.device))
+    return y.transpose(-1, -2).contiguous()
+
+
 def filterbank(x: torch.Tensor, K: int, taps_per_phase: int,
-               state: torch.Tensor | None = None) -> torch.Tensor:
+               state: torch.Tensor | None = None,
+               bf16: bool = False) -> torch.Tensor:
     """Kernel D wrapper: the block x [..., M*K] after the filter history
     state [..., L*K - 1] (None: zeros) -> channel-major y [..., K, M], what
-    filterbank_plain gives for prepended(x, state, L*K - 1)."""
+    filterbank_plain gives for prepended(x, state, L*K - 1).  With bf16 the
+    kernel computes what filterbank_fir_plain gives, and a CPU tensor gets
+    filterbank_plain(..., bf16=True), as channelize does."""
     L = taps_per_phase
     *lead, T = x.shape
     hist = L * K - 1
@@ -84,7 +134,7 @@ def filterbank(x: torch.Tensor, K: int, taps_per_phase: int,
                          f"{(*lead, hist)}, got {tuple(state.shape)}")
     M = T // K
     if x.device.type == "cpu":
-        return filterbank_plain(prepended(x, state, hist), K, L, M)
+        return filterbank_plain(prepended(x, state, hist), K, L, M, bf16)
     if not x.is_cuda:
         raise ValueError(f"filterbank: unsupported device {x.device}")
     for name, t in (("x", x), ("state", state)):
@@ -96,7 +146,7 @@ def filterbank(x: torch.Tensor, K: int, taps_per_phase: int,
         if t.device != x.device:
             raise ValueError(f"filterbank: state on {t.device}, x on "
                              f"{x.device}")
-    route(K, L)  # raises for a width the kernel does not take
+    route(K, L, bf16)  # raises for a width the kernel does not take
     S = math.prod(lead)
     dev = x.device
     y = torch.empty((S, K, M), dtype=torch.complex64, device=dev)
@@ -110,7 +160,7 @@ def filterbank(x: torch.Tensor, K: int, taps_per_phase: int,
             None if h2 is None else h2.data_ptr(),
             0 if h2 is None else h2.stride(0), x2.data_ptr(), x2.stride(0),
             S, K, L, M, hp.data_ptr(), wk.data_ptr(), y.data_ptr(),
-            _cuda.stream(dev),
+            _cuda.stream(dev), int(bf16),
         )
         _cuda.check(err, "lora_channelize")
         filterbank.launches += 1

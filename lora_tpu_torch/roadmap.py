@@ -1,19 +1,9 @@
-"""Parts of lora_tpu that the port does not carry, by ROADMAP.md item.
+"""Routes of lora_tpu that the port has no counterpart for.
 
 Each raises NotImplementedError naming why; none falls back in silence to
 another route."""
 
 from __future__ import annotations
-
-ITEMS = {
-    1: "the port's bench and BENCHMARK.json",
-    4: "the channelizer's bfloat16 contraction",
-}
-
-
-def not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md item {item}: {ITEMS[item]})")
 
 
 def no_counterpart(what: str) -> NotImplementedError:

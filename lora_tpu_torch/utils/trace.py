@@ -1,0 +1,110 @@
+"""Profiling and frame event records (port of lora_tpu/utils/trace.py).
+
+  - `profile(dir)` records a region with torch.profiler (CPU activity, and
+    the card's kernels when there is a card) and writes a Chrome trace into
+    `dir` (open it in Perfetto, chrome://tracing or TensorBoard);
+    `session()` is that recording, which keeps every kernel of the region
+    where torch.profiler alone drops a session's first ones.
+  - `frame_events(dem, cfg)` turns a DemodResult bank into one record per
+    found frame, the counterpart of the reference's stream labels.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+import socket
+import time
+from typing import Iterator
+
+import numpy as np
+import torch
+
+
+# torch.profiler on the card drops the first device records of a session,
+# more the longer the process has run: none in its first minute, 5 at 80 s,
+# 15 at 200 s (NVIDIA H100 80GB HBM3, torch 2.11, CUDA 12.8;
+# tools/torch_kernel_probe.py --trace).  A sleep or a spin on the card
+# before the region does not help; launches before it take the drop in the
+# region's place.  So a session on the card starts with ABSORB launches of
+# a kernel of its own and a sync, and one of them at least must be left
+# in the record: else the region's first kernels may be gone too, and the
+# session raises.
+ABSORB = 1024
+ABSORB_KERNEL = "spin_kernel"  # torch.cuda._sleep's kernel
+ABSORB_RANGE = "absorb profiler drop"
+
+
+def absorbing(name: str) -> bool:
+    """Whether a profiler event or key of that name is a session's opening
+    launches or their range, which a breakdown of the region leaves out."""
+    return ABSORB_KERNEL in name or name == ABSORB_RANGE
+
+
+@contextlib.contextmanager
+def session() -> Iterator["torch.profiler.profile"]:
+    """A torch.profiler session of CPU activity, and of the card's when
+    there is a card, whose device record holds every kernel the region
+    launched: it opens with ABSORB launches of ABSORB_KERNEL (under the
+    range ABSORB_RANGE), and raises RuntimeError when the record kept none
+    of them.  Yields the profiler; its results hold those launches and
+    their range, which the caller leaves out by `absorbing`."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    cuda = torch.cuda.is_available()
+    activities = [ProfilerActivity.CPU]
+    if cuda:
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        if cuda:
+            with record_function(ABSORB_RANGE):
+                for _ in range(ABSORB):
+                    torch.cuda._sleep(0)
+                torch.cuda.synchronize()
+        yield prof
+    if cuda and not any(ABSORB_KERNEL in e.name for e in prof.events()
+                        if e.device_type == DeviceType.CUDA):
+        raise RuntimeError(
+            f"torch.profiler dropped all {ABSORB} launches that open the "
+            f"session, and maybe the region's first kernels after them")
+
+
+@contextlib.contextmanager
+def profile(trace_dir: str | None) -> Iterator[None]:
+    """torch.profiler trace around a region (a `session`), written as
+    `<host>_<pid>.<ns>.pt.trace.json` into trace_dir (made if missing) when
+    the region ends; None disables.  A profiler that fails raises, and so
+    does the region: it is not run again untraced."""
+    if not trace_dir:
+        yield
+        return
+    with session() as prof:
+        yield
+    os.makedirs(trace_dir, exist_ok=True)
+    name = f"{socket.gethostname()}_{os.getpid()}.{time.time_ns()}"
+    prof.export_chrome_trace(os.path.join(trace_dir, f"{name}.pt.trace.json"))
+
+
+def frame_events(dem, cfg) -> list[dict]:
+    """One record per found frame of a (batched) DemodResult, with
+    lora_tpu's keys: channel (the flat index over the leading axes), event,
+    t_preamble, t_sync, symbols, snr_db, power_db, cfo_bins, fine_cfo."""
+    col = lambda t: t.detach().reshape(-1).cpu().numpy()
+    found, t_sync, count = col(dem.found), col(dem.t_sync), col(dem.count)
+    snr, power = col(dem.snr), col(dem.power)
+    freq, fine = col(dem.freq_error), col(dem.fine_freq)
+    out = []
+    for b in np.flatnonzero(found):
+        out.append({
+            "channel": int(b),
+            "event": "frame",
+            "t_preamble": int(t_sync[b]) - cfg.preamble_symbols * cfg.N,
+            "t_sync": int(t_sync[b]),
+            "symbols": int(count[b]),
+            "snr_db": float(snr[b]),
+            "power_db": float(power[b]),
+            "cfo_bins": int(freq[b]),
+            "fine_cfo": float(fine[b]),
+        })
+    return out

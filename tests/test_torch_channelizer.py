@@ -25,7 +25,7 @@ from lora_tpu.ops.cplx import IQ
 from lora_tpu_torch import api as tapi
 from lora_tpu_torch.ops import channelizer as chz
 from lora_tpu_torch.ops import cuda_channelize as cc
-from lora_tpu_torch.ops import _cuda, tables
+from lora_tpu_torch.ops import _cuda, cplx, tables
 
 torch.set_num_threads(1)
 
@@ -450,16 +450,12 @@ def test_channelized_demodulate_matches_jax():
         assert payloads_of(td, cfg, True) == payloads_of(jd, cfg, False)
 
 
-def test_every_even_channel_round_trip():
+def every_even_channel(rng, K, cfg):
     """The chip run's traffic in miniature: SF7 frames with 16-byte
-    payloads on every even channel of a 16-channel grid (random delay in
+    payloads on every even channel of a K-channel grid (random delay in
     [0, N), CFO k + u bins with |u| < 0.4, random phase), merged by the
-    synthesis bank, AWGN 0.01 at the wideband rate.  Both packages find
-    every frame, decode it byte-exact and agree on every channel."""
-    rng = np.random.default_rng(8)
-    K = 16
-    cfg = lora_tpu.LoRaConfig(sf=7, cr="4/8", ampl=1.0)
-    cfg = cfg.replace(mtu=cfg.num_symbols(16) + 2)
+    synthesis bank, AWGN 0.01 at the wideband rate.  -> (wide complex64
+    numpy [K * M], occupied channels, payloads)."""
     N, M = cfg.N, tapi.required_samples(cfg)
     chans = np.arange(0, K, 2)
     payload = rng.integers(0, 256, (len(chans), 16)).astype(np.uint8)
@@ -473,6 +469,17 @@ def test_every_even_channel_round_trip():
         u[c] *= np.exp(2j * np.pi * cfo * n / N + 1j * rng.uniform(0, 2 * np.pi))
     wide, _ = chz.synthesize(torch.as_tensor(u))
     wide = (wide.numpy() + 0.01 * crandn(rng, (K * M,))).astype(np.complex64)
+    return wide, chans, payload
+
+
+def test_every_even_channel_round_trip():
+    """Both packages find every frame of every_even_channel's traffic,
+    decode it byte-exact and agree on every channel."""
+    rng = np.random.default_rng(8)
+    K = 16
+    cfg = lora_tpu.LoRaConfig(sf=7, cr="4/8", ampl=1.0)
+    cfg = cfg.replace(mtu=cfg.num_symbols(16) + 2)
+    wide, chans, payload = every_even_channel(rng, K, cfg)
     jdem, _ = japi.channelized_demodulate(jiq(wide), K, cfg, fused="off")
     tdem, _ = tapi.channelized_demodulate(torch.as_tensor(wide), K, cfg)
     assert_demod_equal(tdem, jdem)
@@ -483,24 +490,26 @@ def test_every_even_channel_round_trip():
 
 
 def test_out_of_slice_options_raise():
-    """The channelizer's bfloat16 contraction (which lora_tpu runs on every
-    backend, also under channelized_demodulate(fused="bf16")) is not
-    ported yet (ROADMAP.md item 4); the interpret routes have no CUDA
-    counterpart."""
+    """The interpret routes have no CUDA counterpart; the channelizer's
+    bfloat16 contraction (which lora_tpu runs on every backend, also under
+    channelized_demodulate(fused="bf16")) is ported and runs."""
     cfg = lora_tpu.LoRaConfig(sf=7, mtu=8)
     wide = torch.zeros(16 * tapi.required_samples(cfg), dtype=torch.complex64)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 4"):
-        tapi.channelized_demodulate(wide, 16, cfg, fused="bf16")
     for fused in ("interpret", "interpret-bf16"):
         with pytest.raises(NotImplementedError, match="no CUDA counterpart"):
             tapi.channelized_demodulate(wide, 16, cfg, fused=fused)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 4"):
-        chz.channelize(wide, 16, bf16=True)
     for impl in ("fir-interpret", "pallas-interpret"):
         with pytest.raises(NotImplementedError, match="no CUDA counterpart"):
             chz.channelize(wide, 16, impl=impl)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 4"):
-        chz.synthesize(torch.zeros((16, 8), dtype=torch.complex64), bf16=True)
+        with pytest.raises(NotImplementedError, match="no CUDA counterpart"):
+            chz.channelize(wide, 16, impl=impl, bf16=True)
+    y, _ = chz.channelize(wide, 16, bf16=True)
+    assert y.shape == (16, wide.shape[-1] // 16) and not bool(y.any())
+    x, _ = chz.synthesize(torch.zeros((16, 8), dtype=torch.complex64),
+                          bf16=True)
+    assert x.shape == (128,) and not bool(x.any())
+    dem, _ = tapi.channelized_demodulate(wide, 16, cfg, fused="bf16")
+    assert dem.found.shape == (16,) and not bool(dem.found.any())
     # the receive options are in the port: every K channel of an empty
     # wideband block reports no frame, with the spectra and candidate axes
     dem, _ = tapi.channelized_demodulate(wide, 16, cfg, spectra=True,
@@ -511,3 +520,228 @@ def test_out_of_slice_options_raise():
     # the demod result keeps the JAX package's field names
     names = {f.name for f in dataclasses.fields(tapi.DemodResult)}
     assert set(EXACT + CLOSE) <= names
+
+
+# --------------------------------------------------------------------------
+# the bfloat16 contraction (channelize/synthesize bf16=True)
+# --------------------------------------------------------------------------
+
+# The plain bf16 product against lora_tpu's XLA bf16 product: both round the
+# same operands to bfloat16 and sum their exact float32 products, in another
+# order: 1e-5 of the output's peak.
+BF16_SUM_RTOL = 1e-5
+# filterbank_fir_plain against lora_tpu's factorized kernel with
+# bf16=True (and kernel D's bf16 route against the plain version): the FIR
+# output u may differ by a float32 step (a fused multiply-add or not), and
+# then its two bfloat16 roundings by one bfloat16 step (2^-8 of |u|): on at
+# least 99% of the samples within 1e-5 of the peak, everywhere within 1e-2.
+BF16_FIR_RTOL = 1e-5
+BF16_FIR_SHARE = 0.99
+BF16_FIR_MAX_RTOL = 1e-2
+# lora_tpu's own bar for its bf16 kernels on unit-variance noise
+# (tests/test_pallas_channelize.py:62-65), absolute
+BF16_KERNEL_ATOL = 3e-2
+
+
+def bf16_fir_close(got, want):
+    """The two bars of BF16_FIR_*; -> (share within 1e-5, max rel)."""
+    peak = np.abs(want).max()
+    d = np.abs(got - want) / peak
+    share = float((d <= BF16_FIR_RTOL).mean())
+    assert share >= BF16_FIR_SHARE, share
+    assert d.max() <= BF16_FIR_MAX_RTOL, d.max()
+    return share, float(d.max())
+
+
+@pytest.mark.parametrize("K", [16, 64])
+def test_channelize_bf16_product_matches_jax(K):
+    """channelize(bf16=True) under "xla", and every impl on a CPU tensor
+    (no launch: lora_tpu off a TPU runs its XLA product), against
+    lora_tpu's channelize(bf16=True, impl="xla"); new_state exact."""
+    rng = np.random.default_rng(20 + K)
+    S, M = 2, 48
+    x = crandn(rng, (S, K * M))
+    st = crandn(rng, (S, 8 * K - 1))
+    jy, js = jchz.channelize(jiq(x), K, state=jiq(st), impl="xla", bf16=True)
+    want = jnp_c(jy)
+    before = cc.filterbank.launches
+    for impl in ("xla", "auto", "fir", "pallas"):
+        y, s = chz.channelize(torch.as_tensor(x), K, state=torch.as_tensor(st),
+                              bf16=True, impl=impl)
+        np.testing.assert_allclose(y.numpy(), want, rtol=0,
+                                   atol=BF16_SUM_RTOL * np.abs(want).max())
+        np.testing.assert_array_equal(s.numpy(), jnp_c(js))
+    assert cc.filterbank.launches == before
+    # bf16 moves the channels by about 1e-3 of their peak, not more
+    f32, _ = chz.channelize(torch.as_tensor(x), K, state=torch.as_tensor(st))
+    rel = (f32 - y).abs().max().item() / f32.abs().max().item()
+    assert 1e-5 < rel < 1e-2, rel
+
+
+def test_synthesize_bf16_matches_jax():
+    rng = np.random.default_rng(21)
+    K, M = 16, 64
+    u = crandn(rng, (2, K, M))
+    st = crandn(rng, (2, K, 7))
+    jx, js = jchz.synthesize(jiq(u), state=jiq(st), bf16=True)
+    x, s = chz.synthesize(torch.as_tensor(u), state=torch.as_tensor(st),
+                          bf16=True)
+    want = jnp_c(jx)
+    np.testing.assert_allclose(x.numpy(), want, rtol=0,
+                               atol=BF16_SUM_RTOL * np.abs(want).max())
+    np.testing.assert_array_equal(s.numpy(), jnp_c(js))
+
+
+@pytest.mark.parametrize("with_state", [True, False])
+def test_filterbank_fir_plain_bf16_matches_fir_interpret(with_state):
+    """Kernel D's bf16 plain version against lora_tpu's factorized kernel
+    (_filterbank_fir, bf16=True: FIR output and IDFT matrix in bfloat16,
+    float32 accumulation) in interpret mode, at K = 64, L = 8, M = 48, S = 2;
+    the channelizer's new_state bit-equal."""
+    rng = np.random.default_rng(22)
+    K, L, M, S = 64, 8, 48, 2
+    x = crandn(rng, (S, K * M))
+    st = crandn(rng, (S, L * K - 1)) if with_state else None
+    jy, js = jchz.channelize(jiq(x), K, state=None if st is None else jiq(st),
+                             impl="fir-interpret", bf16=True)
+    tst = None if st is None else torch.as_tensor(st)
+    xp = chz.prepended(torch.as_tensor(x), tst, L * K - 1)
+    got = cc.filterbank_fir_plain(xp, K, L, M)
+    assert got.shape == (S, K, M) and got.is_contiguous()
+    bf16_fir_close(got.numpy(), jnp_c(jy))
+    _, s = chz.channelize(torch.as_tensor(x), K, L, state=tst, bf16=True)
+    np.testing.assert_array_equal(s.numpy(), jnp_c(js))
+    # the wrapper on a CPU tensor gives lora_tpu's bf16 product off a TPU,
+    # as channelize does, not this function
+    jx, _ = jchz.channelize(jiq(x), K, state=None if st is None else jiq(st),
+                            impl="xla", bf16=True)
+    want = jnp_c(jx)
+    y = cc.filterbank(torch.as_tensor(x), K, L, tst, bf16=True)
+    np.testing.assert_allclose(y.numpy(), want, rtol=0,
+                               atol=BF16_SUM_RTOL * np.abs(want).max())
+
+
+def test_filterbank_fir_plain_bf16_within_dense_kernel_bar():
+    """lora_tpu's dense kernel (_filterbank) rounds its input and its
+    block-Toeplitz matrix to bfloat16 instead: the two agree within its own
+    bf16 bar, 3e-2, at K = 16."""
+    rng = np.random.default_rng(23)
+    K, L, M = 16, 8, 48
+    xp = _xp(rng, 1, K, M)
+    want = jnp_c(jpc.filterbank(jiq(xp), K, L, M, interpret=True, bf16=True))
+    got = cc.filterbank_fir_plain(torch.as_tensor(xp), K, L, M)
+    err = np.abs(got.numpy() - want.swapaxes(-1, -2)).max()
+    assert err < BF16_KERNEL_ATOL, err
+
+
+@pytest.mark.parametrize("K", [16, 64, 128, 192])
+def test_bf16_idft_matrix_matches_jax(K):
+    """The plain version's rounded IDFT matrix is lora_tpu's
+    _fir_idft_consts matrix after astype(bfloat16), bit for bit; kernel D's
+    bf16 route rounds its twiddle table to the same values, but for the
+    matrix's zeros (cos and sin at multiples of pi/2, below 1e-12 in both,
+    from angles reduced in another order)."""
+    _, wb = jpc._fir_idft_consts(K, 8)
+    w16 = np.asarray(jnp.asarray(wb).astype(jnp.bfloat16).astype(jnp.float32))
+    w = cc.idft_flipped(K, torch.device("cpu"))
+    # W_big = [[Wt_re, -Wt_im], [Wt_im, Wt_re]] with Wt[k, q] = w[q, k]
+    np.testing.assert_array_equal(w16[:K, :K], w.real.numpy().T)
+    np.testing.assert_array_equal(w16[K:, :K], w.imag.numpy().T)
+    np.testing.assert_array_equal(w16[:K, K:], -w.imag.numpy().T)
+    _, wk = cc.consts(K, 8, torch.device("cpu"))
+    q, k = np.arange(K)[:, None], np.arange(K)[None, :]
+    table = bf16_np(wk.numpy()[((K - 1 - q) * k) % K])
+    w = w.numpy()
+    for a, b in ((table.real, w.real), (table.imag, w.imag)):
+        differ = a != b
+        assert np.abs(a[differ]).max(initial=0) < 1e-12
+        assert np.abs(b[differ]).max(initial=0) < 1e-12
+
+
+def bf16_np(a):
+    """Complex numpy with re and im rounded to bfloat16 (nearest even)."""
+    return cplx.round_bf16(torch.from_numpy(
+        np.ascontiguousarray(a, np.complex64))).numpy()
+
+
+def direct_route_bf16_model(x, state, K, L, M, hp, wk, TM=32):
+    """channelize_kernel<true> on one stream, in float32 as the kernel
+    computes (the FIR in its tap order, its fmaf steps as one float32
+    rounding of a float64 sum): the FIR output and the twiddle table
+    rounded to bfloat16, then the direct sum with the kernel's index
+    recurrence."""
+    hist = L * K - 1
+    k = np.arange(K)
+    w = bf16_np(wk.astype(np.complex64)).astype(np.complex128)
+    y = np.zeros((K, M), np.complex128)
+    for m0 in range(0, M, TM):
+        valid = min(TM + L - 1, M + L - 1 - m0)
+        xs = np.zeros((TM + L - 1, K), np.complex64)
+        xs[:valid] = stream_at(
+            x, state, hist, m0 * K + np.arange(valid * K)).reshape(valid, K)
+        h = hp.astype(np.float32)
+        ur = h[L - 1] * xs[:TM].real
+        ui = h[L - 1] * xs[:TM].imag
+        fma = lambda a, b, c: (a.astype(np.float64) * b + c).astype(
+            np.float32)
+        for d in range(1, L):
+            ur = fma(h[L - 1 - d], xs[d : d + TM].real, ur)
+            ui = fma(h[L - 1 - d], xs[d : d + TM].imag, ui)
+        u = bf16_np(ur + 1j * ui).astype(np.complex128)
+        j = np.where(k == 0, 0, K - k)  # ((K-1)*k) mod K
+        acc = np.zeros((K, TM), np.complex128)
+        for q in range(K):
+            acc += w[j][:, None] * u[None, :, q]
+            j = np.where(j - k < 0, j - k + K, j - k)
+        n = min(TM, M - m0)
+        y[:, m0 : m0 + n] = acc[:, :n]
+    return y
+
+
+@pytest.mark.parametrize("with_state", [True, False])
+@pytest.mark.parametrize("K,L,M", [(16, 8, 300), (64, 8, 130), (192, 8, 70),
+                                   (1024, 4, 19)])
+def test_kernel_d_bf16_route_matches_plain(K, L, M, with_state):
+    """Kernel D's bf16 route (the direct sum at every K, powers of two
+    included) replayed in numpy: its FIR, its two roundings and its index
+    recurrence give filterbank_fir_plain within the bars of
+    BF16_FIR_*."""
+    rng = np.random.default_rng(K + 7 * L)
+    x = crandn(rng, (2, M * K))
+    state = crandn(rng, (2, L * K - 1)) if with_state else None
+    xp = chz.prepended(torch.as_tensor(x),
+                       None if state is None else torch.as_tensor(state),
+                       L * K - 1)
+    want = cc.filterbank_fir_plain(xp, K, L, M).numpy()
+    hp, wk = (t.numpy() for t in cc.consts(K, L, torch.device("cpu")))
+    got = np.stack([direct_route_bf16_model(
+        x[s], None if state is None else state[s], K, L, M, hp, wk)
+        for s in range(2)])
+    bf16_fir_close(got, want)
+
+
+def test_channelized_demodulate_bf16_matches_jax():
+    """channelized_demodulate(fused="bf16") against lora_tpu's on the
+    every-even-channel traffic at SF7, K = 16: on the occupied channels
+    every integer field equal and every payload byte-exact, dB values and
+    fine CFO within 1e-3."""
+    rng = np.random.default_rng(24)
+    K = 16
+    cfg = lora_tpu.LoRaConfig(sf=7, cr="4/8", ampl=1.0)
+    cfg = cfg.replace(mtu=cfg.num_symbols(16) + 2)
+    wide, chans, payload = every_even_channel(rng, K, cfg)
+    jdem, _ = japi.channelized_demodulate(jiq(wide), K, cfg, fused="bf16")
+    tdem, _ = tapi.channelized_demodulate(torch.as_tensor(wide), K, cfg,
+                                          fused="bf16")
+    for f in EXACT:
+        np.testing.assert_array_equal(getattr(tdem, f).numpy()[chans],
+                                      np.asarray(getattr(jdem, f))[chans],
+                                      err_msg=f)
+    for f in CLOSE:
+        np.testing.assert_allclose(getattr(tdem, f).numpy()[chans],
+                                   np.asarray(getattr(jdem, f))[chans],
+                                   atol=1e-3, err_msg=f)
+    got = payloads_of(tdem, cfg, True)
+    jgot = payloads_of(jdem, cfg, False)
+    want = [bytes(p) for p in payload.tolist()]
+    assert [got[c] for c in chans] == [jgot[c] for c in chans] == want

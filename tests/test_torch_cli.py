@@ -146,9 +146,20 @@ def test_cli_tx_then_replay_matches_jax(capsys, tmp_path):
     assert outs[3][0]["payload"] == "48656c6c6f" and outs[3][0]["status"] == 0
 
 
-def test_cli_bench_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 1"):
+def test_cli_bench_prints_the_record(capsys, monkeypatch):
+    """`bench --device cpu` prints the benchmark's CPU record, one line with
+    lora_tpu's keys; without the CPU asked for and without a card it
+    refuses."""
+    rc, lines = run_main(tcli.main, ["bench", "--device", "cpu"], capsys)
+    assert rc == 0 and len(lines) == 1
+    rec = lines[0]
+    assert rec["metric"] == "demod_throughput_sf10" and rec["value"] > 0
+    assert rec["backend"] == "cpu" and rec["batch"] == 8
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("LORA_BENCH_FORCE", raising=False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
         tcli.main(["bench"])
+    assert capsys.readouterr().out == ""
 
 
 def test_top_level_lazy_exports_match_jax():

@@ -16,9 +16,10 @@ Integer outputs must be equal; dB values, f_index and fine_total agree
 within 1e-3 (float32 FFTs of another order).  The inputs are tones and
 chirps with clear peaks, so no window sits on a near tie.  Kernel D's
 channels agree with the plain block-Toeplitz product within 1e-4 of the
-largest output (float32 sums in another order).  Kernel E is
-a copy: bit-equal.  Kernel C's mag2 agrees within 1e-4 of each window's
-peak.
+largest output (float32 sums in another order); its bf16 route agrees
+with filterbank_fir_plain within the bars stated there.
+Kernel E is a copy: bit-equal.  Kernel C's mag2 agrees within 1e-4 of each
+window's peak.
 """
 
 import numpy as np
@@ -287,6 +288,45 @@ def test_channelize_tile_fits_every_width(dev):
     assert cuda_channelize.route(24, 8) == 2
     with pytest.raises(ValueError, match="no tile fits"):
         cuda_channelize.route(4096, 8)
+    # bf16 takes the direct sum at every width
+    for K in (8, 16, 24, 64, 192, 1024):
+        assert cuda_channelize.route(K, 8, bf16=True) == 2, K
+
+
+# kernel D's bf16 route against filterbank_fir_plain: the FIR
+# output may differ by a float32 step (fused multiply-adds), and then its
+# bfloat16 rounding by one bfloat16 step: on at least 99% of the samples
+# within 1e-5 of the peak, everywhere within 1e-2
+# (tests/test_torch_channelizer.py, BF16_FIR_*).  Against the float32
+# kernel: lora_tpu's bf16 bar, 3e-2 absolute on unit-variance noise.
+BF16_FIR_RTOL, BF16_FIR_SHARE, BF16_FIR_MAX_RTOL = 1e-5, 0.99, 1e-2
+BF16_KERNEL_ATOL = 3e-2
+
+
+@pytest.mark.parametrize("with_state", [True, False])
+@pytest.mark.parametrize("K", [8, 16, 24, 64, 128, 192, 1024])
+def test_channelize_bf16_kernel_matches_plain(dev, K, with_state):
+    """Kernel D's bf16 route (the direct sum at every K) against its plain
+    version on fenced views, one launch; and against the float32 kernel."""
+    rng = np.random.default_rng(K * 10 + with_state)
+    L, M, S = 8, 517, 2
+    x = fenced(crandn(rng, (S, K * M), dev), S)
+    st = fenced(crandn(rng, (S, L * K - 1), dev), 1) if with_state else None
+    before = cuda_channelize.filterbank.launches
+    y, s = chz.channelize(x, K, L, state=st, bf16=True)
+    torch.cuda.synchronize()
+    assert cuda_channelize.filterbank.launches == before + 1
+    xp = chz.prepended(x.contiguous(),
+                       None if st is None else st.contiguous(), L * K - 1)
+    want = cuda_channelize.filterbank_fir_plain(xp, K, L, M)
+    assert y.shape == (S, K, M) and y.is_contiguous()
+    assert torch.equal(s, chz.channelize(x, K, L, state=st)[1])
+    d = (y - want).abs() / want.abs().max()
+    assert (d <= BF16_FIR_RTOL).float().mean().item() >= BF16_FIR_SHARE
+    assert d.max().item() <= BF16_FIR_MAX_RTOL
+    f32, _ = chz.channelize(x, K, L, state=st)
+    err = torch.view_as_real(y - f32).abs().max().item()
+    assert err < BF16_KERNEL_ATOL, err
 
 
 def test_channelize_kernel_takes_views_and_refuses_the_rest(dev):
@@ -368,19 +408,23 @@ def test_channelized_demodulate_routes_agree_on_card(dev):
 
 
 def test_out_of_slice_options_raise_on_card(dev):
+    """The interpret routes raise; the channelizer's bf16 contraction runs
+    kernel D's bf16 route (one launch), under channelized_demodulate too."""
     cfg = lora_tpu_torch.LoRaConfig(sf=7, mtu=8)
     wide = torch.zeros((1, 16 * api.required_samples(cfg)),
                        dtype=torch.complex64, device=dev)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 4"):
-        api.channelized_demodulate(wide, 16, cfg, fused="bf16")
     for fused in ("interpret", "interpret-bf16"):
         with pytest.raises(NotImplementedError, match="no CUDA counterpart"):
             api.channelized_demodulate(wide, 16, cfg, fused=fused)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 4"):
-        chz.channelize(wide, 16, bf16=True)
     for impl in ("fir-interpret", "pallas-interpret"):
         with pytest.raises(NotImplementedError, match="no CUDA counterpart"):
             chz.channelize(wide, 16, impl=impl)
+    before = cuda_channelize.filterbank.launches
+    y, _ = chz.channelize(wide, 16, bf16=True)
+    dem, _ = api.channelized_demodulate(wide, 16, cfg, fused="bf16")
+    torch.cuda.synchronize()
+    assert cuda_channelize.filterbank.launches == before + 2
+    assert not bool(y.any()) and not bool(dem.found.any())
     # fused="bf16" is "auto": the kernels run
     before = cuda_detect.dechirp_detect.launches
     dec, _ = api.loopback(np.arange(4, dtype=np.uint8),
@@ -641,6 +685,33 @@ def test_receive_options_routes_agree_on_card(dev, option):
         assert torch.equal(auto.raw, off.raw)
         peak = off.dec.abs().amax(-1, keepdim=True)
         assert bool(((auto.dec - off.dec).abs() <= 1e-4 * peak).all())
+
+
+def test_trace_profile_keeps_every_kernel_of_one_call(dev, tmp_path):
+    """utils.trace.profile around one demodulate on the card writes a
+    Chrome trace that names kernels A, B and C once each, after the
+    launches that open the session to take torch.profiler's drop of a
+    session's first device records (some of them left)."""
+    import json
+
+    from lora_tpu_torch.utils import trace
+
+    cfg = lora_tpu_torch.LoRaConfig(sf=7, cr="4/8", ampl=1.0, crc_check=True)
+    cfg = cfg.replace(mtu=cfg.num_symbols(6))
+    x, _ = _two_frames(cfg, np.random.default_rng(6), 6, 6)
+    x = torch.as_tensor(x, device=dev)
+    api.demodulate(x, cfg)
+    torch.cuda.synchronize()
+    with trace.profile(str(tmp_path)):
+        dem = api.demodulate(x, cfg)
+        torch.cuda.synchronize()
+    (path,) = tmp_path.glob("*.pt.trace.json")
+    names = [e["name"] for e in json.loads(path.read_text())["traceEvents"]
+             if e.get("cat") == "kernel"]
+    assert [sum(f"{k}_kernel" in n for n in names)
+            for k in ("detect", "track", "payload")] == [1, 1, 1]
+    assert 0 < sum(trace.ABSORB_KERNEL in n for n in names) <= trace.ABSORB
+    assert bool(dem.found.any())
 
 
 def test_host_data_lands_on_the_card(dev):

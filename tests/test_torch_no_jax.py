@@ -22,7 +22,7 @@ for name in ("ops.channelizer", "ops.cuda_channelize", "roadmap", "config",
              "utils.debugcheck", "ops.resample", "ops.dcblock",
              "parallel.mesh", "parallel.halo", "parallel.channelize",
              "parallel.dispatch", "parallel.multihost", "parallel.comm",
-             "parallel.dryrun"):
+             "parallel.dryrun", "benchmarks", "utils.trace"):
     assert "lora_tpu_torch." + name in sys.modules, name
 # the native ingest library builds under build/, never in the package
 from lora_tpu_torch.ops import _cuda

@@ -8,7 +8,7 @@ A, B, C at the flagship shape by chip_smoke.py's own step 3a
 
     python3 tools/torch_kernel_probe.py [--resources] [--sizes]
                                         [--kernels abcd] [--against DIR ...]
-                                        [--runs N]
+                                        [--runs N] [--trace IDLE]
 
 --resources   compile every source of the tree and of every --against copy
               with `-Xptxas -v` and print every kernel's registers, spill
@@ -26,6 +26,18 @@ A, B, C at the flagship shape by chip_smoke.py's own step 3a
               lora_channelize_tile) is driven through its own entry, on the
               concatenated stream, and timed with and without the
               concatenation it needs.
+
+--trace IDLE  instead: what torch.profiler keeps of one flagship
+              demodulate(fused="auto") (kernels A, B, C and about 107 small
+              launches) as the process ages: rounds of traced sessions at
+              the start, after IDLE seconds without tracing and after 2 IDLE
+              more.  Each round traces the call through utils.trace.profile
+              and through torch.profiler alone, with nothing, a throwaway
+              launch and sync, a host sleep or a 20 ms spin on the card
+              between the session's start and the call; each prints the
+              device events kept, kernels A, B, C among them, and how far
+              the CUDA runtime's events lie before the PyTorch op that made
+              them (the trace's two clocks apart).
 
 Without --against it times the tree alone.  The banks are chip_smoke.py's:
 the flagship bank (4096 channels, SF10, mtu 68, seed 1234) and, for D, 256
@@ -202,6 +214,118 @@ def probe_d(torch, cs, _cuda, libs, order, use, args, card, dev, sync):
             del x
 
 
+def probe_trace(torch, cs, api, card, dev, sync, idle: float) -> None:
+    """--trace: the device events torch.profiler keeps of one flagship call
+    as the process ages, by how the session starts."""
+    import json
+    import tempfile
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from lora_tpu_torch.utils import trace
+
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}",
+          flush=True)
+    t_start = time.perf_counter()
+    cfg = cs.flagship_cfg()
+    bank, _ = cs.make_bank(api, cfg, cs.B_FLAGSHIP, cs.SIGMA, cs.SEED, dev)
+    call = lambda: api.demodulate(bank, cfg, fused="auto")
+    call()
+    sync()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    spin = 40_000_000  # cycles: about 20 ms at the H100's 1.98 GHz
+    one = torch.ones(1, device=dev)
+
+    def launches(n):
+        for _ in range(n):
+            one.add_(0)
+        sync()
+
+    def empty_session():
+        with profile(activities=acts):
+            pass
+
+    before = {
+        "nothing": lambda: None,
+        "launch+sync": lambda: launches(1),
+        "32 launches+sync": lambda: launches(32),
+        "256 launches+sync": lambda: launches(256),
+        "sleep 20 ms": lambda: time.sleep(20e-3),
+        "spin 20 ms": lambda: torch.cuda._sleep(spin),
+    }
+    young = {}
+
+    def kept(path, how):
+        """Print what the trace kept; -> its device events' names."""
+        with open(path) as f:
+            ev = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+        dev_ev = sorted((e for e in ev if e.get("cat") in (
+            "kernel", "gpu_memcpy", "gpu_memset")), key=lambda e: e["ts"])
+        names = [e["name"][:32] for e in dev_ev]
+        abc = {k: sum(f"{k}_kernel" in n for n in names)
+               for k in ("detect", "track", "payload")}
+        # the CUDA runtime's events against the op that made them, and the
+        # device's against their launch (the trace's clocks apart)
+        ops = {e["args"]["External id"]: e["ts"] for e in ev
+               if e.get("cat") == "cpu_op" and "External id" in e.get("args",
+                                                                      {})}
+        rt = [e for e in ev if e.get("cat") in ("cuda_runtime", "cuda_driver")]
+        gap = sorted(e["ts"] - ops[e["args"]["External id"]] for e in rt
+                     if e.get("args", {}).get("External id") in ops)
+        corr = lambda e: e.get("args", {}).get("correlation")
+        by_corr = {corr(e): e["ts"] for e in rt}
+        lag = sorted(e["ts"] - by_corr[corr(e)] for e in dev_ev
+                     if corr(e) in by_corr)
+        first = min(e["ts"] for e in ev)
+        q = lambda v: (f"{v[0]:.1f} / {v[len(v) // 2]:.1f}" if v else "none")
+        print(f"  {how}: {len(dev_ev)} device events, kernels {abc}; runtime "
+              f"event after its op (least / median) {q(gap)} us; device "
+              f"event after its launch {q(lag)} us; first device event "
+              f"{(dev_ev or ev)[0]['ts'] - first:.1f} us into the trace",
+              flush=True)
+        ref = young.setdefault(how, names)
+        if names != ref:
+            missing, j = [], 0
+            for i, n in enumerate(ref):
+                if j < len(names) and names[j] == n:
+                    j += 1
+                else:
+                    missing.append(f"{i}:{n}")
+            print(f"    missing against the first round (position in time: "
+                  f"name): {missing}", flush=True)
+
+    def session(tmp, how, first):
+        if how == "hook":
+            with trace.profile(tmp):
+                call()
+                sync()
+        else:
+            if how == "after an empty session":
+                empty_session()
+            with profile(activities=acts) as prof:
+                first()
+                call()
+                sync()
+            prof.export_chrome_trace(os.path.join(tmp, "t.pt.trace.json"))
+        (name,) = os.listdir(tmp)
+        kept(os.path.join(tmp, name), how)
+
+    def rounds(when):
+        age = time.perf_counter() - t_start
+        print(f"{when} (process {age:.0f} s) [{card}]", flush=True)
+        for how, first in [("hook", None), *before.items(),
+                           ("after an empty session", lambda: None)]:
+            with tempfile.TemporaryDirectory() as tmp:
+                session(tmp, how, first)
+
+    rounds("at the start")
+    time.sleep(idle)
+    rounds(f"after {idle:.0f} s idle")
+    time.sleep(2 * idle)
+    rounds(f"after {2 * idle:.0f} s more")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--resources", action="store_true")
@@ -209,6 +333,7 @@ def main() -> int:
     ap.add_argument("--kernels", default="abcd")
     ap.add_argument("--against", action="append", default=[])
     ap.add_argument("--runs", type=int, default=7)
+    ap.add_argument("--trace", type=float, default=None)
     args = ap.parse_args()
 
     import torch
@@ -217,14 +342,18 @@ def main() -> int:
         raise SystemExit("torch_kernel_probe: no CUDA device")
     import chip_smoke as cs
     from lora_tpu_torch import api
+    from lora_tpu_torch.benchmarks import card_line
     from lora_tpu_torch.ops import _cuda, cuda_demod, cuda_detect
     from lora_tpu_torch.ops import detect as det_ops
 
     cs.RUNS = args.runs
-    card = cs.card_line()
+    card = card_line()
     print(card, flush=True)
     dev = torch.device("cuda", 0)
     sync = torch.cuda.synchronize
+    if args.trace is not None:
+        probe_trace(torch, cs, api, card, dev, sync, args.trace)
+        return 0
     tree_csrc, tree_headers = _cuda.CSRC, _cuda.HEADERS
     if args.resources:
         for d in [tree_csrc, *args.against]:
