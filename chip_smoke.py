@@ -158,18 +158,21 @@
       record printed, value > 0, every rung present with its median, min
       and max, the bf16 decision check ok; each rung's run counted from 0
       (A, B, C on the "auto" rungs, no kernel on the "off" rung);
-   b. kernel D's bf16 route (the direct sum at every K, FIR output and
-      twiddles rounded to bfloat16) against filterbank_fir_plain
-      at the config-3 shape and at K = 16 and 192, with a state and with
-      none: at least 99% of the samples within 1e-5 of the peak and all
-      within 1e-2 (a float32 step of the FIR output can move its bfloat16
-      rounding by one step), and whether bit-equal; within lora_tpu's bf16
-      bar, 3e-2, of the float32 kernel; channelized_demodulate(fused=
-      "bf16") on the config-3 bank: all 8,192 frames found and byte-exact,
-      kernels D, A, B, C launched, the occupied channels' fields that
-      differ from fused="auto" counted; times of kernel D bf16 against its
-      plain version and the float32 route, and of the bf16 path beside
-      "auto";
+   b. kernel D's bf16 route (route 3: the FIR output rounded to bfloat16,
+      the IDFT by the rounded matrix on the tensor cores, float32 sums)
+      against filterbank_fir_plain at the config-3 shape and at K = 16,
+      192 and 1024, with a state and with none: at least 99% of the
+      samples within 1e-5 of the peak and all within 1e-2 (a float32 step
+      of the FIR output can move its bfloat16 rounding by one step, and
+      the tensor cores sum in another order), and whether bit-equal;
+      within lora_tpu's bf16 bar, 3e-2, of the float32 kernel;
+      channelized_demodulate(fused="bf16") on the config-3 bank: all 8,192
+      frames found and byte-exact, kernels D, A, B, C launched, the
+      occupied channels' fields that differ from fused="auto" counted;
+      times of kernel D bf16 against its plain version and the float32
+      route, of the bf16 path beside "auto", and, as a yardstick of the
+      IDFT alone, of torch.matmul on the bf16 [S*M, 2K] x [2K, 2K] real
+      product;
    c. utils.trace.profile around one flagship demodulate(fused="auto")
       call: the Chrome trace names kernels A, B and C once each (the
       session's opening launches took torch.profiler's drop of its first
@@ -184,7 +187,8 @@ from 0 on every path; the error against the plain version, the kernel's,
 the plain version's and, for kernel E, one PyTorch call's time, and the
 bound: the larger of the bytes each input and output must move over 3.35
 TB/s and the float32 operations over 67 TFLOP/s; kernel D's row carries
-its bf16 route's error, times and bound under "bf16"; every other number
+its bf16 route's error, times, bound, route and the matmul yardstick
+under "bf16"; every other number
 of a row is measured in this run), then {"ok": true, "device": {...}}
 last.  Any failure raises and exits non-zero.  Imports no jax.
 """
@@ -2416,18 +2420,19 @@ def step7(torch, card) -> dict:
 
 # kernel D's bf16 route against filterbank_fir_plain: the FIR
 # output may differ by a float32 step (fused multiply-adds) and then its
-# bfloat16 rounding by one bfloat16 step (tests/test_torch_channelizer.py,
-# BF16_FIR_*): at least BF16_SHARE of the samples within BF16_RTOL of the
-# peak, every sample within BF16_MAX_RTOL of it
+# bfloat16 rounding by one bfloat16 step, and the tensor cores sum the
+# products in another order (tests/test_torch_channelizer.py, BF16_FIR_*):
+# at least BF16_SHARE of the samples within BF16_RTOL of the peak, every
+# sample within BF16_MAX_RTOL of it
 BF16_RTOL = 1e-5
 BF16_SHARE = 0.99
 BF16_MAX_RTOL = 1e-2
 # lora_tpu's bar for its bf16 kernels, absolute, on unit-variance noise
 # (tests/test_pallas_channelize.py:62-65)
 BF16_ATOL = 3e-2
-# (K, streams): the config-3 bank's width, then the direct sum's other
-# widths as step 4a gives them
-BF16_PARITY = ((C3_K, C3_STREAMS), (16, 16), (192, 16))
+# (K, streams): the config-3 bank's width, then other widths as step 4a
+# gives them (192 no power of two, 1024 its matrix streamed from L2)
+BF16_PARITY = ((C3_K, C3_STREAMS), (16, 16), (192, 16), (1024, 2))
 
 
 def bf16_close(torch, chk, what, got, want) -> tuple:
@@ -2494,7 +2499,8 @@ def s8a_bench(torch, sync) -> dict:
 
 def s8b_bf16(torch, dev, card, sync, profile=False):
     """8b: kernel D's bf16 route on config 3.  -> (its check, {path:
-    launches}, {ms, plain_ms, f32_ms}, its bound)."""
+    launches}, {ms, plain_ms, f32_ms, matmul_idft_ms}, its bound and
+    route)."""
     from lora_tpu_torch import api
     from lora_tpu_torch.ops import channelizer as chz
     from lora_tpu_torch.ops import cuda_channelize as cc
@@ -2572,6 +2578,18 @@ def s8b_bf16(torch, dev, card, sync, profile=False):
           f"{cc.route(K, L, True)}), plain {ms['plain_ms']:.3f} ms; the "
           f"float32 kernel {ms['f32_ms']:.3f} ms (route {cc.route(K, L)}) "
           f"(S={S}, K={K}, M={M}) [{card}]", flush=True)
+    # the yardstick of the IDFT alone: one library product of the same
+    # shape and types as route 3's (bf16 [S*M, 2K] x [2K, 2K]); not a
+    # criterion, and not on any path of the port
+    ub = torch.randn((S * M, 2 * K), generator=gen, device=dev).to(
+        torch.bfloat16)
+    wbig = torch.randn((2 * K, 2 * K), generator=gen, device=dev).to(
+        torch.bfloat16)
+    ms["matmul_idft_ms"] = timed(lambda: torch.matmul(ub, wbig), sync)
+    del ub, wbig
+    print(f"time torch.matmul bf16 [{S * M}, {2 * K}] x [{2 * K}, {2 * K}] "
+          f"(the IDFT part alone, a yardstick): {ms['matmul_idft_ms']:.3f} "
+          f"ms [{card}]", flush=True)
     e2e = {}
     for mode in ("bf16", "auto", "auto", "bf16"):
         t_ms = timed(lambda: api.channelized_demodulate(wide, K, cfg,
@@ -2591,6 +2609,7 @@ def s8b_bf16(torch, dev, card, sync, profile=False):
     # and 8K of IDFT on bfloat16 operands (a dense K x K product, the
     # tensor cores' type): bound by its bytes
     bnd = bound(2 * S * K * M * 8, S * K * M * 4 * L, S * K * M * 8 * K)
+    bnd["channelize_route"] = cc.route(K, L, True)
     return chk, {"channelized_demodulate(fused='bf16')": launches}, ms, bnd
 
 
@@ -2741,8 +2760,9 @@ def main() -> int:
         }
         for name in ("detect", "track", "payload", "channelize", "shift")
     ]
-    # kernel D's bf16 route (step 8b): its time against its plain version
-    # and the float32 route's, its error and the direct sum's bound
+    # kernel D's bf16 route (step 8b, route 3): its time against its plain
+    # version and the float32 route's, its error, its bound and the matmul
+    # yardstick of its IDFT
     row_d = next(k for k in kernels if k["name"] == "channelize")
     row_d["bf16"] = {"max_abs_err": chk16.max_abs_err, **ms16, **bound16}
     print(json.dumps({"kernels": kernels}), flush=True)

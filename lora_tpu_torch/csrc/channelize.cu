@@ -38,9 +38,9 @@
 // shared memory and L1, 128 bytes a clock on each SM: the FIR reads L
 // staged samples (8L bytes) and L taps for each output sample.
 //
-// Two routes, chosen by K alone (lora_channelize_route):
+// Three routes, chosen by K and the bf16 flag alone (lora_channelize_route):
 //
-// 1. K a power of two from 8 to 1024: channelize_fft_kernel<log2 K, LT>.  A
+// 1. float32, K a power of two from 8 to 1024: channelize_fft_kernel<log2 K, LT>.  A
 //    block owns one stream's tile of TM output samples.  It stages the
 //    TM + L - 1 rows of K samples it needs in shared memory, once, by
 //    cp.async, so that every load of the tile is in flight at once and none
@@ -63,39 +63,95 @@
 //    exchange buffer one padding row per run, which keeps both conflict-free.
 //    The exchange buffer lies over the staged rows (a barrier between the
 //    FIR and the exchange), so shared memory is what the rows take.
-// 2. every other K (24, 192, ...): channelize_kernel, the direct sum over q,
-//    8K flop a sample, bound by its float32 arithmetic (4.6 ms for the bank
-//    above when it was the only route).  Each thread keeps a register tile
+// 2. float32, every other K (24, 192, ...): channelize_kernel, the direct
+//    sum over q, 8K flop a sample, bound by its float32 arithmetic (4.6 ms
+//    for the bank above when it was the only route).  Each thread keeps a register tile
 //    of kKB channels x kMB samples, so one u value loaded from shared memory
 //    serves kKB complex multiply-adds and one twiddle serves kMB; the
 //    twiddle index steps by -k per q with one conditional wrap.
 //
-// bf16 (channelize(bf16=True)): the JAX package's factorized kernel with
-// bf16=True (pallas_channelize.py:296-330) rounds the float32 FIR output u
-// and its IDFT matrix to bfloat16 and accumulates their products in float32.
-// Route 1's transform has no matrix to round (a product of rounded pass
-// twiddles is not a rounded W), so bf16 takes route 2 for every K: each FIR
-// output and each staged twiddle is rounded to bfloat16 (nearest even, re
-// and im apart) and back, and the IDFT multiplies the values the TPU kernel
-// multiplies (but for W's zeros, cos and sin at multiples of pi/2: below
-// 1e-12 in both tables, reduced from their angles in another order).  A
-// product of two bfloat16 values is exact in float32, so only the order of
-// the sums differs from the TPU kernel.  The route does its 4L + 8K flop a
-// sample on the float32 cores at every K, powers of two included, and is
-// held by them: 4.73 ms for the bank above, against route 1's 1.22 ms in
-// float32 (NVIDIA H100 80GB HBM3, 700.00 W, chip_smoke.py step 8b).  The
-// work itself is bound by its bytes (0.80 ms there): its IDFT is a dense
-// K x K product of bfloat16 operands with float32 sums, the tensor cores'
-// type.  A wgmma route for bf16 is the design that would approach that
-// bound; this one is the simple kernel that is right.
+// 3. bf16 (channelize(bf16=True)), every K: channelize_mma_kernel<NG, LT>.
+//    The JAX package's factorized kernel with bf16=True (_filterbank_fir,
+//    pallas_channelize.py:296-330) rounds the float32 FIR output u and its
+//    IDFT matrix to bfloat16 and sums their products in float32: one real
+//    product [Yr; Yi] = Wbig . [Ur; Ui] (_fir_idft_consts' W_big, [2K,
+//    2K]) in the tensor cores' own type.  Here it is mma.sync m16n8k16
+//    (bf16 in, float32 sums) by the rounded matrix of
+//    cuda_channelize.idft_flipped(K), W'[q, k] = bf16(W[K-1-q, k]), bit for
+//    bit the JAX package's.  A block owns one stream's tile of TM output
+//    samples and every channel:
+//    - K is padded to KW, a multiple of 16: zero rows and columns of the
+//      real matrix and zero phases of u, which add exact zeros.
+//    - FIR on the CUDA cores in route 2's arithmetic: u = h[L-1] x[m], then
+//      fmaf(h[L-1-d], x[m+d], u) for d = 1 .. L-1, so u is bit-equal to
+//      filterbank_fir_plain's.  A thread item is one phase q and kFirRun
+//      consecutive samples; it loads the kFirRun + L - 1 stream rows it
+//      needs straight into registers (all in flight at once, lanes along q:
+//      256 contiguous bytes a warp load) and slides the taps over them, so
+//      a row is read (kFirRun + L - 1) / kFirRun = 1.9 times from L1, not L
+//      times from shared memory.  u goes to shared memory as bf16 pairs
+//      (re, im), nearest even: ub[m][q], row stride KW + kUbPad words, the
+//      product's contraction axis with re and im interleaved (column 2q re,
+//      2q + 1 im).
+//    - IDFT: D[2 KW, TM] = A . B, B = ub read by ldmatrix.x2 (a k-step's
+//      two 8 x 8 halves for 8 samples; the 8 rows of a matrix fall into 8
+//      bank quads since (KW + kUbPad) / 4 is odd), A = Wbig packed on the
+//      host in fragment order (cuda_channelize.idft_packed): tile (t, ks),
+//      lane l holds one uint4, one coalesced 16-byte load from L2 (L1 at
+//      small K).  A warp item is two A tiles (16 channels) by NG n-tiles of
+//      8 samples: 2 NG accumulators of 4 floats over the KW / 8 k-steps.
+//    - Rows of Wbig: A tile t holds channels 8t .. 8t + 7, their real parts
+//      in rows 0-7 and their imaginary parts in rows 8-15.  So lane (g, i)
+//      = (l / 4, l % 4) holds {(Wr, -Wi), (Wi, Wr)} of (q, k) = (8 ks + i,
+//      8t + g), then of q + 4, and its accumulators c0..c3 are Re y[k, n],
+//      Re y[k, n+1], Im y[k, n], Im y[k, n+1] for n = 2i: one float4 store
+//      (two float2 where M is odd), and a quad writes 64 contiguous bytes
+//      of one channel row.
+//    - TM: 256 at KW <= 32, 128 at KW <= 64, else 64, halved while ub takes
+//      more than half of shared memory (two blocks an SM) down to 32, then
+//      while it does not fit: K = 64 128 (34.8 KB), 256 64, 512 and 1024 32
+//      (131.6 KB at 1024), 2048 16.  Every K up to 7,248 fits at TM = 8,
+//      so every width route 2 took for bf16 (up to 5,810 at L = 1).
+//    Wbig at K >= 128 (128 KB; 8 MB at K = 1024) does not fit in shared
+//    memory beside the tile, so each block streams it from L2 in k-steps:
+//    8 KW^2 bytes a tile, 8 K / TM bytes an output sample (4 at config 3;
+//    256 at K = 1024, TM = 32: 8.6 GB of L2 reads for 2^25 samples).
+//    Splitting the channels over blocks instead, each keeping a slice of
+//    Wbig in shared memory (16 channels: 128 KB at K = 1024) and re-reading
+//    the FIR's rows, reads 8 K / 16 = 512 bytes a sample of L2 for the rows
+//    alone, twice as many: so the first.  Bound on the H100: 16 bytes of
+//    device memory a sample, as routes 1 and 2, and 8K bf16 flop a sample
+//    on the tensor cores (0.087 ms at config 3; at K = 1024 0.26 ms for
+//    2^25 samples, above their 0.16 ms of bytes).  The tensor cores sum in
+//    another order than a float32 loop, so y is not bit-equal to the plain
+//    version's (within 3.3e-6 of the peak in chip_smoke.py step 8b).
+//    Measured (NVIDIA H100 80GB HBM3, 700.00 W; tools/torch_kernel_probe.py
+//    --sizes, route 3 in turns with the copy before it, whose bf16 flag took
+//    route 2 at every K): the bank above 1.179 ms against 4.580 (route 1 in
+//    float32 1.230 in the same call); 2^25 samples, L = 8, route 3 / the
+//    old route 2 / float32: K = 8 0.462 / 0.455 / 0.217 ms, 16 0.345 /
+//    0.535 / 0.237, 32 0.326 / 0.669 / 0.252, 64 0.348 / 0.997 / 0.297, 128
+//    0.373 / 1.649 / 0.299, 256 0.446 / 3.290 / 0.283, 512 0.635 / 5.686 /
+//    0.382, 1024 1.353 / 12.767 / 0.440, 24 0.386 / 0.619 / 0.632, 192
+//    0.417 / 2.225 / 2.275.  Tried and not kept (in turns, one call each):
+//    __launch_bounds__(256, 3), at most 85 registers, 1.326 against 1.155
+//    ms at config 3 and 3.589 against 1.421 at K = 1024 (faster only at K <=
+//    64 on 2^25 samples: K = 8 0.395 against 0.464); TM = 128 at KW > 64,
+//    K = 128 0.382 and 0.409 against 0.357 and 0.382 at 64, K = 192 0.441
+//    and 0.450 against 0.393 and 0.417; TM = 16 at K = 1024 (twice the L2
+//    reads of Wbig, two blocks an SM) 1.384 against 1.421, so those reads
+//    are not what holds K = 1024 there (not separated: no ncu); the next
+//    k-step's A loaded a step ahead, 1.349 against 1.349 at K = 1024 and
+//    1.179 against 1.190 at config 3.
 //
 // The dense form of the JAX package (about 8*(L+G-1)*K flop per sample) is
 // the plain version's matrix product, not this kernel's.  The float32
 // routes use no wgmma or TMA: a float32 product on the tensor cores would
 // round its operands to TF32.
 //
-// Measured (NVIDIA H100 80GB HBM3, 700.00 W; 256 streams x 64 channels x
-// 10,240 samples, L = 8, no history; every row one call, in turns): the
+// Measured, the float32 routes (NVIDIA H100 80GB HBM3, 700.00 W; 256
+// streams x 64 channels x 10,240 samples, L = 8, no history; every row one
+// call, in turns): the
 // direct sum alone 4.60 ms, 5.73 with the concatenation it needed; route 1
 // with the rows staged through registers one load at a time 1.50 ms; eight
 // loads in flight a thread 1.27; cp.async 1.19; the FIR loop unrolled in full
@@ -377,16 +433,6 @@ int direct_tile(int K, int L) {
   return smem_bytes(K, L, TM) <= kMaxSmem ? TM : 0;
 }
 
-// x rounded to bfloat16 (nearest even) and back, where kBf16.
-template <bool kBf16>
-__device__ __forceinline__ float2 operand(float2 v) {
-  if constexpr (kBf16)
-    return make_float2(__bfloat162float(__float2bfloat16_rn(v.x)),
-                       __bfloat162float(__float2bfloat16_rn(v.y)));
-  return v;
-}
-
-template <bool kBf16>
 __global__ void __launch_bounds__(kThreads)
 channelize_kernel(const float2* __restrict__ hist, long long sH,
                   const float2* __restrict__ x, long long sX, int K, int L,
@@ -408,7 +454,7 @@ channelize_kernel(const float2* __restrict__ hist, long long sH,
   const Stream st{hist != nullptr ? hist + s * sH : nullptr, x + s * sX,
                   (long long)L * K - 1};
 
-  for (int i = tid; i < K; i += kThreads) wsh[i] = operand<kBf16>(wk[i]);
+  for (int i = tid; i < K; i += kThreads) wsh[i] = wk[i];
   const long long g0 = m0 * K;  // the tile's first sample of the stream
   for (int i = tid; i < rows * K; i += kThreads) {
     const int r = i / K;
@@ -436,7 +482,7 @@ channelize_kernel(const float2* __restrict__ hist, long long sH,
       u.x = fmaf(h, v.x, u.x);
       u.y = fmaf(h, v.y, u.y);
     }
-    ut[i] = operand<kBf16>(u);
+    ut[i] = u;
   }
   __syncthreads();
 
@@ -490,7 +536,7 @@ channelize_kernel(const float2* __restrict__ hist, long long sH,
 
 int launch_direct(const float2* hist, long long sH, const float2* x,
                   long long sX, long long S, int K, int L, long long M,
-                  const float* hp, const float2* wk, float2* y, bool bf16,
+                  const float* hp, const float2* wk, float2* y,
                   cudaStream_t stream) {
   const int TM = direct_tile(K, L);
   if (TM == 0) return (int)cudaErrorInvalidValue;
@@ -498,38 +544,252 @@ int launch_direct(const float2* hist, long long sH, const float2* x,
   const long long tiles = (M + TM - 1) / TM;
   const long long blocks = S * tiles;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  auto kernel = bf16 ? channelize_kernel<true> : channelize_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      channelize_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  channelize_kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
+      hist, sH, x, sX, K, L, M, TM, ilog2(TM), tiles, hp, wk, y);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// route 3: bf16, the FIR on the CUDA cores and the IDFT on the tensor cores
+// (the design and its numbers: item 3 at the top of this file)
+// ---------------------------------------------------------------------------
+
+constexpr int kMmaThreads = 256;
+constexpr int kFirRun = 8;  // consecutive samples of one phase a FIR item
+constexpr int kUbPad = 4;   // words after each row of ub
+
+// K padded to whole A tiles of 8 channels, in pairs
+__host__ __device__ constexpr int mma_width(int K) { return (K + 15) & ~15; }
+
+inline size_t mma_smem(int K, int TM) {
+  return sizeof(unsigned) * (size_t)TM * (mma_width(K) + kUbPad);
+}
+
+// Output samples per block for K, 0 where no tile fits.
+int mma_tile(int K) {
+  int TM = mma_width(K) <= 32 ? 256 : mma_width(K) <= 64 ? 128 : 64;
+  while (TM > 32 && mma_smem(K, TM) > kMaxSmem / 2) TM /= 2;
+  while (TM > 8 && mma_smem(K, TM) > kMaxSmem) TM /= 2;
+  return mma_smem(K, TM) <= kMaxSmem ? TM : 0;
+}
+
+// Sample i of the stream, read once through L1.
+__device__ __forceinline__ float2 sample(const Stream& st, long long i) {
+  if (i >= st.n_hist) return __ldg(st.x + (i - st.n_hist));
+  if (st.hist != nullptr) return __ldg(st.hist + i);
+  return make_float2(0.f, 0.f);
+}
+
+// (re, im) rounded to bfloat16, nearest even, re in the low half.
+__device__ __forceinline__ unsigned pack_bf16(float2 u) {
+  const __nv_bfloat162 b = __floats2bfloat162_rn(u.x, u.y);
+  return *reinterpret_cast<const unsigned*>(&b);
+}
+
+__device__ __forceinline__ void ldmatrix_x2(unsigned& r0, unsigned& r1,
+                                            unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(addr));
+}
+
+// d += A . B for one 16 x 16 A fragment and one 16 x 8 B fragment
+__device__ __forceinline__ void mma_bf16(float* d, const uint4& a,
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
+}
+
+template <int NG, int LT>
+__global__ void __launch_bounds__(kMmaThreads, 2)
+channelize_mma_kernel(const float2* __restrict__ hist, long long sH,
+                      const float2* __restrict__ x, long long sX, int K,
+                      int taps, long long M, int TM, long long tiles,
+                      const float* __restrict__ hp,
+                      const uint4* __restrict__ wb, float2* __restrict__ y) {
+  extern __shared__ unsigned ub[];  // [TM][KW + kUbPad] bf16 (re, im)
+  const int KW = mma_width(K);
+  const int SW = KW + kUbPad;
+  const int L = LT > 0 ? LT : taps;  // a literal where the loop is unrolled
+  const int tid = threadIdx.x;
+  const long long s = blockIdx.x / tiles;
+  const long long m0 = (blockIdx.x - s * tiles) * TM;
+  // rows m0 + r of the stream exist for r < avail
+  const long long avail = M + L - 1 - m0;
+  const Stream st{hist != nullptr ? hist + s * sH : nullptr, x + s * sX,
+                  (long long)L * K - 1};
+  const float2 zero = make_float2(0.f, 0.f);
+
+  // FIR: item (run, q) gives u[m0 + r, q] for r in run * kFirRun + [0, kFirRun)
+  for (int i = tid; i < (TM / kFirRun) * KW; i += kMmaThreads) {
+    const int run = i / KW;
+    const int q = i - run * KW;
+    const int r0 = run * kFirRun;
+    unsigned* out = ub + r0 * SW + q;
+    if (q >= K) {  // a padding phase
+#pragma unroll
+      for (int r = 0; r < kFirRun; ++r) out[r * SW] = 0u;
+      continue;
+    }
+    const long long g = (m0 + r0) * K + q;  // row m0 + r0, phase q
+    float2 u[kFirRun];
+    if constexpr (LT > 0) {
+      float h[LT];
+#pragma unroll
+      for (int d = 0; d < LT; ++d) h[d] = __ldg(hp + (LT - 1 - d) * K + q);
+      float2 xr[kFirRun + LT - 1];
+#pragma unroll
+      for (int j = 0; j < kFirRun + LT - 1; ++j)
+        xr[j] = r0 + j < avail ? sample(st, g + (long long)j * K) : zero;
+#pragma unroll
+      for (int r = 0; r < kFirRun; ++r) {
+        u[r] = make_float2(h[0] * xr[r].x, h[0] * xr[r].y);
+#pragma unroll
+        for (int d = 1; d < LT; ++d) {
+          u[r].x = fmaf(h[d], xr[r + d].x, u[r].x);
+          u[r].y = fmaf(h[d], xr[r + d].y, u[r].y);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < kFirRun; ++r) u[r] = zero;
+      for (int d = 0; d < L; ++d) {
+        const float h = __ldg(hp + (L - 1 - d) * K + q);
+#pragma unroll
+        for (int r = 0; r < kFirRun; ++r) {
+          const float2 v = r0 + r + d < avail
+                               ? sample(st, g + (long long)(r + d) * K)
+                               : zero;
+          if (d == 0) {
+            u[r] = make_float2(h * v.x, h * v.y);
+          } else {
+            u[r].x = fmaf(h, v.x, u[r].x);
+            u[r].y = fmaf(h, v.y, u[r].y);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kFirRun; ++r) out[r * SW] = pack_bf16(u[r]);
+  }
+  __syncthreads();
+
+  // IDFT: warp item (pair p, group) = A tiles 2p, 2p + 1 by NG n-tiles
+  const int warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, iq = lane & 3;
+  const int KS = KW / 8;  // k-steps of 16 (8 phases, re and im)
+  const int pairs = KW / 16;
+  const int groups = TM / (8 * NG);
+  const bool even = (M & 1) == 0;
+  // ldmatrix row of this lane (lanes 0-15): sample lane % 8, half lane / 8
+  const unsigned b_lane = (unsigned)__cvta_generic_to_shared(
+      ub + (lane & 7) * SW + ((lane >> 3) & 1) * 4);
+  for (int item = warp; item < pairs * groups; item += kMmaThreads / 32) {
+    const int p = item / groups;
+    const int n0 = (item - p * groups) * 8 * NG;
+    float acc[2][NG][4];
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int nt = 0; nt < NG; ++nt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[t][nt][c] = 0.f;
+    const uint4* a_lo = wb + (size_t)(2 * p) * KS * 32 + lane;
+    const uint4* a_hi = a_lo + (size_t)KS * 32;
+    const unsigned b_at = b_lane + n0 * SW * 4;
+    for (int ks = 0; ks < KS; ++ks) {
+      const uint4 a0 = __ldg(a_lo + ks * 32);
+      const uint4 a1 = __ldg(a_hi + ks * 32);
+#pragma unroll
+      for (int nt = 0; nt < NG; ++nt) {
+        unsigned b0, b1;
+        ldmatrix_x2(b0, b1, b_at + (nt * 8 * SW + ks * 8) * 4);
+        mma_bf16(acc[0][nt], a0, b0, b1);
+        mma_bf16(acc[1][nt], a1, b0, b1);
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      const int k = (2 * p + t) * 8 + gq;
+      if (k >= K) continue;
+      float2* out = y + (s * K + k) * M + m0;
+#pragma unroll
+      for (int nt = 0; nt < NG; ++nt) {
+        const int m = n0 + nt * 8 + 2 * iq;
+        const float* c = acc[t][nt];
+        if (even && m0 + m + 1 < M) {
+          *reinterpret_cast<float4*>(out + m) =
+              make_float4(c[0], c[2], c[1], c[3]);
+        } else {
+          if (m0 + m < M) out[m] = make_float2(c[0], c[2]);
+          if (m0 + m + 1 < M) out[m + 1] = make_float2(c[1], c[3]);
+        }
+      }
+    }
+  }
+}
+
+// Route 3's kernel for NG n-tiles a warp item and filter length L.
+template <int NG>
+auto mma_kernel(int L) {
+  return L == kTapsUnrolled ? channelize_mma_kernel<NG, kTapsUnrolled>
+                            : channelize_mma_kernel<NG, 0>;
+}
+
+int launch_mma(const float2* hist, long long sH, const float2* x,
+               long long sX, long long S, int K, int L, long long M,
+               const float* hp, const uint4* wb, float2* y,
+               cudaStream_t stream) {
+  const int TM = mma_tile(K);
+  if (TM == 0 || L < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = mma_smem(K, TM);
+  const long long tiles = (M + TM - 1) / TM;
+  const long long blocks = S * tiles;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  // NG: 4 wherever TM allows
+  auto kernel = TM >= 32 ? mma_kernel<4>(L)
+                : TM == 16 ? mma_kernel<2>(L) : mma_kernel<1>(L);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
-      hist, sH, x, sX, K, L, M, TM, ilog2(TM), tiles, hp, wk, y);
+  kernel<<<(unsigned)blocks, kMmaThreads, smem, stream>>>(
+      hist, sH, x, sX, K, L, M, TM, tiles, hp, wb, y);
   return (int)cudaGetLastError();
 }
 
 }  // namespace lora
 
-// The route of (K, L): 1 the register FFT (K a power of two from 8 to 1024
-// whose staged rows fit shared memory, in float32), 2 the direct sum (any
-// other K, a filter too long for route 1, or bf16, whose tile fits), 0 none.
+// The route of (K, L): in float32 1 the register FFT (K a power of two from
+// 8 to 1024 whose staged rows fit shared memory), 2 the direct sum (any
+// other K, or a filter too long for route 1, whose tile fits); with bf16 3,
+// the tensor cores' product (any K up to 7,248, any L); 0 none.
 extern "C" int lora_channelize_route(int K, int L, int bf16) {
   using namespace lora;
   if (K < 1 || L < 1) return 0;
-  if (!bf16 && fft_smem_of(K, L) <= kMaxSmem) return 1;
+  if (bf16) return mma_tile(K) > 0 ? 3 : 0;
+  if (fft_smem_of(K, L) <= kMaxSmem) return 1;
   return direct_tile(K, L) > 0 ? 2 : 0;
 }
 
 // Sample i of stream s < S is hist[s*sH + i] for i < L*K - 1 and
 // x[s*sX + i - (L*K - 1)] after (complex64; a null hist reads as zeros); x
 // holds M*K samples a stream.  hp: float32 [L, K].  wk: complex64 [K].
-// y: complex64 [S, K, M].  bf16: the FIR output and the twiddles rounded to
-// bfloat16 before the IDFT (route 2 at every K); last, so that a caller of
-// the float32 entry that passes no flag binds as before.
+// y: complex64 [S, K, M].  bf16 must be 0: the bf16 route takes its matrix
+// through lora_channelize_bf16.  The flag stays last, so that an older
+// caller binds as before.
 extern "C" int lora_channelize(const void* hist, long long sH, const void* x,
                                long long sX, long long S, int K, int L,
                                long long M, const void* hp, const void* wk,
                                void* y, void* stream, int bf16) {
   using namespace lora;
+  if (bf16) return (int)cudaErrorInvalidValue;
   if (S == 0 || M == 0) return 0;
   const float2* h = static_cast<const float2*>(hist);
   const float2* xx = static_cast<const float2*>(x);
@@ -537,9 +797,25 @@ extern "C" int lora_channelize(const void* hist, long long sH, const void* x,
   const float2* w = static_cast<const float2*>(wk);
   float2* out = static_cast<float2*>(y);
   cudaStream_t st = (cudaStream_t)stream;
-  if (lora_channelize_route(K, L, bf16) != 1)
-    return launch_direct(h, sH, xx, sX, S, K, L, M, taps, w, out, bf16 != 0,
-                         st);
+  if (lora_channelize_route(K, L, 0) != 1)
+    return launch_direct(h, sH, xx, sX, S, K, L, M, taps, w, out, st);
   LORA_FOR_BANK_WIDTH(K, (int)cudaErrorInvalidValue, launch_fft, h, sH, xx, sX,
                       S, L, M, taps, w, out, st)
+}
+
+// The bf16 route (3): as lora_channelize, with the FIR output rounded to
+// bfloat16 and the IDFT by wbig, the rounded matrix packed in fragment order:
+// bfloat16 [KW/8][KW/8][32][8], KW = K rounded up to 16
+// (ops/cuda_channelize.idft_packed).
+extern "C" int lora_channelize_bf16(const void* hist, long long sH,
+                                    const void* x, long long sX, long long S,
+                                    int K, int L, long long M, const void* hp,
+                                    const void* wbig, void* y, void* stream) {
+  using namespace lora;
+  if (S == 0 || M == 0) return 0;
+  return launch_mma(static_cast<const float2*>(hist), sH,
+                    static_cast<const float2*>(x), sX, S, K, L, M,
+                    static_cast<const float*>(hp),
+                    static_cast<const uint4*>(wbig), static_cast<float2*>(y),
+                    (cudaStream_t)stream);
 }

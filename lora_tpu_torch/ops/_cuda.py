@@ -50,6 +50,7 @@ _ARGTYPES = {
     "lora_payload": [_P, _L, _L, _I, _L, _I, _I, _P, _P, _P, _P, _F, _F, _P,
                      _P, _P, _P, _P],
     "lora_channelize": [_P, _L, _P, _L, _L, _I, _I, _L, _P, _P, _P, _P, _I],
+    "lora_channelize_bf16": [_P, _L, _P, _L, _L, _I, _I, _L, _P, _P, _P, _P],
     "lora_channelize_route": [_I, _I, _I],
     "lora_shift": [_P, _L, _L, _I, _I, _P, _P, _P],
 }

@@ -5,11 +5,12 @@ filterbank kernels: `_filterbank_fir` (entry `filterbank_fir`, factorized
 FIR + IDFT, channel-major output, for 64 <= K <= 256 with K % 64 == 0 and
 L <= 8) and `_filterbank` (entry `filterbank`, the dense block-Toeplitz
 product, channel-minor output, for the other geometries it fits).  Both
-exist to fit the TPU's lanes and VMEM; one CUDA entry computes the
+exist to fit the TPU's lanes and VMEM; one CUDA source computes the
 factorized form for any K and L whose tile fits shared memory and writes
 the channel-major [S, K, M] that the demod bank reads.  It picks its route
-by K: a register FFT for the powers of two from 8 to 1024, the direct sum
-over the phases for every other K (`route`).
+by K and the bf16 flag (`route`): in float32 a register FFT for the powers
+of two from 8 to 1024 (1) and the direct sum over the phases for every
+other K (2); with bf16 the tensor cores' product at every K (3).
 
 The kernel reads the filter history and the block through two pointers, so
 the wrapper `filterbank` takes them apart, (x, state), and nothing
@@ -19,13 +20,26 @@ product, corner turn) over the concatenated stream.  The wrapper takes it
 only for a tensor on the CPU; for a CUDA tensor it launches the kernel or
 raises.
 
-With bf16=True the kernel takes its direct-sum route at every K and rounds
-the FIR output and the twiddles to bfloat16, as the JAX package's
-`_filterbank_fir` rounds its FIR output and IDFT matrix on a TPU.  Its
-plain version is `filterbank_fir_plain`, the factorized form with the same
-roundings, which the tests and chip_smoke.py hold it against.  For a CPU
-tensor the wrapper gives what the JAX package gives off a TPU, the plain
-product with both operands rounded (`filterbank_plain(..., bf16=True)`).
+With bf16=True the kernel computes what the JAX package's `_filterbank_fir`
+computes on a TPU with bf16=True: the float32 FIR output u rounded to
+bfloat16 (route 2's fmaf chain, so u is bit-equal to the plain version's),
+then the K-point IDFT as one real product on the tensor cores
+(mma.sync m16n8k16, float32 sums) by the rounded matrix
+`idft_flipped(K)`, which `idft_packed` lays out in the order the kernel's
+A fragments load it: each 16-row tile holds 8 channels' real parts over
+their imaginary parts, and K is padded with zeros to a multiple of 16.  Its
+plain version is `filterbank_fir_plain`, the same roundings and one float32
+matrix product, which the tests and chip_smoke.py hold it against (within
+the BF16_* bars: the tensor cores sum in another order).  For a CPU tensor
+the wrapper gives what the JAX package gives off a TPU, the plain product
+with both operands rounded (`filterbank_plain(..., bf16=True)`).
+
+Route 3 replaced the direct sum with rounded operands that bf16 took at
+every K before (route 2 on the float32 cores).  At config 3 (S = 256, K =
+64, M = 10,240) it reads 1.179 ms against that route's 4.580 in one call
+(tools/torch_kernel_probe.py, NVIDIA H100 80GB HBM3, 700.00 W), as fast as
+the float32 route 1; the other widths, and what was tried and not kept,
+are in channelize.cu's header (route 3) and in PERF.md.
 """
 
 from __future__ import annotations
@@ -42,9 +56,9 @@ from .channelizer import _grouped_rows, bank_product, default_group, prepended
 @functools.lru_cache(maxsize=None)
 def route(K: int, taps_per_phase: int, bf16: bool = False) -> int:
     """The route kernel D takes for (K, L) (csrc/channelize.cu,
-    lora_channelize_route): 1 the register FFT, 2 the direct sum (every K
-    with bf16).  Raises ValueError when no tile fits shared memory.  Needs
-    the built library."""
+    lora_channelize_route): in float32 1 the register FFT, 2 the direct
+    sum; with bf16 3, the tensor cores' product (every K).  Raises
+    ValueError when no tile fits shared memory.  Needs the built library."""
     r = _cuda.library().lora_channelize_route(K, taps_per_phase, int(bf16))
     if r == 0:
         raise ValueError(f"channelize kernel: no tile fits K={K}, "
@@ -88,6 +102,33 @@ def idft_flipped(K: int, device: torch.device) -> torch.Tensor:
     return cplx.round_bf16(w).to(device)
 
 
+def mma_width(K: int) -> int:
+    """K padded to whole pairs of 8-channel A tiles: the width of route 3's
+    real product (channelize.cu mma_width)."""
+    return -(-K // 16) * 16
+
+
+@functools.lru_cache(maxsize=None)
+def idft_packed(K: int, device: torch.device) -> torch.Tensor:
+    """Route 3's matrix: bfloat16 [KW/8, KW/8, 32, 8], KW = mma_width(K),
+    the real form Wbig of idft_flipped(K) (zero past K) in mma.sync's A
+    fragment order.  Tile t holds channels 8t .. 8t+7, their real parts in
+    rows 0-7 and imaginary parts in rows 8-15; k-step ks holds phases
+    8ks .. 8ks+7, re and im interleaved.  Lane l = 4g + i of tile (t, ks)
+    holds (Wr, -Wi, Wi, Wr) of W'[q, k] at (q, k) = (8ks + i, 8t + g), then
+    at q + 4: its registers a0a1, a2a3, a4a5, a6a7, one 16-byte load."""
+    KW = mma_width(K)
+    w = torch.zeros((KW, KW), dtype=torch.complex64)
+    w[:K, :K] = idft_flipped(K, torch.device("cpu"))
+    n = KW // 8
+    lane = torch.arange(32)
+    k = 8 * torch.arange(n)[:, None, None] + (lane // 4)[None, None, :]
+    q = 8 * torch.arange(n)[None, :, None] + (lane % 4)[None, None, :]
+    a, b = w[q, k], w[q + 4, k]  # [tile, k-step, lane]
+    parts = (a.real, -a.imag, a.imag, a.real, b.real, -b.imag, b.imag, b.real)
+    return torch.stack(parts, -1).to(torch.bfloat16).to(device)
+
+
 def filterbank_fir_plain(xp: torch.Tensor, K: int, taps_per_phase: int,
                          M: int) -> torch.Tensor:
     """Kernel D's bf16 route in plain PyTorch, the factorized form with
@@ -121,7 +162,8 @@ def filterbank(x: torch.Tensor, K: int, taps_per_phase: int,
     """Kernel D wrapper: the block x [..., M*K] after the filter history
     state [..., L*K - 1] (None: zeros) -> channel-major y [..., K, M], what
     filterbank_plain gives for prepended(x, state, L*K - 1).  With bf16 the
-    kernel computes what filterbank_fir_plain gives, and a CPU tensor gets
+    kernel (route 3) computes what filterbank_fir_plain gives, up to the
+    order of its float32 sums, and a CPU tensor gets
     filterbank_plain(..., bf16=True), as channelize does."""
     L = taps_per_phase
     *lead, T = x.shape
@@ -156,13 +198,19 @@ def filterbank(x: torch.Tensor, K: int, taps_per_phase: int,
         x2 = rows(x, T)
         h2 = None if state is None else rows(state, hist)
         hp, wk = consts(K, L, dev)
-        err = _cuda.library().lora_channelize(
-            None if h2 is None else h2.data_ptr(),
-            0 if h2 is None else h2.stride(0), x2.data_ptr(), x2.stride(0),
-            S, K, L, M, hp.data_ptr(), wk.data_ptr(), y.data_ptr(),
-            _cuda.stream(dev), int(bf16),
-        )
-        _cuda.check(err, "lora_channelize")
+        args = (None if h2 is None else h2.data_ptr(),
+                0 if h2 is None else h2.stride(0), x2.data_ptr(),
+                x2.stride(0), S, K, L, M, hp.data_ptr())
+        lib = _cuda.library()
+        if bf16:
+            err = lib.lora_channelize_bf16(
+                *args, idft_packed(K, dev).data_ptr(), y.data_ptr(),
+                _cuda.stream(dev))
+            _cuda.check(err, "lora_channelize_bf16")
+        else:
+            err = lib.lora_channelize(*args, wk.data_ptr(), y.data_ptr(),
+                                      _cuda.stream(dev), 0)
+            _cuda.check(err, "lora_channelize")
         filterbank.launches += 1
     return y.reshape(*lead, K, M)
 

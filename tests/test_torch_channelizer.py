@@ -637,10 +637,9 @@ def test_filterbank_fir_plain_bf16_within_dense_kernel_bar():
 @pytest.mark.parametrize("K", [16, 64, 128, 192])
 def test_bf16_idft_matrix_matches_jax(K):
     """The plain version's rounded IDFT matrix is lora_tpu's
-    _fir_idft_consts matrix after astype(bfloat16), bit for bit; kernel D's
-    bf16 route rounds its twiddle table to the same values, but for the
-    matrix's zeros (cos and sin at multiples of pi/2, below 1e-12 in both,
-    from angles reduced in another order)."""
+    _fir_idft_consts matrix after astype(bfloat16), bit for bit; so is the
+    matrix kernel D's bf16 route multiplies (idft_packed), entry by entry
+    of W_big = [[Wt_re, -Wt_im], [Wt_im, Wt_re]]."""
     _, wb = jpc._fir_idft_consts(K, 8)
     w16 = np.asarray(jnp.asarray(wb).astype(jnp.bfloat16).astype(jnp.float32))
     w = cc.idft_flipped(K, torch.device("cpu"))
@@ -648,14 +647,17 @@ def test_bf16_idft_matrix_matches_jax(K):
     np.testing.assert_array_equal(w16[:K, :K], w.real.numpy().T)
     np.testing.assert_array_equal(w16[K:, :K], w.imag.numpy().T)
     np.testing.assert_array_equal(w16[:K, K:], -w.imag.numpy().T)
-    _, wk = cc.consts(K, 8, torch.device("cpu"))
-    q, k = np.arange(K)[:, None], np.arange(K)[None, :]
-    table = bf16_np(wk.numpy()[((K - 1 - q) * k) % K])
-    w = w.numpy()
-    for a, b in ((table.real, w.real), (table.imag, w.imag)):
-        differ = a != b
-        assert np.abs(a[differ]).max(initial=0) < 1e-12
-        assert np.abs(b[differ]).max(initial=0) < 1e-12
+    packed = cc.idft_packed(K, torch.device("cpu")).float().numpy()
+    lane = np.arange(32)
+    n = cc.mma_width(K) // 8
+    t, ks = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+    for half in (0, 1):
+        q = 8 * ks[..., None] + lane % 4 + 4 * half
+        k = 8 * t[..., None] + lane // 4
+        for j, (r, c) in enumerate(((k, q), (k, K + q), (K + k, q),
+                                    (K + k, K + q))):
+            np.testing.assert_array_equal(packed[..., 4 * half + j],
+                                          w16[r, c])
 
 
 def bf16_np(a):
@@ -664,48 +666,125 @@ def bf16_np(a):
         np.ascontiguousarray(a, np.complex64))).numpy()
 
 
-def direct_route_bf16_model(x, state, K, L, M, hp, wk, TM=32):
-    """channelize_kernel<true> on one stream, in float32 as the kernel
-    computes (the FIR in its tap order, its fmaf steps as one float32
-    rounding of a float64 sum): the FIR output and the twiddle table
-    rounded to bfloat16, then the direct sum with the kernel's index
-    recurrence."""
+# route 3 (channelize_mma_kernel): its constants, read from the source
+MMA_THREADS = int(re.search(r"kMmaThreads = (\d+);", CHANNELIZE_CU).group(1))
+FIR_RUN = int(re.search(r"kFirRun = (\d+);", CHANNELIZE_CU).group(1))
+UB_PAD = int(re.search(r"kUbPad = (\d+);", CHANNELIZE_CU).group(1))
+
+
+def mma_tile(K):
+    """channelize.cu mma_tile: output samples a block of route 3 owns."""
+    KW = cc.mma_width(K)
+    smem = lambda TM: 4 * TM * (KW + UB_PAD)
+    TM = 256 if KW <= 32 else 128 if KW <= 64 else 64
+    while TM > 32 and smem(TM) > MAX_SMEM // 2:
+        TM //= 2
+    while TM > 8 and smem(TM) > MAX_SMEM:
+        TM //= 2
+    return TM if smem(TM) <= MAX_SMEM else 0
+
+
+def a_tiles(wb):
+    """The A fragments of idft_packed as [tile, k-step, 16, 16] float64, by
+    mma.m16n8k16's layout: register pair j of lane 4g + i holds rows g +
+    8 ((j // 2) % 2), columns 2i + j % 2 + 8 (j // 4)."""
+    n = wb.shape[0]
+    a = np.full((n, n, 16, 16), np.nan)
+    lane = np.arange(32)
+    g, i = lane // 4, lane % 4
+    for j in range(8):
+        row = g + 8 * ((j // 2) % 2)
+        col = 2 * i + j % 2 + 8 * (j // 4)
+        a[:, :, row, col] = wb[:, :, :, j]
+    assert not np.isnan(a).any()  # every element of every tile held once
+    return a
+
+
+def mma_route_model(x, state, K, L, M, hp, wb):
+    """channelize_mma_kernel<NG, LT> on one stream, in float32 as the kernel
+    computes: tiles of TM output samples (a ragged last one), the stream
+    read across the history seam, the FIR items of FIR_RUN samples in its
+    tap order (fmaf as one float32 rounding of a float64 sum), u rounded to
+    bfloat16 into ub [TM][KW + UB_PAD] (zero phases past K), B fragments by
+    ldmatrix's addresses, A from the packed matrix, float32 sums in blocks
+    of the MMA depth (16), and the accumulators' stores."""
     hist = L * K - 1
-    k = np.arange(K)
-    w = bf16_np(wk.astype(np.complex64)).astype(np.complex128)
-    y = np.zeros((K, M), np.complex128)
+    KW = cc.mma_width(K)
+    SW = KW + UB_PAD
+    TM = mma_tile(K)
+    NG = 4 if TM >= 32 else TM // 8
+    KS, pairs, groups = KW // 8, KW // 16, TM // (8 * NG)
+    assert TM % (8 * NG) == 0 and 4 * TM * SW <= MAX_SMEM
+    A = a_tiles(wb)
+    h = hp.astype(np.float32)
+    fma = lambda a, b, c: (a.astype(np.float64) * b + c).astype(np.float32)
+    lane = np.arange(32)
+    g, i = lane // 4, lane % 4
+    y = np.full((K, M), np.nan, np.complex128)
     for m0 in range(0, M, TM):
-        valid = min(TM + L - 1, M + L - 1 - m0)
-        xs = np.zeros((TM + L - 1, K), np.complex64)
-        xs[:valid] = stream_at(
-            x, state, hist, m0 * K + np.arange(valid * K)).reshape(valid, K)
-        h = hp.astype(np.float32)
-        ur = h[L - 1] * xs[:TM].real
-        ui = h[L - 1] * xs[:TM].imag
-        fma = lambda a, b, c: (a.astype(np.float64) * b + c).astype(
-            np.float32)
-        for d in range(1, L):
-            ur = fma(h[L - 1 - d], xs[d : d + TM].real, ur)
-            ui = fma(h[L - 1 - d], xs[d : d + TM].imag, ui)
-        u = bf16_np(ur + 1j * ui).astype(np.complex128)
-        j = np.where(k == 0, 0, K - k)  # ((K-1)*k) mod K
-        acc = np.zeros((K, TM), np.complex128)
-        for q in range(K):
-            acc += w[j][:, None] * u[None, :, q]
-            j = np.where(j - k < 0, j - k + K, j - k)
-        n = min(TM, M - m0)
-        y[:, m0 : m0 + n] = acc[:, :n]
+        avail = M + L - 1 - m0
+        rows = np.arange(TM + L - 1)
+        idx = (m0 + rows)[:, None] * K + np.arange(K)
+        xs = np.where(rows[:, None] < avail, stream_at(
+            x, state, hist, np.minimum(idx, hist + x.size - 1)),
+            0).astype(np.complex64)
+        ub = np.full((TM, SW), np.nan, np.complex64)
+        for r0 in range(0, TM, FIR_RUN):
+            run = xs[r0 : r0 + FIR_RUN + L - 1]  # the rows an item loads
+            ur = h[L - 1] * run[:FIR_RUN].real
+            ui = h[L - 1] * run[:FIR_RUN].imag
+            for d in range(1, L):
+                ur = fma(h[L - 1 - d], run[d : d + FIR_RUN].real, ur)
+                ui = fma(h[L - 1 - d], run[d : d + FIR_RUN].imag, ui)
+            ub[r0 : r0 + FIR_RUN, :K] = bf16_np(ur + 1j * ui)
+            ub[r0 : r0 + FIR_RUN, K:KW] = 0
+        flat = ub.reshape(-1)
+        acc = np.zeros((2 * KW, TM), np.float32)
+        for item in range(pairs * groups):  # every warp item once
+            p, n0 = item // groups, (item % groups) * 8 * NG
+            for nt in range(NG):
+                for ks in range(KS):
+                    # ldmatrix.x2: lanes 0-15 give the rows of matrices 0, 1
+                    addr = ((n0 + nt * 8 + (lane[:16] & 7)) * SW + ks * 8
+                            + ((lane[:16] >> 3) & 1) * 4)
+                    for mat in (addr[:8], addr[8:]):
+                        assert len(set((mat % 32) // 4)) == 8  # no conflict
+                    words = np.stack([flat[addr[:8][g] + i],
+                                      flat[addr[8:][g] + i]])  # [b01|b23, l]
+                    B = np.zeros((16, 8))
+                    for half in (0, 1):
+                        B[8 * half + 2 * i, g] = words[half].real
+                        B[8 * half + 2 * i + 1, g] = words[half].imag
+                    assert not np.isnan(B).any()
+                    cols = slice(n0 + nt * 8, n0 + nt * 8 + 8)
+                    for t in (2 * p, 2 * p + 1):
+                        r = slice(16 * t, 16 * t + 16)
+                        acc[r, cols] = (acc[r, cols].astype(np.float64)
+                                        + A[t, ks] @ B).astype(np.float32)
+        # the stores: tile t, lane 4g + i: channel 8t + g, samples 2i, 2i + 1
+        for t in range(KW // 8):
+            k = 8 * t + g
+            for n in range(0, TM, 8):
+                c = acc[16 * t : 16 * t + 16, n : n + 8]
+                for dm, (re, im) in enumerate(((c[g, 2 * i], c[g + 8, 2 * i]),
+                                               (c[g, 2 * i + 1],
+                                                c[g + 8, 2 * i + 1]))):
+                    m = m0 + n + 2 * i + dm
+                    keep = (k < K) & (m < M)
+                    assert np.isnan(y[k[keep], m[keep]]).all()
+                    y[k[keep], m[keep]] = re[keep] + 1j * im[keep]
+    assert not np.isnan(y).any()  # every channel of every sample once
     return y
 
 
 @pytest.mark.parametrize("with_state", [True, False])
-@pytest.mark.parametrize("K,L,M", [(16, 8, 300), (64, 8, 130), (192, 8, 70),
-                                   (1024, 4, 19)])
+@pytest.mark.parametrize("K,L,M", [(16, 8, 300), (24, 8, 133), (64, 8, 130),
+                                   (192, 8, 70), (1024, 4, 19)])
 def test_kernel_d_bf16_route_matches_plain(K, L, M, with_state):
-    """Kernel D's bf16 route (the direct sum at every K, powers of two
-    included) replayed in numpy: its FIR, its two roundings and its index
-    recurrence give filterbank_fir_plain within the bars of
-    BF16_FIR_*."""
+    """Kernel D's bf16 route (route 3: the FIR in float32, the IDFT on the
+    tensor cores) replayed in numpy in the kernel's own terms gives
+    filterbank_fir_plain within the bars of BF16_FIR_*, and lora_tpu's
+    factorized kernel with bf16=True (interpret mode) where it takes K."""
     rng = np.random.default_rng(K + 7 * L)
     x = crandn(rng, (2, M * K))
     state = crandn(rng, (2, L * K - 1)) if with_state else None
@@ -713,11 +792,43 @@ def test_kernel_d_bf16_route_matches_plain(K, L, M, with_state):
                        None if state is None else torch.as_tensor(state),
                        L * K - 1)
     want = cc.filterbank_fir_plain(xp, K, L, M).numpy()
-    hp, wk = (t.numpy() for t in cc.consts(K, L, torch.device("cpu")))
-    got = np.stack([direct_route_bf16_model(
-        x[s], None if state is None else state[s], K, L, M, hp, wk)
+    hp, _ = cc.consts(K, L, torch.device("cpu"))
+    wb = cc.idft_packed(K, torch.device("cpu")).float().numpy()
+    got = np.stack([mma_route_model(
+        x[s], None if state is None else state[s], K, L, M, hp.numpy(), wb)
         for s in range(2)])
     bf16_fir_close(got, want)
+    if jpc.fir_geometry(K, L):
+        jy, _ = jchz.channelize(jiq(x), K, L,
+                                state=None if state is None else jiq(state),
+                                impl="fir-interpret", bf16=True)
+        bf16_fir_close(got, jnp_c(jy))
+
+
+@pytest.mark.parametrize("K", [8, 12, 64, 192, 1024])
+def test_packed_idft_matrix_reads_back(K):
+    """idft_packed read back as complex, by the fragment layout it states,
+    is idft_flipped(K) bit for bit, with zeros past K; each lane's
+    (Wr, -Wi, Wi, Wr) pairs agree."""
+    KW = cc.mma_width(K)
+    n = KW // 8
+    wb = cc.idft_packed(K, torch.device("cpu")).float().numpy()
+    assert wb.shape == (n, n, 32, 8) and KW % 16 == 0 and KW - K < 16
+    lane = np.arange(32)
+    g, i = lane // 4, lane % 4
+    t, ks = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+    w = np.full((KW, KW), np.nan, np.complex128)
+    for half in (0, 1):
+        re, mre, im, re2 = (wb[..., 4 * half + j] for j in range(4))
+        np.testing.assert_array_equal(mre, -im)
+        np.testing.assert_array_equal(re2, re)
+        q = 8 * ks[..., None] + i + 4 * half
+        k = 8 * t[..., None] + g
+        assert np.isnan(w[q, k]).all()
+        w[q, k] = re + 1j * im
+    np.testing.assert_array_equal(
+        w[:K, :K], cc.idft_flipped(K, torch.device("cpu")).numpy())
+    assert not w[K:].any() and not w[:, K:].any()
 
 
 def test_channelized_demodulate_bf16_matches_jax():

@@ -16,8 +16,9 @@ Integer outputs must be equal; dB values, f_index and fine_total agree
 within 1e-3 (float32 FFTs of another order).  The inputs are tones and
 chirps with clear peaks, so no window sits on a near tie.  Kernel D's
 channels agree with the plain block-Toeplitz product within 1e-4 of the
-largest output (float32 sums in another order); its bf16 route agrees
-with filterbank_fir_plain within the bars stated there.
+largest output (float32 sums in another order); its bf16 route (the
+tensor cores' product) agrees with filterbank_fir_plain within the bars
+stated there.
 Kernel E is a copy: bit-equal.  Kernel C's mag2 agrees within 1e-4 of each
 window's peak.
 """
@@ -277,10 +278,26 @@ def test_channelize_kernel_matches_plain(dev, K, L, with_state):
         assert err <= D_RTOL * yp.abs().max().item(), (S, err)
 
 
+def direct_tile(K, L):
+    """channelize.cu direct_tile: route 2's tile for (K, L), 0 where none
+    fits (the bf16 flag took route 2 at every such K before route 3)."""
+    threads, mb, kb, max_smem = 256, 2, 8, 232448
+    smem = lambda TM: 8 * (K + (TM + L - 1) * (K + 1) + K * TM)
+    TM = 64
+    while TM < mb * threads and threads * mb // TM > -(-K // kb):
+        TM *= 2
+    while TM > 32 and smem(TM) > max_smem // 2:
+        TM //= 2
+    while TM > mb and smem(TM) > max_smem:
+        TM //= 2
+    return TM if smem(TM) <= max_smem else 0
+
+
 def test_channelize_tile_fits_every_width(dev):
     """The kernel's own choice of route: the register FFT for the powers of
     two from 8 to 1024, the direct sum for every other width up to 1024;
-    none for 4096."""
+    none for 4096.  bf16 takes route 3 at every width the direct sum took
+    for it before, and up to K = 7,248 at any L."""
     for L in (4, 8, 12):
         for K in range(8, 1025, 8):
             want = 1 if K & (K - 1) == 0 else 2
@@ -288,9 +305,14 @@ def test_channelize_tile_fits_every_width(dev):
     assert cuda_channelize.route(24, 8) == 2
     with pytest.raises(ValueError, match="no tile fits"):
         cuda_channelize.route(4096, 8)
-    # bf16 takes the direct sum at every width
-    for K in (8, 16, 24, 64, 192, 1024):
-        assert cuda_channelize.route(K, 8, bf16=True) == 2, K
+    for L, step in ((8, 1), (1, 7), (4, 7), (12, 7)):
+        served = [K for K in range(1, 6000, step) if direct_tile(K, L)]
+        assert served and served[-1] > 1000
+        for K in served:
+            assert cuda_channelize.route(K, L, bf16=True) == 3, (K, L)
+    assert cuda_channelize.route(7248, 8, bf16=True) == 3
+    with pytest.raises(ValueError, match="no tile fits"):
+        cuda_channelize.route(7249, 8, bf16=True)
 
 
 # kernel D's bf16 route against filterbank_fir_plain: the FIR
@@ -304,10 +326,11 @@ BF16_KERNEL_ATOL = 3e-2
 
 
 @pytest.mark.parametrize("with_state", [True, False])
-@pytest.mark.parametrize("K", [8, 16, 24, 64, 128, 192, 1024])
+@pytest.mark.parametrize("K", [8, 12, 16, 24, 40, 64, 128, 192, 1024, 2048])
 def test_channelize_bf16_kernel_matches_plain(dev, K, with_state):
-    """Kernel D's bf16 route (the direct sum at every K) against its plain
-    version on fenced views, one launch; and against the float32 kernel."""
+    """Kernel D's bf16 route (route 3, the IDFT on the tensor cores, at
+    every K: padded at 8, 12, 24, 40) against its plain version on fenced
+    views, one launch; and against the float32 kernel."""
     rng = np.random.default_rng(K * 10 + with_state)
     L, M, S = 8, 517, 2
     x = fenced(crandn(rng, (S, K * M), dev), S)

@@ -18,7 +18,10 @@ A, B, C at the flagship shape by chip_smoke.py's own step 3a
 --sizes       hold kernels A and C (with mag2) against their plain versions
               at every window size from 64 to 4096 and time kernel A there,
               and hold and time kernel D at every K from 8 to 1024 and at
-              K = 24, 192 (every copy in turns);
+              K = 24, 192 (every copy in turns), its float32 route and its
+              bf16 route (route 3; a copy from before route 3 is driven
+              through the bf16 flag of its lora_channelize) each beside its
+              bound;
 --against DIR build the kernels of DIR (a copy of lora_tpu_torch/csrc) too
               and time both in turns on one card: DIR, tree, tree, DIR.  May
               be given several times.  A copy from before kernel D read
@@ -38,6 +41,9 @@ A, B, C at the flagship shape by chip_smoke.py's own step 3a
               device events kept, kernels A, B, C among them, and how far
               the CUDA runtime's events lie before the PyTorch op that made
               them (the trace's two clocks apart).
+
+Kernel D's bf16 route is held against filterbank_fir_plain by chip_smoke.py's
+BF16_* bars (bf16_close) and timed at the config-3 shape too.
 
 Without --against it times the tree alone.  The banks are chip_smoke.py's:
 the flagship bank (4096 channels, SF10, mtu 68, seed 1234) and, for D, 256
@@ -168,6 +174,23 @@ def probe_d(torch, cs, _cuda, libs, order, use, args, card, dev, sync):
             wk.data_ptr(), y.data_ptr(), _cuda.stream(dev)), "lora_channelize")
         return y
 
+    def run_bf16(x, K, state=None):
+        """Kernel D's bf16 route of the library in use: route 3 through the
+        wrapper, or the flag of a copy from before it (its direct sum)."""
+        lib = _cuda.library()
+        if hasattr(lib, "lora_channelize_bf16"):
+            return cc.filterbank(x, K, L, state, bf16=True)
+        S, T = x.shape
+        M = T // K
+        y = torch.empty((S, K, M), dtype=torch.complex64, device=dev)
+        hp, wk = cc.consts(K, L, dev)
+        _cuda.check(lib.lora_channelize(
+            None if state is None else state.data_ptr(),
+            0 if state is None else state.stride(0), x.data_ptr(),
+            x.stride(0), S, K, L, M, hp.data_ptr(), wk.data_ptr(),
+            y.data_ptr(), _cuda.stream(dev), 1), "lora_channelize bf16")
+        return y
+
     def hold(K, S, M, what):
         x = cs.awgn((S, K * M), 1.0, gen, dev)
         st = cs.awgn((S, L * K - 1), 1.0, gen, dev)
@@ -188,12 +211,49 @@ def probe_d(torch, cs, _cuda, libs, order, use, args, card, dev, sync):
             flush=True)
         return x
 
+    def hold_bf16(x, K, what):
+        """Every copy's bf16 route against filterbank_fir_plain (no
+        state), by chip_smoke.py's bars."""
+        S, T = x.shape
+        want = cc.filterbank_fir_plain(chz.prepended(x, None, L * K - 1), K,
+                                       L, T // K)
+        res = []
+        for which in libs:
+            use(which)
+            if not bf16_capable(_cuda.library()):
+                continue
+            share, rel, same = cs.bf16_close(
+                torch, cs.Check(f"channelize bf16 {which} K={K}"), what,
+                run_bf16(x, K), want)
+            res.append(f"{which} {share:.6f} within {cs.BF16_RTOL}, max "
+                       f"{rel:.3g}, bit-equal {same}")
+        use("tree")
+        del want
+        print(f"{what}: kernel D bf16 against filterbank_fir_plain: "
+              + "; ".join(res), flush=True)
+
+    def bf16_capable(lib):
+        return (hasattr(lib, "lora_channelize_bf16")
+                or not hasattr(lib, "lora_channelize_tile"))
+
+    bf16_order = [w for w in order if bf16_capable(libs[w])]
+
+    def bf16_bound(S, K, M):
+        return cs.bound(2 * S * K * M * 8, S * K * M * 4 * L,
+                        S * K * M * 8 * K)
+
     S, K, M = cs.C3_STREAMS, cs.C3_K, 10240
     x = hold(K, S, M, f"config-3 shape S={S} K={K} M={M}")
     bnd = cs.bound(2 * S * K * M * 8, S * K * M * (5 * math.log2(K) + 4 * L))
     ms = in_turns(cs, order, use, lambda: run(x, K), sync)
     print(f"time channelize (kernel alone): {show(ms)}, bound "
           f"{bnd['bound_ms']:.3f} ms by {bnd['bound_by']} [{card}]", flush=True)
+    hold_bf16(x, K, f"config-3 shape S={S} K={K} M={M}")
+    ms = in_turns(cs, bf16_order, use, lambda: run_bf16(x, K), sync)
+    bnd = bf16_bound(S, K, M)
+    print(f"time channelize bf16 (route {cc.route(K, L, True)}): {show(ms)}, "
+          f"bound {bnd['bound_ms']:.3f} ms by {bnd['bound_by']} [{card}]",
+          flush=True)
     cat_too["on"] = True
     ms = in_turns(cs, order, use, lambda: run(x, K), sync)
     cat_too["on"] = False
@@ -206,11 +266,19 @@ def probe_d(torch, cs, _cuda, libs, order, use, args, card, dev, sync):
             S = max(1, (1 << 25) // (K * M))
             x = hold(K, S, M, f"size K={K} S={S} M={M} route "
                      f"{cc.route(K, L)}")
+            hold_bf16(x, K, f"size K={K} S={S} M={M} route "
+                      f"{cc.route(K, L, True)}")
             bnd = cs.bound(2 * S * K * M * 8,
                            S * K * M * (5 * math.log2(K) + 4 * L))
             ms = in_turns(cs, order, use, lambda: run(x, K), sync)
-            print(f"size K={K}: kernel D for {S * K * M} samples: {show(ms)}, "
-                  f"bound {bnd['bound_ms']:.3f} ms [{card}]", flush=True)
+            mb = in_turns(cs, bf16_order, use, lambda: run_bf16(x, K), sync)
+            bb = bf16_bound(S, K, M)
+            print(f"size K={K}: kernel D for {S * K * M} samples: float32 "
+                  f"(route {cc.route(K, L)}) {show(ms)}, bound "
+                  f"{bnd['bound_ms']:.3f} ms; bf16 (route "
+                  f"{cc.route(K, L, True)}) {show(mb)}, bound "
+                  f"{bb['bound_ms']:.3f} ms by {bb['bound_by']} [{card}]",
+                  flush=True)
             del x
 
 
