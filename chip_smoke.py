@@ -178,18 +178,46 @@
       session's opening launches took torch.profiler's drop of its first
       device records, which grows with the process's age); frame_events
       gives one event a channel.
+9. The port's tools and examples (lora_tpu_torch.tools, .examples), each
+   path's kernels counted from 0, each sub-step's time printed:
+   a. the paired sensitivity matrix: the 60 points of
+      docs/sensitivity_vs_reference.json at each row's n (2,720 frames),
+      each bank rebuilt draw for draw as lora_tpu built it
+      (bench_sensitivity.make_bank, in threads ahead of the card) and given
+      to fused="auto" (kernels A, B, C; C with mag2) and to fused="off",
+      hard and soft.  The routes' found and hard- and soft-recovered flags
+      differ on at most 13 frames (0.5%), each difference printed; the
+      kernels' hard total is at least the reference FSM's committed 1,102
+      and no point more than one frame below its recovered_ref; the
+      kernels' hard and soft totals are within 27 frames (1%) of lora_tpu's
+      committed 1,207 and 1,968.  Each point's delta against lora_tpu and
+      the reference is printed;
+   b. bench_e2e (config 5: cs16 wire, ingest thread, pinned staging, slabs
+      of 2048 SF10 channels, demodulate and decode, a depth-1 readback)
+      over 10,240 channels in the planar int16 mode, then 2 slabs in the
+      host-convert and interleaved modes and with --mixed-sf: every frame
+      found and decoded ok in each; the record, the compute-only rate and
+      the measured host-to-device rate printed (the wire is built in a
+      thread during 9a);
+   c. bench_soft and bench_decode at B = 2048, SF10, each path gated on
+      every frame byte-exact before it is timed;
+   d. bench_stream's bench_pump at its card defaults (every pass the same
+      frames, each frame within the stream's reach found once and
+      byte-exact), examples.wideband_rx (kernel D, then A, B, C; byte-exact)
+      and examples.lora_simulation with piped lines, whose two messages
+      (SF10, then /sf 8) come back byte-exact.
 
 Prints the kernels' JSON line (kernels A to E: launches summed over the
 driven paths, step 6's StreamDemodulator.pump, demodulate_bank and both
-replays, step 7's paths (summed over their ranks) and step 8's among them,
-and, in launches_by_path, of each path's run alone, every kernel counted
-from 0 on every path; the error against the plain version, the kernel's,
-the plain version's and, for kernel E, one PyTorch call's time, and the
-bound: the larger of the bytes each input and output must move over 3.35
-TB/s and the float32 operations over 67 TFLOP/s; kernel D's row carries
-its bf16 route's error, times, bound, route and the matmul yardstick
-under "bf16"; every other number
-of a row is measured in this run), then {"ok": true, "device": {...}}
+replays, step 7's paths (summed over their ranks), step 8's and step 9's
+among them, and, in launches_by_path, of each path's run alone, every
+kernel counted from 0 on every path; the error against the plain version,
+the kernel's, the plain version's and, for kernel E, one PyTorch call's
+time, and the bound: the larger of the bytes each input and output must
+move over 3.35 TB/s and the float32 operations over 67 TFLOP/s; kernel D's
+row carries its bf16 route's error, times, bound, route and the matmul
+yardstick under "bf16"; every other number of a row is measured in this
+run), then {"ok": true, "device": {...}}
 last.  Any failure raises and exits non-zero.  Imports no jax.
 """
 
@@ -2682,6 +2710,273 @@ def step8(torch, dev, card, sync, profile=False):
     return chk, ms, bnd, by_path
 
 
+# ---------------------------------------------------------------------------
+# step 9: the tools and the examples (lora_tpu_torch.tools, .examples)
+# ---------------------------------------------------------------------------
+
+# 9a: the 60 points lora_tpu measured against the reference FSM, at each
+# row's n (2,720 frames), hard and soft, rebuilt draw for draw
+S9_FRAMES = 2720
+S9_DIFFER = 13         # frames whose route decisions may differ: 0.5%
+S9_REF_HARD = 1102     # the reference FSM's committed total
+S9_JAX_HARD = 1207     # lora_tpu's committed totals on the identical banks
+S9_JAX_SOFT = 1968
+S9_JAX_SLACK = 27      # 1% of the frames
+S9_BANK_THREADS = 6
+# 9b: bench_e2e's full pass (config 5), then 2 slabs in the other modes
+E2E_CHANNELS = 10240
+E2E_SLAB = 2048
+E2E_PAYLOAD = 32
+# 9c: bench_soft and bench_decode
+S9_B = 2048
+S9_REPS = 7
+# 9d: lora_simulation's piped lines and the messages that must come back
+SIM_LINES = ["/noise 1.0", "hello from the card", "/sf 8",
+             "back at sf8", "/show"]
+SIM_MESSAGES = ["hello from the card", "back at sf8"]
+
+S9_ABC = ("detect", "track", "payload")
+
+
+def s9a_sensitivity(torch, dev, sync) -> dict:
+    """9a: every point of docs/sensitivity_vs_reference.json (through
+    run_sensitivity_campaign.point_specs, at each row's n), each bank built
+    once (bench_sensitivity.make_bank, in a thread pool ahead of the card)
+    and given to fused="auto" (kernels A, B, C; C with mag2) and to
+    fused="off", hard and soft.  Gates: the routes' found, hard- and
+    soft-recovered flags differ on at most S9_DIFFER frames; the kernels'
+    hard total at least the reference's S9_REF_HARD and no point more than
+    one frame below its recovered_ref; hard and soft totals within
+    S9_JAX_SLACK of lora_tpu's.  -> {path: launches}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from lora_tpu_torch.tools import bench_sensitivity as bs
+    from lora_tpu_torch.tools import run_sensitivity_campaign as camp
+
+    rows = bs.committed_rows()
+    specs = camp.point_specs(rows)
+    if sum(s["n"] for s in specs) != S9_FRAMES:
+        raise AssertionError(f"9a: {len(specs)} points of "
+                             f"{sum(s['n'] for s in specs)} frames")
+    cfgs = {(s["sf"], s["cr"]): bs.point_cfg(s["sf"], s["cr"])
+            for s in specs}
+    cfg_of = lambda s: cfgs[(s["sf"], s["cr"])]
+    t = time.perf_counter()
+    with ThreadPoolExecutor(S9_BANK_THREADS) as pool:
+        banks = [pool.submit(bs.make_bank, cfg_of(s), s["noise"], s["n"],
+                             bs.SEED, s["rotate"], dev) for s in specs]
+
+        def routes(fused):
+            return [bs.point(cfg_of(s), s["noise"], s["n"],
+                             rotate=s["rotate"], soft=True, fused=fused,
+                             device=dev, bank=b.result())
+                    for s, b in zip(specs, banks)]
+
+        what = f"9a sensitivity, {len(specs)} points hard and soft"
+        auto, la = count_launches(f"{what}, fused='auto'",
+                                  lambda: routes("auto"), sync, S9_ABC)
+        t_auto = time.perf_counter() - t
+        off, lo = count_launches(f"{what}, fused='off'",
+                                 lambda: routes("off"), sync, ())
+    differ, below = 0, []
+    tot = {"hard": 0, "soft": 0, "off_hard": 0, "off_soft": 0, "ref": 0}
+    for s, (row, pf), (orow, opf) in zip(specs, auto, off):
+        for i in range(s["n"]):
+            parts = [k for k in ("found", "hard", "soft")
+                     if bool(pf[k][i]) != bool(opf[k][i])]
+            if parts:
+                differ += 1
+                print(f"9a routes differ: SF{s['sf']} {s['cr']} noise "
+                      f"{s['noise']} rotate {s['rotate']} n {s['n']} frame "
+                      f"{i}: {parts}", flush=True)
+        tot["hard"] += row["recovered_ours"]
+        tot["soft"] += row["recovered_soft"]
+        tot["off_hard"] += orow["recovered_ours"]
+        tot["off_soft"] += orow["recovered_soft"]
+        tot["ref"] += row["recovered_ref"]
+        if row["recovered_ours"] < row["recovered_ref"] - 1:
+            below.append(row)
+        print(f"9a SF{s['sf']} {s['cr']} noise {s['noise']} rotate "
+              f"{row.get('rotate', 0)} n {s['n']}: kernels hard "
+              f"{row['recovered_ours']} soft {row['recovered_soft']}; plain "
+              f"{orow['recovered_ours']} / {orow['recovered_soft']}; "
+              f"lora_tpu {row['recovered_jax']} / "
+              f"{row['recovered_jax_soft']} (delta "
+              f"{row['recovered_ours'] - row['recovered_jax']:+d} / "
+              f"{row['recovered_soft'] - row['recovered_jax_soft']:+d}); "
+              f"reference {row['recovered_ref']} (delta "
+              f"{row['recovered_ours'] - row['recovered_ref']:+d}) "
+              f"[{row['ref_source']}]", flush=True)
+    jax_h = sum(r["recovered_ours"] for r in rows)
+    jax_s = sum(r["recovered_soft"] for r in rows)
+    tally = {what: camp.tally([r for r, _ in auto], ours, theirs)
+             for what, ours, theirs in (
+                 ("reference", "recovered_ours", "recovered_ref"),
+                 ("lora_tpu hard", "recovered_ours", "recovered_jax"),
+                 ("lora_tpu soft", "recovered_soft", "recovered_jax_soft"))}
+    print(f"9a totals over {S9_FRAMES} frames: kernels hard {tot['hard']} "
+          f"soft {tot['soft']}, plain hard {tot['off_hard']} soft "
+          f"{tot['off_soft']}; lora_tpu hard {jax_h} soft {jax_s}; "
+          f"reference {tot['ref']}; frames whose routes differ {differ} "
+          f"(bar {S9_DIFFER}); better/equal/worse {tally}; banks and the "
+          f"kernels' route {t_auto:.1f} s", flush=True)
+    if differ > S9_DIFFER:
+        raise AssertionError(f"9a: the routes differ on {differ} frames")
+    if tot["hard"] < S9_REF_HARD or below:
+        raise AssertionError(f"9a: hard total {tot['hard']} against the "
+                             f"reference's {S9_REF_HARD}; points more than "
+                             f"one frame below it: {below}")
+    if (abs(tot["hard"] - S9_JAX_HARD) > S9_JAX_SLACK
+            or abs(tot["soft"] - S9_JAX_SOFT) > S9_JAX_SLACK):
+        raise AssertionError(f"9a: totals {tot['hard']} / {tot['soft']} "
+                             f"against lora_tpu's {S9_JAX_HARD} / "
+                             f"{S9_JAX_SOFT} (bar {S9_JAX_SLACK})")
+    return {f"{what}, fused='auto'": la, f"{what}, fused='off'": lo}
+
+
+def s9b_wire(dev) -> tuple:
+    """bench_e2e's wire as its main builds it: the SF10 group, then the
+    SF8 group of --mixed-sf, from one generator seeded 0."""
+    from lora_tpu_torch.tools import bench_e2e as e2e
+
+    rng = np.random.default_rng(0)
+    return tuple(e2e.make_group(sf, E2E_SLAB, E2E_PAYLOAD, rng, dev)
+                 for sf in (10, 8))
+
+
+def s9b_e2e(torch, dev, sync, wire) -> dict:
+    """9b: tools.bench_e2e over E2E_CHANNELS channels in the default mode
+    (planar int16), then 2 slabs in host-convert, interleaved and
+    --mixed-sf, on the wire of s9b_wire (built in a thread during 9a);
+    every frame found and decoded ok in every run.  -> {path: launches}."""
+    from lora_tpu_torch.tools import bench_e2e as e2e
+
+    t = time.perf_counter()
+    g10, g8 = wire.result()
+    print(f"9b wire: waited {time.perf_counter() - t:.1f} s for it",
+          flush=True)
+    by_path = {}
+    for mode, groups, channels in (
+            ("planar", [g10], E2E_CHANNELS),
+            ("host-convert", [g10], 2 * E2E_SLAB),
+            ("interleaved", [g10], 2 * E2E_SLAB),
+            ("planar", [g10, g8], 2 * E2E_SLAB)):
+        what = (f"9b bench_e2e {mode}{' --mixed-sf' if len(groups) > 1 else ''}"
+                f" {channels} channels")
+        t = time.perf_counter()
+        (rec, comp), by_path[what] = count_launches(
+            what, lambda: e2e.run(groups, mode, channels, dev), sync, S9_ABC)
+        if not rec.get("of") or not (rec["frames_found"]
+                                     == rec["frames_decoded_ok"]
+                                     == rec["of"] == channels):
+            raise AssertionError(f"{what}: {rec}")
+        print(f"{what}: {rec['of']} of {channels} frames found and decoded "
+              f"ok, {rec['measured_Msamp_s']} Msamples/s end to end, "
+              f"compute only {comp['compute_only_Msamp_s_per_slab']}, "
+              f"host to device {comp['h2d_GBs_measured']} GB/s = "
+              f"{comp['h2d_bound_Msamp_s_measured']} Msamples/s "
+              f"({time.perf_counter() - t:.1f} s)", flush=True)
+    return by_path
+
+
+def s9c_soft_decode(torch, dev, sync) -> dict:
+    """9c: tools.bench_soft and tools.bench_decode at B = S9_B, SF10, with
+    their byte-exact gates.  -> {path: launches}."""
+    from lora_tpu_torch.tools import bench_decode, bench_soft
+
+    by_path = {}
+    for name, mod in (("bench_soft", bench_soft),
+                      ("bench_decode", bench_decode)):
+        what = f"9c {name} B={S9_B}"
+        t = time.perf_counter()
+        _, by_path[what] = count_launches(
+            what, lambda: mod.measure(S9_B, 10, dev, S9_REPS), sync, S9_ABC)
+        print(f"{what}: {time.perf_counter() - t:.1f} s", flush=True)
+    return by_path
+
+
+def s9d_stream_examples(torch, dev, sync) -> dict:
+    """9d: tools.bench_stream.bench_pump at its card defaults (every frame
+    of every pass found and byte-exact), examples.wideband_rx (kernel D,
+    then A, B, C; byte-exact) and examples.lora_simulation with piped lines
+    (each message back byte-exact).  -> {path: launches}."""
+    import contextlib
+    import io
+
+    from lora_tpu_torch.examples import lora_simulation, wideband_rx
+    from lora_tpu_torch.runtime import decode_frames
+    from lora_tpu_torch.tools import bench_stream
+
+    by_path = {}
+    t = time.perf_counter()
+    what = "9d bench_stream.bench_pump"
+    recs, by_path[what] = count_launches(
+        what, lambda: bench_stream.bench_pump(device=dev), sync, S9_ABC)
+    first = sorted((f.channel, f.t_start) for f in recs[0]["frame_list"])
+    for r in recs:
+        got = decode_frames(r["frame_list"], r["cfg"], device=dev)
+        bad = [f.channel for f in got
+               if f.payload != bytes(r["payload"][f.channel].tolist())]
+        same = sorted((f.channel, f.t_start) for f in got) == first
+        if r["frames"] != r["frames_in_reach"] or bad or not same:
+            raise AssertionError(f"{what} {r['source']} {r['loop']}: "
+                                 f"{r['frames']} frames of "
+                                 f"{r['frames_in_reach']} in reach, "
+                                 f"{len(bad)} not byte-exact, the first "
+                                 f"pass's frames: {same}")
+    print(f"{what}: every pass the same {recs[0]['frames_in_reach']} frames "
+          f"byte-exact ({time.perf_counter() - t:.1f} s)", flush=True)
+
+    t = time.perf_counter()
+    what = "9d examples.wideband_rx"
+    rc, by_path[what] = count_launches(
+        what, lambda: wideband_rx.main(["--device", str(dev)]), sync,
+        ("channelize", *S9_ABC))
+    if rc != 0:
+        raise AssertionError(f"{what}: exit {rc}")
+    print(f"{what}: byte-exact ({time.perf_counter() - t:.1f} s)",
+          flush=True)
+
+    t = time.perf_counter()
+    what = "9d examples.lora_simulation"
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc, by_path[what] = count_launches(
+            what, lambda: lora_simulation.main(["--device", str(dev)],
+                                               SIM_LINES), sync, S9_ABC)
+    print(out.getvalue(), end="", flush=True)
+    got = [ln.split("rx: ", 1)[1].split("   snr=")[0]
+           for ln in out.getvalue().splitlines() if "  rx: " in ln]
+    if rc != 0 or got != SIM_MESSAGES:
+        raise AssertionError(f"{what}: exit {rc}, received {got}")
+    print(f"{what}: {len(got)} messages back byte-exact "
+          f"({time.perf_counter() - t:.1f} s)", flush=True)
+    return by_path
+
+
+def step9(torch, dev, sync) -> dict:
+    """Step 9: the port's tools and examples on the card, each path's
+    kernels counted from 0; 9b's wire is built in a thread meanwhile.
+    -> {path: launches}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t9 = time.perf_counter()
+    by_path = {}
+    with ThreadPoolExecutor(1) as pool:
+        wire = pool.submit(s9b_wire, dev)
+        for name, sub in (
+                ("9a", s9a_sensitivity),
+                ("9b", lambda *a: s9b_e2e(*a, wire)),
+                ("9c", s9c_soft_decode), ("9d", s9d_stream_examples)):
+            t = time.perf_counter()
+            by_path.update(sub(torch, dev, sync))
+            torch.cuda.empty_cache()
+            print(f"step {name}: {time.perf_counter() - t:.1f} s",
+                  flush=True)
+    print(f"step 9: {time.perf_counter() - t9:.1f} s", flush=True)
+    return by_path
+
+
 def main() -> int:
     import torch
 
@@ -2720,10 +3015,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path7 = step7(torch, card)
     chk16, ms16, bound16, by_path8 = step8(torch, dev, card, sync, profile)
+    by_path9 = step9(torch, dev, sync)
     # every driven path's run, each counted from 0
     by_path = {"demodulate(fused='auto')": launches,
                "channelized_demodulate(fused='auto')": c3_launches, **by_path,
-               **by_path6, **by_path7, **by_path8}
+               **by_path6, **by_path7, **by_path8, **by_path9}
 
     sources = {
         "detect": ("lora_tpu_torch/csrc/detect.cu",

@@ -103,16 +103,25 @@ _FORMATS = {
 }
 
 
-def convert(raw: bytes | np.ndarray, fmt: str, scale: float | None = None):
-    """Interleaved wire-format samples -> planar (re, im) float32 arrays."""
+def convert(raw: bytes | np.ndarray, fmt: str, scale: float | None = None,
+            out: tuple | None = None):
+    """Interleaved wire-format samples -> planar (re, im) float32 arrays,
+    written into `out`, a pair of contiguous float32 arrays of the sample
+    count (such as pinned staging), when given."""
     if fmt not in _FORMATS:
         raise ValueError(f"unknown IQ format {fmt!r} (want {list(_FORMATS)})")
     dtype, fname, default_scale = _FORMATS[fmt]
     scale = default_scale if scale is None else scale
     buf = np.frombuffer(raw, dtype=dtype) if isinstance(raw, (bytes, bytearray)) else np.asarray(raw, dtype)
     n = buf.size // 2
-    re = np.empty(n, np.float32)
-    im = np.empty(n, np.float32)
+    if out is None:
+        re = np.empty(n, np.float32)
+        im = np.empty(n, np.float32)
+    else:
+        re, im = out
+        if not all(a.dtype == np.float32 and a.size == n
+                   and a.flags.c_contiguous for a in out):
+            raise ValueError(f"out: two contiguous float32 arrays of {n}")
     lib = get_lib()
     if lib is not None:
         fp = ctypes.POINTER(ctypes.c_float)

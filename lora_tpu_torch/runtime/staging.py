@@ -18,7 +18,8 @@ import torch
 
 
 class Staging:
-    """n pinned complex64 buffers, handed out in turn."""
+    """n pinned buffers (complex64 unless `take` asks for another dtype),
+    handed out in turn."""
 
     def __init__(self, n: int):
         self._bufs: list = [None] * n
@@ -28,8 +29,9 @@ class Staging:
             e.set()
         self._next = 0
 
-    def take(self, shape, stop: threading.Event | None = None):
-        """-> (slot, pinned complex64 tensor of `shape`) to be written and
+    def take(self, shape, stop: threading.Event | None = None,
+             dtype: torch.dtype = torch.complex64):
+        """-> (slot, pinned tensor of `shape` and `dtype`) to be written and
         copied, then released by sent(slot); None if `stop` is set while
         the slot's last copy is still to be issued.  Its contents are
         whatever the slot held before."""
@@ -45,10 +47,20 @@ class Staging:
         for s in shape:
             n *= s
         buf = self._bufs[i]
-        if buf is None or buf.numel() < n:
-            self._bufs[i] = buf = torch.empty(n, dtype=torch.complex64,
+        if buf is None or buf.dtype != dtype or buf.numel() < n:
+            self._bufs[i] = buf = torch.empty(n, dtype=dtype,
                                               pin_memory=True)
         return i, buf[:n].view(shape)
+
+    def reserve(self, shape, dtype: torch.dtype = torch.complex64) -> None:
+        """Pin every slot's buffer for blocks of `shape` now, before a timed
+        run (pinning takes host time), rather than at its first take."""
+        n = 1
+        for s in shape:
+            n *= s
+        for i, buf in enumerate(self._bufs):
+            if buf is None or buf.dtype != dtype or buf.numel() < n:
+                self._bufs[i] = torch.empty(n, dtype=dtype, pin_memory=True)
 
     def sent(self, slot: int, device: torch.device) -> None:
         """Record that a copy from `slot` was issued on `device`'s current

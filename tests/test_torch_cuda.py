@@ -969,3 +969,48 @@ def test_parallel_ranks_on_card_match_single_process(dev, world, backend):
     whole = whole.cpu().numpy()
     for r in y:
         assert np.abs(r["y"] - whole).max() <= D_RTOL * np.abs(whole).max()
+
+
+def test_sensitivity_point_routes_agree_on_card(dev):
+    """tools.bench_sensitivity at the committed SF7 CR 4/8 noise 2.0 point
+    (128 frames): one bank to fused="auto" (kernels A, B, C; C with mag2)
+    and to fused="off"; found, symbols and hard/soft recovered flags equal
+    frame by frame."""
+    from lora_tpu_torch.tools import bench_sensitivity as bs
+
+    cfg = bs.point_cfg(7, "4/8")
+    bank = bs.make_bank(cfg, 2.0, 128, device=dev)
+    out = {}
+    for fused in ("auto", "off"):
+        for k in (cuda_detect.dechirp_detect, cuda_demod.track,
+                  cuda_demod.payload_detect):
+            k.launches = 0
+        out[fused] = bs.point(cfg, 2.0, 128, soft=True, fused=fused,
+                              device=dev, bank=bank)
+        n = cuda_demod.payload_detect.launches
+        assert (n > 0) == (fused == "auto")
+    (row, pf), (orow, opf) = out["auto"], out["off"]
+    for k in ("found", "symbols", "hard", "soft"):
+        np.testing.assert_array_equal(pf[k], opf[k], err_msg=k)
+    assert row["recovered_ours"] == orow["recovered_ours"] > 0
+
+
+@pytest.mark.parametrize("mode,groups", [("planar", (10,)),
+                                         ("host-convert", (10,)),
+                                         ("interleaved", (10,)),
+                                         ("planar", (10, 8))],
+                         ids=["planar", "host-convert", "interleaved",
+                              "mixed-sf"])
+def test_bench_e2e_two_slabs_on_card(dev, mode, groups):
+    """tools.bench_e2e: 2 slabs of 64 channels through pinned staging and
+    the depth-1 pipeline in each mode; every frame found and decoded, and
+    the measured host-to-device rate positive."""
+    from lora_tpu_torch.tools import bench_e2e
+
+    rng = np.random.default_rng(0)
+    gs = [bench_e2e.make_group(sf, 64, 32, rng, dev) for sf in groups]
+    rec, comp = bench_e2e.run(gs, mode, 128, dev)
+    assert rec["frames_found"] == rec["frames_decoded_ok"] == rec["of"] == 128
+    assert comp["h2d_GBs_measured"] > 0
+    assert comp["link_bytes_per_sample"] == (8 if mode == "host-convert"
+                                             else 4)

@@ -22,8 +22,15 @@ for name in ("ops.channelizer", "ops.cuda_channelize", "roadmap", "config",
              "utils.debugcheck", "ops.resample", "ops.dcblock",
              "parallel.mesh", "parallel.halo", "parallel.channelize",
              "parallel.dispatch", "parallel.multihost", "parallel.comm",
-             "parallel.dryrun", "benchmarks", "utils.trace"):
+             "parallel.dryrun", "benchmarks", "utils.trace",
+             "tools.bench_sensitivity", "tools.run_sensitivity_campaign",
+             "tools.bench_e2e", "tools.bench_soft", "tools.bench_decode",
+             "tools.bench_stream", "examples.wideband_rx",
+             "examples.lora_simulation", "examples.modulation_explained",
+             "examples.lora_sdr_relay", "examples.rx_rn2483"):
     assert "lora_tpu_torch." + name in sys.modules, name
+# the radio examples' SDR module and plotting load only when they run
+assert "SoapySDR" not in sys.modules and "matplotlib" not in sys.modules
 # the native ingest library builds under build/, never in the package
 from lora_tpu_torch.ops import _cuda
 from lora_tpu_torch.runtime import iqio
@@ -58,6 +65,9 @@ def test_port_sources_name_no_jax_package_import():
     files = sorted((REPO / "lora_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
+    # the tools' and examples' twins are among the sources walked
+    walked = {p.relative_to(REPO).parent.as_posix() for p in files}
+    assert {"lora_tpu_torch/tools", "lora_tpu_torch/examples"} <= walked
     for path in files:
         tree = ast.parse(path.read_text())
         for node in ast.walk(tree):
