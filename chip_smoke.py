@@ -110,7 +110,14 @@
       (dc_block=True; kernel D launched), and at the fractional ratio
       4.096 with the frame across the 2^22-sample chunk seam (the
       resampler, whose chunked output is bit-equal to the unchunked one on
-      the card): each frame byte-exact.
+      the card): each frame byte-exact;
+   d. (run after a) StreamDemodulator.pump over 1024 such streams with
+      soft=True and with max_frames=3, each on fused="auto" and "off",
+      captured and under utils.jit.disable_jit(): every frame found once
+      and byte-exact, the captured run's frames equal to the eager run's
+      in every field (soft confidence included), the routes' frames equal
+      in their decisions, kernels A, B, C once a step on "auto" and none
+      on "off".
 7. The multi-device paths (lora_tpu_torch.parallel) on ranks spawned by
    parallel.dryrun.launch after the parent frees its banks: two ranks on
    this one card over gloo (NCCL refuses two ranks on one device), then
@@ -207,6 +214,24 @@
       and examples.lora_simulation with piped lines, whose two messages
       (SF10, then /sf 8) come back byte-exact.
 
+10. The captured programs (lora_tpu_torch/utils/jit.py: demodulate,
+   decode, soft_symbols and channelized_demodulate each one CUDA graph per
+   static arguments) at full width on the banks of steps 3, 4 and 5e: the
+   flagship bank, config 3, spectra=True + decode_soft, max_frames=2 and
+   debug=True, each on both routes, and decode of the flagship bank's
+   symbols (and max_frames=2 on a second bank, whose frames are counted,
+   not gated): the first call and a replay bit-equal in every field to
+   the call under disable_jit(), frames byte-exact, no capture over the
+   timed calls, one replay on the resident input under
+   torch.cuda.set_sync_debug_mode("error"), eager and captured times (CUDA
+   events, median, min and max of 14 calls each, in the order eager,
+   captured, captured, eager), with --profile each one's idle share
+   (utils.trace.session), and the memory the flagship graph's pool holds.
+
+On the card every call of these entry points in steps 3 to 9 runs
+captured too (its first call at a key is the warm-up, whose result it
+returns); each step starts with the programs' caches cleared.
+
 Prints the kernels' JSON line (kernels A to E: launches summed over the
 driven paths, step 6's StreamDemodulator.pump, demodulate_bank and both
 replays, step 7's paths (summed over their ranks), step 8's and step 9's
@@ -223,6 +248,7 @@ last.  Any failure raises and exits non-zero.  Imports no jax.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -275,6 +301,9 @@ STREAM_CHANNELS = 4096
 STREAM_BLOCK = 16384
 STREAM_FRAMES = 3
 STREAM_RUN_PASSES = 3
+# step 6d: the soft and three-frame streams, each on both routes, captured
+# and eager
+STREAM_MODES_CHANNELS = 1024
 SLAB_CHANNELS = 10240
 SLAB = 4096
 REPLAY_K = 8
@@ -491,12 +520,20 @@ def payload_spectra(det_ops, bank, ds, fine, N: int, mtu: int):
     return spectra
 
 
-def timed(fn, sync):
-    """Median ms of RUNS calls after one warm-up, by CUDA events."""
+def fresh(torch) -> None:
+    """Drop every captured program's graphs, buffers and pools
+    (utils/jit.py) and the cached device memory: between steps, whose
+    banks differ."""
+    from lora_tpu_torch.utils import jit
+
+    jit.clear()
+    torch.cuda.empty_cache()
+
+
+def run_times(fn) -> list:
+    """ms of RUNS calls of fn by CUDA events, each call alone."""
     import torch
 
-    fn()
-    sync()
     times = []
     for _ in range(RUNS):
         a = torch.cuda.Event(enable_timing=True)
@@ -506,7 +543,14 @@ def timed(fn, sync):
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
-    times.sort()
+    return times
+
+
+def timed(fn, sync):
+    """Median ms of RUNS calls after one warm-up, by CUDA events."""
+    fn()
+    sync()
+    times = sorted(run_times(fn))
     return times[len(times) // 2]
 
 
@@ -1272,7 +1316,7 @@ def receive_options(torch, dev, card, sync, checks, profile=False):
           f"{e_m2:.3g} of each window's largest value; found, symbols, "
           "t_sync, consumed, freq_error equal", flush=True)
     del dem, ref
-    torch.cuda.empty_cache()
+    fresh(torch)
 
     # ---- d. soft-decision RX --------------------------------------------------
     def soft(x, route):
@@ -1334,7 +1378,7 @@ def receive_options(torch, dev, card, sync, checks, profile=False):
         print(f"memory demodulate(debug=True) fused={route!r}: peak "
               f"{peak:.2f} GB above the {bank.numel() * 8 / 1e9:.2f} GB bank, "
               f"taps returned included (B={B}, T={T}) [{card}]", flush=True)
-        torch.cuda.empty_cache()
+        fresh(torch)
     print(f"time decode_soft alone: {ms_dec:.3f} ms (spectra [{B}, {mtu}, "
           f"{N}]) [{card}]", flush=True)
     if profile:
@@ -1344,7 +1388,7 @@ def receive_options(torch, dev, card, sync, checks, profile=False):
         device_breakdown("demodulate(spectra=True) + decode_soft",
                          lambda: soft(bank, "auto"), ms_soft["auto"], sync)
     del bank
-    torch.cuda.empty_cache()
+    fresh(torch)
 
     # ---- e. multi-frame tracking ----------------------------------------------
     halves = [make_bank(api, cfg, B, SIGMA, SEED + 21 + i, dev)
@@ -1387,7 +1431,7 @@ def receive_options(torch, dev, card, sync, checks, profile=False):
           f"{chk_c.ties - ties} near-tie windows, power and noise within "
           f"{TOL}, mag2 within {err:.3g} of each window's peak", flush=True)
     del kc, pc, ok, head, fine, ds, t0, t_cand, found_pre
-    torch.cuda.empty_cache()
+    fresh(torch)
     dem = drive("demodulate(max_frames=2, fused='auto')",
                 lambda: api.demodulate(two, cfg, max_frames=2, fused="auto"),
                 ("detect", "track", "payload"), exactly=1)
@@ -1409,7 +1453,7 @@ def receive_options(torch, dev, card, sync, checks, profile=False):
           "consumed, freq_error equal to fused='off'; one launch of each "
           "of kernels A, B, C", flush=True)
     del dem, ref
-    torch.cuda.empty_cache()
+    fresh(torch)
     ms_multi = both_routes(
         lambda route: api.demodulate(two, cfg, max_frames=2, fused=route),
         sync)
@@ -1533,7 +1577,7 @@ def streaming(torch, dev, card, sync, cfg, profile=False):
 
     B, blk = STREAM_CHANNELS, STREAM_BLOCK
     host, payload, starts, Lf = stream_bank(api, cfg, B, SEED + 40, dev)
-    torch.cuda.empty_cache()
+    fresh(torch)
     L = host.shape[1]
     W = api.required_samples(cfg)
     seam = int((starts // blk != (starts + Lf - 1) // blk).sum())
@@ -1603,7 +1647,7 @@ def streaming(torch, dev, card, sync, cfg, profile=False):
                      lambda: drive(StreamDemodulator(cfg, B, device=dev),
                                    True), sync, wall * 1e3)
     del sd
-    torch.cuda.empty_cache()
+    fresh(torch)
 
     # the stream through feed and run, STREAM_RUN_PASSES times, each step
     # of run timed on its own (the flush's steps are not)
@@ -1617,7 +1661,7 @@ def streaming(torch, dev, card, sync, cfg, profile=False):
         if [key(f) for f in run] != want or not (sd.offsets == offsets).all():
             raise AssertionError("streaming: feed/run and pump differ")
         del sd, run
-        torch.cuda.empty_cache()
+        fresh(torch)
     print(f"stream feed/run: the frames and read pointers of pump in each "
           f"of {STREAM_RUN_PASSES} passes; "
           f"{', '.join(f'{x:.3f}' for x in wall_run)} ms a pass; a step "
@@ -1635,7 +1679,7 @@ def streaming(torch, dev, card, sync, cfg, profile=False):
     first.save_state(buf)
     nbytes = buf.tell()
     del first
-    torch.cuda.empty_cache()
+    fresh(torch)
     buf.seek(0)
     second = StreamDemodulator(cfg, B, device=dev)
     second.load_state(buf)
@@ -1649,11 +1693,88 @@ def streaming(torch, dev, card, sync, cfg, profile=False):
         raise AssertionError("streaming: a save_state/load_state round trip "
                              "changed the frames")
     del second
-    torch.cuda.empty_cache()
+    fresh(torch)
     print(f"stream checkpoint: save_state at sample {cut}, load_state into a "
           f"new demodulator: the same frames and pointers ({nbytes / 1e9:.2f} "
           f"GB, {t_ckpt * 1e3:.3f} ms round trip) [{card}]", flush=True)
     return launches
+
+
+def stream_modes(torch, dev, card, sync, cfg) -> dict:
+    """Step 6d: StreamDemodulator.pump over STREAM_MODES_CHANNELS streams
+    with soft=True and with max_frames=3, each on both routes, captured
+    and under disable_jit(): every frame found once and byte-exact, each
+    run's frames equal to the other's of its route (every field, the soft
+    confidence included) and the decisions equal between the routes;
+    kernels A, B, C once a step on "auto", none on "off".
+    -> {path: launches}."""
+    from lora_tpu_torch import api
+    from lora_tpu_torch.models.decoder import OK
+    from lora_tpu_torch.runtime import StreamDemodulator, decode_frames
+    from lora_tpu_torch.utils import jit
+
+    B, blk = STREAM_MODES_CHANNELS, STREAM_BLOCK
+    host, payload, starts, _ = stream_bank(api, cfg, B, SEED + 45, dev)
+    fresh(torch)
+    L = host.shape[1]
+    by_path = {}
+    decide = lambda f: (f.channel, f.t_start, f.data_start, f.freq_error,
+                        f.payload, f.status)
+    every = lambda f: (*decide(f), tuple(f.symbols.tolist()), f.snr,
+                       f.power, f.confidence,
+                       None if f.hard_symbols is None
+                       else tuple(f.hard_symbols.tolist()))
+    for mode in ({"soft": True}, {"max_frames": 3}):
+        runs = {}
+        for route in ("auto", "off"):
+            for captured in (True, False):
+                what = (f"StreamDemodulator.pump({mode}, fused={route!r}, "
+                        f"{'captured' if captured else 'disable_jit'})")
+                steps = []
+                sd = StreamDemodulator(cfg, B, device=dev, fused=route,
+                                       observer=lambda *a: steps.append(1),
+                                       **mode)
+
+                def drive():
+                    with (contextlib.nullcontext() if captured
+                          else jit.disable_jit()):
+                        out = list(sd.pump(
+                            host[:, i : min(i + blk, L)]
+                            for i in range(0, L, blk)))
+                        return out + sd.flush()
+
+                t = time.perf_counter()
+                frames, by_path[what] = count_launches(
+                    what, drive, sync,
+                    ("detect", "track", "payload") if route == "auto"
+                    else ())
+                wall = time.perf_counter() - t
+                if route == "auto" and by_path[what]["payload"] != len(steps):
+                    raise AssertionError(f"{what}: kernel C launched "
+                                         f"{by_path[what]['payload']} times "
+                                         f"in {len(steps)} steps")
+                frames = decode_frames(frames, cfg, dev)
+                n = stream_frames_exact(what, frames, payload, starts, OK)
+                runs[(route, captured)] = frames
+                print(f"{what}: {n}/{n} frames found once, byte-exact; "
+                      f"{len(steps)} steps in {wall * 1e3:.3f} ms, "
+                      f"{B * L / wall / 1e6:.1f} Msamples/s [{card}]",
+                      flush=True)
+                del sd
+        for route in ("auto", "off"):
+            a, b = ([every(f) for f in runs[(route, c)]] for c in (True,
+                                                                    False))
+            if a != b:
+                raise AssertionError(f"stream {mode} {route}: the captured "
+                                     "run's frames differ from disable_jit's")
+        if ([decide(f) for f in runs[("auto", True)]]
+                != [decide(f) for f in runs[("off", True)]]):
+            raise AssertionError(f"stream {mode}: the routes' frames differ")
+        print(f"stream {mode}: captured and disable_jit runs equal in every "
+              "field on each route; the routes' frames equal in channel, "
+              "t_start, data_start, freq_error, payload and status",
+              flush=True)
+    return by_path
 
 
 def slab_bank(torch, dev, card, sync, cfg, profile=False):
@@ -1673,7 +1794,7 @@ def slab_bank(torch, dev, card, sync, cfg, profile=False):
     im = np.concatenate([p[1] for p in parts])
     payload = np.concatenate([p[2] for p in parts])
     del parts
-    torch.cuda.empty_cache()
+    fresh(torch)
     B, T = re.shape
     n_slabs = -(-B // SLAB)
     gb = 2 * re.nbytes / 1e9
@@ -1906,10 +2027,12 @@ def step6(torch, dev, card, sync, checks, profile=False):
     cfg = flagship_cfg()
     by_path = {"StreamDemodulator.pump": streaming(torch, dev, card, sync,
                                                    cfg, profile)}
-    torch.cuda.empty_cache()
+    fresh(torch)
+    by_path.update(stream_modes(torch, dev, card, sync, cfg))
+    fresh(torch)
     by_path["demodulate_bank"] = slab_bank(torch, dev, card, sync, cfg,
                                            profile)
-    torch.cuda.empty_cache()
+    fresh(torch)
     by_path.update(replay(torch, dev, card, sync, cfg, checks["channelize"],
                           profile))
     return by_path
@@ -1984,7 +2107,7 @@ def s7_drive(torch, dist, what, mesh, path, sync, expect, runs=S7_RUNS):
     """One path on every rank: the counted and checked run (launches from 0,
     every collective logged with a sync on each side), then `runs` timed
     runs, each between two barriers (the median wall ms)."""
-    torch.cuda.empty_cache()
+    fresh(torch)
     torch.cuda.reset_peak_memory_stats()
     log = S7_COMM["log"] = []
     dist.barrier()
@@ -2339,7 +2462,7 @@ def s7d(torch, dist, dev, sync) -> dict:
             routes[f"SF{c.sf}"] = [
                 s7_routes(torch, api, f"7d SF{c.sf} routes ({m})", bank, c,
                           m == "soft") for m in ("hard", "soft")]
-            torch.cuda.empty_cache()
+            fresh(torch)
         host = bank.cpu().numpy()
         for j, ch in enumerate(members):
             streams[ch] = host[j]
@@ -2700,12 +2823,12 @@ def step8(torch, dev, card, sync, profile=False):
     bound; {path: launches})."""
     t = time.perf_counter()
     by_path = s8a_bench(torch, sync)
-    torch.cuda.empty_cache()
+    fresh(torch)
     chk, paths, ms, bnd = s8b_bf16(torch, dev, card, sync, profile)
     by_path.update(paths)
-    torch.cuda.empty_cache()
+    fresh(torch)
     by_path.update(s8c_trace(torch, dev, sync))
-    torch.cuda.empty_cache()
+    fresh(torch)
     print(f"step 8: {time.perf_counter() - t:.1f} s", flush=True)
     return chk, ms, bnd, by_path
 
@@ -2970,10 +3093,205 @@ def step9(torch, dev, sync) -> dict:
                 ("9c", s9c_soft_decode), ("9d", s9d_stream_examples)):
             t = time.perf_counter()
             by_path.update(sub(torch, dev, sync))
-            torch.cuda.empty_cache()
+            fresh(torch)
             print(f"step {name}: {time.perf_counter() - t:.1f} s",
                   flush=True)
     print(f"step 9: {time.perf_counter() - t9:.1f} s", flush=True)
+    return by_path
+
+
+# ---------------------------------------------------------------------------
+# step 10: the captured programs (utils/jit.py) against the eager route
+# ---------------------------------------------------------------------------
+
+def spread(times) -> str:
+    t = sorted(times)
+    return (f"median {t[len(t) // 2]:.3f}, min {t[0]:.3f}, max {t[-1]:.3f} "
+            f"ms over {len(t)}")
+
+
+def fields_bit_equal(torch, what, a, b) -> None:
+    """Every field of two results (DemodResult, DecodeResult, tensors or
+    tuples of them) bit-equal."""
+    if isinstance(a, torch.Tensor):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: differs between the captured "
+                                 "call and the eager one")
+        return
+    if isinstance(a, tuple):
+        for i, (x, y) in enumerate(zip(a, b)):
+            fields_bit_equal(torch, f"{what}[{i}]", x, y)
+        return
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if (x is None) != (y is None):
+            raise AssertionError(f"{what}: {f.name} present in one only")
+        if x is not None and not torch.equal(x, y):
+            raise AssertionError(f"{what}: {f.name} differs between the "
+                                 "captured call and the eager one")
+
+
+def step10(torch, dev, card, sync, profile=False) -> dict:
+    """Step 10: each captured program against its disable_jit() call at
+    full width: fields bit-equal, frames byte-exact, one capture a key, no
+    host sync in a replay on resident input, times of both.
+    -> {path: launches} of one counted replay a path."""
+    from lora_tpu_torch import api
+    from lora_tpu_torch.ops import channelizer as chz
+    from lora_tpu_torch.utils import jit
+
+    # the banks of steps 3, 4 and 5e, rebuilt from their seeds
+    cfg, cfg3 = flagship_cfg(), config3_cfg()
+    bank, payload = make_bank(api, cfg, B_FLAGSHIP, SIGMA, SEED, dev)
+    halves = [make_bank(api, cfg, B_FLAGSHIP, SIGMA, SEED + 21 + i, dev)
+              for i in range(2)]
+    two = torch.cat([h[0] for h in halves], dim=1)
+    pay2 = torch.stack([h[1] for h in halves], dim=1).reshape(
+        2 * B_FLAGSHIP, -1)
+    del halves
+    wide, pay3 = make_wideband(api, chz, cfg3, C3_STREAMS, C3_K, C3_SIGMA,
+                               SEED + 11, dev)
+    want = [bytes(p) for p in payload.cpu().numpy().tolist()]
+    syms = api.demodulate(bank, cfg).symbols
+    B, K3 = B_FLAGSHIP, C3_K
+
+    def frames(what, dec, sent):
+        got = api.extract_payloads(dec)
+        bad = sum(g != bytes(w) for g, w in zip(got, sent))
+        if bad:
+            raise AssertionError(f"{what}: {bad} of {len(sent)} frames not "
+                                 "byte-exact")
+
+    def hard(dem, n=B):
+        return api.decode(dem.symbols.reshape(n, -1), cfg)
+
+    def soft(route):
+        d = api.demodulate(bank, cfg, spectra=True, fused=route)
+        return d, api.decode_soft(d.fft_mag2, cfg)
+
+    paths = {
+        "demodulate": (
+            lambda r: api.demodulate(bank, cfg, fused=r),
+            lambda out: frames("demodulate", hard(out), want),
+            bank.numel()),
+        "channelized_demodulate (config 3)": (
+            lambda r: api.channelized_demodulate(wide, K3, cfg3, fused=r),
+            lambda out: frames(
+                "config 3", api.decode(out[0].symbols[:, 0::2].reshape(
+                    -1, cfg3.mtu), cfg3), pay3.reshape(-1, 16).cpu().numpy()),
+            wide.numel()),
+        "demodulate(spectra=True) + decode_soft": (
+            soft, lambda out: frames("soft", out[1], want), bank.numel()),
+        "demodulate(max_frames=2)": (
+            lambda r: api.demodulate(two, cfg, max_frames=2, fused=r),
+            lambda out: frames("max_frames=2", hard(out, 2 * B),
+                               pay2.cpu().numpy()), two.numel()),
+        "demodulate(debug=True)": (
+            lambda r: api.demodulate(bank, cfg, debug=True, fused=r),
+            lambda out: frames("debug", hard(out), want), bank.numel()),
+        "decode (flagship symbols)": (
+            lambda r: api.decode(syms, cfg),
+            lambda out: frames("decode", out, want), None),
+    }
+    expect = {"demodulate(debug=True)": ("detect", "track", "shift"),
+              "channelized_demodulate (config 3)": ("channelize", "detect",
+                                                    "track", "payload"),
+              "decode (flagship symbols)": ()}
+    by_path = {}
+    pool_gb = None
+    for what, (run, check, samples) in paths.items():
+        for route in (("auto",) if what.startswith("decode") else
+                      ("auto", "off")):
+            jit.clear()
+            sync()
+            torch.cuda.empty_cache()
+            r0 = torch.cuda.memory_reserved()
+            with jit.disable_jit():
+                eager = run(route)
+            check(eager)
+            first = run(route)  # the warm-up, returned, and the capture
+            fields_bit_equal(torch, f"{what} {route} (first call)", first,
+                             eager)
+            del first
+            if what == "demodulate" and route == "auto":
+                sync()
+                torch.cuda.empty_cache()
+                pool_gb = (torch.cuda.memory_reserved() - r0) / 1e9
+            n_cap = jit.captures()
+            got = run(route)
+            fields_bit_equal(torch, f"{what} {route}", got, eager)
+            check(got)
+            del got
+            sync()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                run(route)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            sync()
+            ms_e, ms_c = [], []
+            for captured in (False, True, True, False):
+                with (contextlib.nullcontext() if captured
+                      else jit.disable_jit()):
+                    (ms_c if captured else ms_e).extend(
+                        run_times(lambda: run(route)))
+            name = f"10 captured {what} fused={route!r}"
+            _, by_path[name] = count_launches(
+                name, lambda: run(route), sync,
+                expect.get(what, ("detect", "track", "payload"))
+                if route == "auto" else (), exactly=1 if route == "auto"
+                and what != "decode (flagship symbols)" else None)
+            if jit.captures() != n_cap:
+                raise AssertionError(f"{what} {route}: "
+                                     f"{jit.captures() - n_cap} captures "
+                                     "over the timed calls")
+            med = sorted(ms_c)[len(ms_c) // 2]
+            rate = (f", captured {samples / (med * 1e-3) / 1e6:.1f} "
+                    "Msamples/s" if samples else "")
+            print(f"captured {what} fused={route!r}: every field bit-equal "
+                  f"to disable_jit(), frames byte-exact, one capture, no "
+                  f"host sync in a replay; eager {spread(ms_e)}; captured "
+                  f"{spread(ms_c)}{rate} [{card}]", flush=True)
+            if profile:
+                with jit.disable_jit():
+                    device_breakdown(f"eager {what} fused={route!r}",
+                                     lambda: run(route),
+                                     sorted(ms_e)[len(ms_e) // 2], sync,
+                                     calls=1, top=0)
+                device_breakdown(f"captured {what} fused={route!r}",
+                                 lambda: run(route), med, sync, calls=1,
+                                 top=0)
+            del eager
+    # a second two-frame bank, whose frames the search does not all find:
+    # captured and eager alike, both routes alike; its frames are counted
+    del two
+    jit.clear()
+    halves = [make_bank(api, cfg, B, SIGMA, SEED + 61 + i, dev)
+              for i in range(2)]
+    other = torch.cat([h[0] for h in halves], dim=1)
+    opay = torch.stack([h[1] for h in halves], dim=1).reshape(2 * B, -1)
+    del halves
+    with jit.disable_jit():
+        eager = api.demodulate(other, cfg, max_frames=2)
+    for _ in range(2):
+        fields_bit_equal(torch, "max_frames=2, second bank",
+                         api.demodulate(other, cfg, max_frames=2), eager)
+    routes_equal(torch, "max_frames=2, second bank", eager,
+                 api.demodulate(other, cfg, max_frames=2, fused="off"))
+    got = api.extract_payloads(hard(eager, 2 * B))
+    n = sum(g == bytes(w) for g, w in zip(got, opay.cpu().numpy()))
+    lost = [(i // 2, i % 2) for i in range(2 * B)
+            if not bool(eager.found.reshape(-1)[i])]
+    print(f"max_frames=2 on a second bank (seeds {SEED + 61}, {SEED + 62}): "
+          f"captured equal to disable_jit(), the routes equal; {n} of "
+          f"{2 * B} frames byte-exact, (channel, frame) not found: "
+          f"{lost[:8]}", flush=True)
+    del other, eager
+    jit.clear()
+    print(f"memory: the flagship demodulate(fused='auto') graph's pool "
+          f"{pool_gb:.3f} GB reserved on the card (its outputs and the "
+          f"eager result's included); "
+          f"a program keeps {jit.MAXSIZE} graphs [{card}]", flush=True)
     return by_path
 
 
@@ -3003,23 +3321,28 @@ def main() -> int:
 
     profile = "--profile" in sys.argv[1:]
     checks, launches, ms, bounds = flagship(torch, dev, card, sync, profile)
-    torch.cuda.empty_cache()
+    fresh(torch)
     (checks["channelize"], c3_launches, ms["channelize"],
      bounds["channelize"]) = config3(torch, dev, card, sync, checks, profile)
-    torch.cuda.empty_cache()
+    fresh(torch)
     (checks["shift"], by_path, ms["shift"], lib_shift,
      bounds["shift"]) = receive_options(torch, dev, card, sync, checks,
                                         profile)
-    torch.cuda.empty_cache()
+    fresh(torch)
     by_path6 = step6(torch, dev, card, sync, checks, profile)
-    torch.cuda.empty_cache()
+    fresh(torch)
     by_path7 = step7(torch, card)
     chk16, ms16, bound16, by_path8 = step8(torch, dev, card, sync, profile)
+    fresh(torch)
     by_path9 = step9(torch, dev, sync)
+    fresh(torch)
+    t10 = time.perf_counter()
+    by_path10 = step10(torch, dev, card, sync, profile)
+    print(f"step 10: {time.perf_counter() - t10:.1f} s", flush=True)
     # every driven path's run, each counted from 0
     by_path = {"demodulate(fused='auto')": launches,
                "channelized_demodulate(fused='auto')": c3_launches, **by_path,
-               **by_path6, **by_path7, **by_path8, **by_path9}
+               **by_path6, **by_path7, **by_path8, **by_path9, **by_path10}
 
     sources = {
         "detect": ("lora_tpu_torch/csrc/detect.cu",

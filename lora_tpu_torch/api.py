@@ -17,13 +17,14 @@ from .config import LoRaConfig
 
 from .models.decoder import (OK, SOFT_UNVERIFIED, STATUS_NAMES, DecodeResult,
                              decode)
-from .models.demodulator import (DemodResult, check_options, demodulate,
-                                 required_samples)
+from .models.demodulator import (DemodResult, _demod_whole, check_options,
+                                 demodulate, required_samples)
 from .models.encoder import encode
 from .models.modulator import modulate
 from .models.softdec import decode_soft, guard_soft_status, soft_symbols
 from .ops import channelizer as chz
 from .ops import cplx
+from .utils import debugcheck, jit
 
 __all__ = [
     "LoRaConfig",
@@ -109,25 +110,47 @@ def channelized_demodulate(wide, K: int, cfg: LoRaConfig,
     channelizer and demodulator on any device.  "bf16" channelizes with
     bf16=True (ops/channelizer.channelize: kernel D's bf16 route on the
     card, the bfloat16 product on the CPU, as lora_tpu rounds on a TPU and
-    off it) and demodulates as "auto"."""
+    off it) and demodulates as "auto".  On the card a block runs as one
+    captured program per static arguments (utils/jit.py), lora_tpu's
+    `_channelize_demod_step` (lora_tpu/api.py:62-94)."""
     check_options(fused)
-    wide = cplx.as_iq(wide, device)
+    armed = debugcheck.armed()
+    wide, dev = cplx.stage_iq(wide, device)
+    if state is not None:
+        state, _ = cplx.stage_iq(state, dev)
     squeeze = wide.dim() == 1
-    wb = wide[None] if squeeze else wide
+    dem, new_state = _channelize_demod_step(
+        wide[None] if squeeze else wide, state, K, cfg, taps_per_phase,
+        max_frames, fused, spectra or armed, dev)
+    if armed:
+        T = max(wide.shape[-1] // K, required_samples(cfg))
+        debugcheck.check_demod(dem, cfg, T)
+    if squeeze:
+        dem = DemodResult(**{f.name: None if getattr(dem, f.name) is None
+                             else getattr(dem, f.name)[0]
+                             for f in dataclasses.fields(dem)})
+    return dem, new_state
+
+
+@jit.program(static=("K", "cfg", "taps_per_phase", "max_frames", "fused",
+                     "spectra"), inplace=("wb",))
+def _channelize_demod_step(wb: torch.Tensor, state, K: int, cfg: LoRaConfig,
+                           taps_per_phase: int, max_frames: int, fused: str,
+                           spectra: bool, device: torch.device):
+    """Kernel D's filterbank and the demodulation of its S*K channels as
+    one program on `device`; the result has leading [S, K] axes."""
+    wb = wb.to(device)
+    if state is not None:
+        state = state.to(device)
     y, new_state = chz.channelize(
         wb, K, taps_per_phase, state=state, bf16=fused == "bf16",
         impl="xla" if fused == "off" else "auto")
     S, _, M = y.shape
-    dem = demodulate(y.reshape(S * K, M), cfg, max_frames=max_frames,
-                     fused=fused, spectra=spectra)
-    lead = (K,) if squeeze else (S, K)
-
-    def split(t):  # [S*K, ...] -> [*lead, ...]
-        return None if t is None else t.reshape(*lead, *t.shape[1:])
-
-    dem = DemodResult(**{f.name: split(getattr(dem, f.name))
-                         for f in dataclasses.fields(dem)})
-    return dem, new_state
+    dem = _demod_whole(y.reshape(S * K, M), cfg, False, max_frames,
+                       fused != "off", spectra, device)
+    split = lambda t: None if t is None else t.reshape(S, K, *t.shape[1:])
+    return DemodResult(**{f.name: split(getattr(dem, f.name))
+                          for f in dataclasses.fields(dem)}), new_state
 
 
 def loopback(payload, cfg: LoRaConfig, noise_amplitude: float = 0.0,

@@ -18,6 +18,7 @@ from ..config import (HEADER_RDD, N_HEADER_CODEWORDS,
                              N_HEADER_SYMBOLS, LoRaConfig)
 
 from ..ops import codes, cplx
+from ..utils import jit
 
 OK = 0
 DROP_HEADER_FEC = 1
@@ -57,17 +58,17 @@ class DecodeResult:
 
 def masked_crc16(data: torch.Tensor, length: torch.Tensor) -> torch.Tensor:
     """CRC16 over data[..., :length] with a per-packet length: a Python loop
-    over the static byte axis (lora_tpu/models/decoder.py:80-101)."""
+    over the static byte axis, a table step a byte (ops/codes.crc16_step);
+    a packet's register stops at its length, and its masking register is
+    read at its length (lora_tpu/models/decoder.py:80-101, bit for bit)."""
     data = data.long()
+    L = data.shape[-1]
+    active = torch.arange(L, device=data.device) < length[..., None]
     res = torch.zeros(data.shape[:-1], dtype=torch.int64, device=data.device)
-    v = torch.full_like(res, 0xFF)
-    for i in range(data.shape[-1]):
-        crc = codes.crc16_shift8(res)
-        v_n = (codes.xsum8(v & 0xB8) | (v << 1)) & 0xFF
-        active = i < length
-        res = torch.where(active, crc ^ data[..., i], res)
-        v = torch.where(active, v_n, v)
-    return codes.crc16_finish(res, v)
+    for i in range(L):
+        res = torch.where(active[..., i], codes.crc16_step(res, data[..., i]),
+                          res)
+    return codes.crc16_finish(res, torch.clamp(length, 0, L).long(), L)
 
 
 def _pad_last(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -79,20 +80,34 @@ def decode(symbols, cfg: LoRaConfig, num_symbols: int | None = None,
     """symbols int [B, S] (or [S]) -> DecodeResult; with
     cfg.interleaving=False the Gray-mapped symbols pass through.  A tensor
     is decoded where it lies; host data goes to `device` (the card when
-    None)."""
-    sym = cplx.as_tensor(symbols, device)
+    None).  On the card this runs as one captured program per (cfg,
+    num_symbols) and symbols' layout (utils/jit.py), lora_tpu's jitted
+    `decode` (lora_tpu/models/decoder.py:104)."""
+    sym, dev = cplx.stage(symbols, device)
     if num_symbols is None:
         num_symbols = sym.shape[-1]
     squeeze = sym.dim() == 1
-    sym = torch.atleast_2d(sym).long()
+    result = _decode(torch.atleast_2d(sym), cfg, num_symbols, dev)
+    if not squeeze:
+        return result
+    if isinstance(result, torch.Tensor):
+        return result[0]
+    return DecodeResult(**{f.name: getattr(result, f.name)[0]
+                           for f in dataclasses.fields(result)})
+
+
+@jit.program(static=("cfg", "num_symbols"))
+def _decode(sym: torch.Tensor, cfg: LoRaConfig, num_symbols: int,
+            device: torch.device):
+    """decode of symbols [B, S] on `device`, with no host sync."""
+    sym = sym.to(device).long()
     dev = sym.device
     ppm, cfg_rdd, sf = cfg.PPM, cfg.rdd, cfg.sf
 
     half = (1 << (sf - ppm)) // 2
     sym = codes.binary_to_gray((sym + half) >> (sf - ppm))
     if not cfg.interleaving:
-        out = sym.to(torch.int32)
-        return out[0] if squeeze else out
+        return sym.to(torch.int32)
 
     nbits = 4 + cfg_rdd
     nsym = ((num_symbols + nbits - 1) // nbits) * nbits
@@ -243,7 +258,7 @@ def decode(symbols, cfg: LoRaConfig, num_symbols: int | None = None,
         out_length = data_length
 
     i32 = lambda a: a.to(torch.int32)
-    result = DecodeResult(
+    return DecodeResult(
         data=all_bytes.to(torch.uint8),
         offset=i32(offset),
         length=i32(out_length),
@@ -254,7 +269,3 @@ def decode(symbols, cfg: LoRaConfig, num_symbols: int | None = None,
         fec_errors=i32(fec_errors),
         bad=i32(bad_count),
     )
-    if squeeze:
-        result = DecodeResult(**{f.name: getattr(result, f.name)[0]
-                                 for f in dataclasses.fields(result)})
-    return result

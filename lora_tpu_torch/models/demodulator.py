@@ -41,10 +41,10 @@ from ..ops import cplx
 from ..ops import cuda_demod, cuda_detect
 from ..ops import detect as det_ops
 from ..ops import shift as shift_ops
-from ..ops.cuda_demod import trunc_half
+from ..ops.cuda_demod import squelch, trunc_half
 from ..ops.tables import TRACK_ROWS, payload_rows
 from ..roadmap import no_counterpart
-from ..utils import debugcheck
+from ..utils import debugcheck, jit
 
 
 @dataclasses.dataclass
@@ -106,8 +106,8 @@ def _coarse(v, snr0, pwr, cfg: LoRaConfig):
     # the absolute floor rejects all-zero windows, whose 0/0 spectra read
     # bin 0 at "0 dB SNR"
     pair_pow = torch.minimum(pwr[:, :-1], pwr[:, 1:])
-    thresh = torch.tensor(cfg.thresh, dtype=torch.float32, device=v.device)
-    agree = (dist <= 2) & (pair_snr > thresh) & (pair_pow > -200.0)
+    agree = ((dist <= 2) & (pair_snr > squelch(cfg.thresh))
+             & (pair_pow > -200.0))
     return agree, pair_snr
 
 
@@ -178,10 +178,10 @@ def _align_multi(v, snr0, pwr, cfg: LoRaConfig, max_frames: int, T: int):
     valid = starts < n_pairs
     first_w = torch.clamp(starts, max=n_pairs - 1)
     # one batch of B*K rows: each candidate extends its own run over its
-    # channel's agreement map
-    t_cand, t0 = _extend_run(cfg, agree.repeat_interleave(K, dim=0),
-                             v.repeat_interleave(K, dim=0),
-                             first_w.reshape(-1), T)
+    # channel's agreement map (rows repeated by a broadcast view, which asks
+    # the card nothing, where repeat_interleave may read a count back)
+    rep = lambda a: a[:, None].expand(B, K, a.shape[-1]).reshape(B * K, -1)
+    t_cand, t0 = _extend_run(cfg, rep(agree), rep(v), first_w.reshape(-1), T)
     return t_cand.reshape(B, K), t0.reshape(B, K), valid
 
 
@@ -218,8 +218,7 @@ def _payload_epilogue(head: DemodResult, value, power, noise, t0,
                       cfg: LoRaConfig) -> DemodResult:
     """Squelch cut + packet framing over payload detections [..., mtu]; the
     squelched symbol is included in the packet."""
-    thresh = torch.tensor(cfg.thresh, dtype=torch.float32, device=power.device)
-    squelched = (power - noise) < thresh
+    squelched = (power - noise) < squelch(cfg.thresh)
     first_sq = _first_true(squelched)
     count = torch.where(squelched.any(-1),
                         torch.clamp(first_sq + 1, max=cfg.mtu), cfg.mtu)
@@ -286,7 +285,9 @@ def demodulate(x, cfg: LoRaConfig, debug: bool = False, max_frames: int = 1,
 
     fused="auto" runs the CUDA kernels for a CUDA tensor and their plain
     versions for a CPU tensor; "bf16" is "auto" (see the module's note);
-    "off" runs the plain versions anywhere.
+    "off" runs the plain versions anywhere.  On the card either route runs
+    as one captured program per static arguments (`_demod_whole`,
+    utils/jit.py); inside utils.jit.disable_jit() it runs op by op.
 
     Inside utils.debugcheck.debug_checks() the result is checked on the
     host before it is returned (DemodCheckError), and spectra are carried
@@ -294,13 +295,33 @@ def demodulate(x, cfg: LoRaConfig, debug: bool = False, max_frames: int = 1,
     check_options(fused)
     if max_frames < 1:
         raise ValueError(f"max_frames must be >= 1, got {max_frames}")
-    use_kernels = fused != "off"
     armed = debugcheck.armed()
     if armed and not debug:
         spectra = True
-    x = cplx.as_iq(x, device)
+    x, dev = cplx.stage_iq(x, device)
     squeeze = x.dim() == 1
-    xb = x[None] if squeeze else x
+    res = _demod_whole(x[None] if squeeze else x, cfg, debug, max_frames,
+                       fused != "off", spectra, dev)
+    if armed:
+        debugcheck.check_demod(res, cfg, max(x.shape[-1],
+                                              required_samples(cfg)))
+    if squeeze:
+        res = DemodResult(**{
+            f.name: None if getattr(res, f.name) is None
+            else getattr(res, f.name)[0] for f in dataclasses.fields(res)})
+    return res
+
+
+@jit.program(static=("cfg", "debug", "max_frames", "use_kernels", "spectra"),
+             inplace=("xb",))
+def _demod_whole(xb: torch.Tensor, cfg: LoRaConfig, debug: bool,
+                 max_frames: int, use_kernels: bool, spectra: bool,
+                 device: torch.device) -> DemodResult:
+    """The whole demodulation of buffers xb [B, T] on `device`, the
+    counterpart of lora_tpu's jitted `_demod_whole`
+    (lora_tpu/models/demodulator.py:652-663): the coarse search, the track
+    and payload stages and the epilogue, with no host sync."""
+    xb = xb.to(device)
     N = cfg.N
     need = required_samples(cfg)
     if xb.shape[-1] < need:
@@ -319,11 +340,4 @@ def demodulate(x, cfg: LoRaConfig, debug: bool = False, max_frames: int = 1,
     value, power, noise, mag2, dec, raw = _payload(
         xb, head.consumed, fine_total, cfg, use_kernels, debug, spectra)
     res = _payload_epilogue(head, value, power, noise, t0, cfg)
-    res = dataclasses.replace(res, dec=dec, fft_mag2=mag2, raw=raw)
-    if armed:
-        debugcheck.check_demod(res, cfg, T)
-    if squeeze:
-        res = DemodResult(**{
-            f.name: None if getattr(res, f.name) is None
-            else getattr(res, f.name)[0] for f in dataclasses.fields(res)})
-    return res
+    return dataclasses.replace(res, dec=dec, fft_mag2=mag2, raw=raw)

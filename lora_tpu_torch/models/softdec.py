@@ -29,14 +29,14 @@ import torch
 
 from ..config import (HEADER_RDD, N_HEADER_CODEWORDS, N_HEADER_SYMBOLS,
                       LoRaConfig)
-from ..ops import codes, cplx, tables
+from ..ops import codes, cplx
+from ..utils import jit
 from .decoder import OK, SOFT_UNVERIFIED, DecodeResult, decode
 
 
 def _word_metrics(mag2: torch.Tensor, cfg: LoRaConfig) -> torch.Tensor:
     """|FFT|^2 windows [..., N] -> word metrics [..., 2^ppm]."""
-    idx = torch.as_tensor(tables.bin_word_gather(cfg.sf, cfg.PPM),
-                          dtype=torch.int64, device=mag2.device)
+    idx = codes.lut("bin_word", mag2.device, cfg.sf, cfg.PPM)
     if idx.shape[1] == 1:  # ppm == sf: a pure permutation
         return mag2[..., idx[:, 0]]
     return mag2[..., idx].amax(-1)
@@ -62,8 +62,7 @@ def _deinterleave_llrs(llr: torch.Tensor, ppm: int, rdd: int) -> torch.Tensor:
     *lead, nsym, _ = llr.shape
     nblocks = nsym // nbits
     lb = llr[..., : nblocks * nbits, :].reshape(*lead, nblocks, nbits, ppm)
-    m_idx = torch.as_tensor(tables.deinterleave_gather(ppm, rdd),
-                            dtype=torch.int64, device=llr.device)
+    m_idx = codes.lut("deinterleave", llr.device, ppm, rdd)
     kk = torch.arange(nbits, device=llr.device)
     cw = lb[..., kk[None, :], m_idx]  # [..., nblocks, ppm, nbits]
     return cw.reshape(*lead, nblocks * ppm, nbits)
@@ -80,7 +79,7 @@ def _ml_codewords(llr: torch.Tensor, stream: torch.Tensor, rdd: int):
     (best score minus runner-up) float [..., n]."""
     nbits = 4 + rdd
     dev = llr.device
-    cand = torch.as_tensor(tables.ENC_LUTS[rdd], dtype=torch.int64, device=dev)
+    cand = codes.lut("enc", dev, rdd)
     patt = cand[None, :] ^ stream.long()[:, None]  # [n, 16]
     bits = (patt[..., None] >> torch.arange(nbits, device=dev)) & 1
     sgn = (2 * bits - 1).to(llr.dtype)  # [n, 16, nbits]
@@ -96,8 +95,7 @@ def _ml_codewords(llr: torch.Tensor, stream: torch.Tensor, rdd: int):
 
 
 def _whiten_stream(mode: int, lo: int, hi: int, rdd: int, device):
-    seq = tables.WHITEN_SEQ[mode, lo:hi] & ((1 << (4 + rdd)) - 1)
-    return torch.as_tensor(seq, dtype=torch.int64, device=device)
+    return codes.lut("whiten", device)[mode, lo:hi] & ((1 << (4 + rdd)) - 1)
 
 
 def soft_symbols(mag2, cfg: LoRaConfig, num_symbols: int | None = None,
@@ -111,14 +109,24 @@ def soft_symbols(mag2, cfg: LoRaConfig, num_symbols: int | None = None,
     interleaver block's codewords (the header and the first payload
     nibbles); later blocks are CRC-covered, and their mtu-padding slots tie
     at exactly 0.  A tensor is decoded where it lies; host data goes to
-    `device` (the card when None)."""
-    mag2 = cplx.as_tensor(mag2, device, torch.float32)
-    dev = mag2.device
-    ppm, rdd, sf = cfg.PPM, cfg.rdd, cfg.sf
-    if num_symbols is None:
-        num_symbols = mag2.shape[-2]
+    `device` (the card when None).  On the card this runs as one captured
+    program per (cfg, num_symbols) and mag2's layout (utils/jit.py),
+    lora_tpu's jitted `soft_symbols` (lora_tpu/models/softdec.py:146)."""
     if not cfg.interleaving:
         raise ValueError("soft decoding requires interleaving mode")
+    mag2, dev = cplx.stage(mag2, device, torch.float32)
+    if num_symbols is None:
+        num_symbols = mag2.shape[-2]
+    return _soft_symbols(mag2, cfg, num_symbols, dev)
+
+
+@jit.program(static=("cfg", "num_symbols"))
+def _soft_symbols(mag2: torch.Tensor, cfg: LoRaConfig, num_symbols: int,
+                  device: torch.device):
+    """soft_symbols of spectra on `device`, with no host sync."""
+    mag2 = mag2.to(device)
+    dev = mag2.device
+    ppm, rdd, sf = cfg.PPM, cfg.rdd, cfg.sf
     llr = _bit_llrs(_word_metrics(mag2, cfg), ppm)  # [..., S, ppm]
     nsym = ((num_symbols + (4 + rdd) - 1) // (4 + rdd)) * (4 + rdd)
     pad = nsym - llr.shape[-2]

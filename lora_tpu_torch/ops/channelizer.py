@@ -199,7 +199,7 @@ def upconvert(x, K: int, channel: int, T_out: int | None = None
     z = x.new_zeros((*lead, M, K))
     z[..., :, 0] = x
     z = z.reshape(-1, 1, M * K)
-    h = torch.from_numpy(tables.prototype(K) * K).to(x.device)
+    h = _interpolator(K, x.device)
     L = h.shape[0]
     # full convolution with h; conv1d correlates, so the taps are flipped
     w = h.flip(0).reshape(1, 1, L)
@@ -208,7 +208,21 @@ def upconvert(x, K: int, channel: int, T_out: int | None = None
     out = out.reshape(*lead, M * K + L - 1)
     delay = (L - 1) // 2
     out = out[..., delay : delay + T]
-    ang = 2 * np.pi * channel / K * np.arange(out.shape[-1])
-    mix = torch.complex(torch.from_numpy(np.cos(ang).astype(np.float32)),
-                        torch.from_numpy(np.sin(ang).astype(np.float32)))
-    return out * mix.to(x.device)
+    return out * _mixer(K, channel, out.shape[-1], x.device)
+
+
+@functools.lru_cache(maxsize=None)
+def _interpolator(K: int, device: torch.device) -> torch.Tensor:
+    """upconvert's interpolation filter, K times the prototype, float32 on
+    `device`."""
+    return torch.from_numpy(tables.prototype(K) * K).to(device)
+
+
+@functools.lru_cache(maxsize=8)
+def _mixer(K: int, channel: int, n: int, device: torch.device):
+    """e^{2 pi i channel/K m}, m < n, formed in float64 and rounded to
+    complex64, on `device`."""
+    ang = 2 * np.pi * channel / K * np.arange(n)
+    return torch.complex(torch.from_numpy(np.cos(ang).astype(np.float32)),
+                         torch.from_numpy(np.sin(ang).astype(np.float32))
+                         ).to(device)

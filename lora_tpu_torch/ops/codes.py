@@ -1,17 +1,39 @@
 """Vectorised bit-domain codecs over int tensors (port of
 lora_tpu/ops/codes.py): LUT FEC, Gray maps, whitening, the diagonal
 interleaver, the header checksum and the payload CRC16.  Leading axes are
-batch; the last axis is the codeword, nibble or byte stream."""
+batch; the last axis is the codeword, nibble or byte stream.
+
+The tables come from ops/tables.py through `lut`, uploaded once per device:
+a captured program (utils/jit.py) may not copy host data to the card, and
+its warm-up fills the cache."""
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from . import tables
 
+_TABLES = {
+    "enc": lambda rdd: tables.ENC_LUTS[rdd],
+    "dec": lambda rdd: tables.DEC_LUTS[rdd],
+    "dec_all": lambda: tables.DEC_LUTS.reshape(-1),
+    "whiten": lambda: tables.WHITEN_SEQ,
+    "interleave": tables.interleave_gather,
+    "deinterleave": tables.deinterleave_gather,
+    "bin_word": tables.bin_word_gather,
+    "crc16": tables.crc16_table,
+    "crc_whitening": tables.crc_whitening,
+}
 
-def _lut(table, device) -> torch.Tensor:
-    return torch.as_tensor(table, dtype=torch.int64, device=device)
+
+@functools.lru_cache(maxsize=None)
+def lut(name: str, device: torch.device, *args) -> torch.Tensor:
+    """The table `name` of ops/tables.py (built from args) as int64 on
+    `device`, uploaded at its first use there."""
+    return torch.as_tensor(_TABLES[name](*args), dtype=torch.int64,
+                           device=device)
 
 
 def binary_to_gray(x: torch.Tensor) -> torch.Tensor:
@@ -28,7 +50,7 @@ def gray_to_binary(x: torch.Tensor) -> torch.Tensor:
 
 def fec_encode(nibbles: torch.Tensor, rdd: int) -> torch.Tensor:
     """nibbles int [..., n] in [0, 16) -> codewords int64."""
-    return _lut(tables.ENC_LUTS[rdd], nibbles.device)[nibbles.long()]
+    return lut("enc", nibbles.device, rdd)[nibbles.long()]
 
 
 def fec_decode(codewords: torch.Tensor, rdd):
@@ -37,11 +59,11 @@ def fec_decode(codewords: torch.Tensor, rdd):
     header-announced rate)."""
     cw = codewords.long()
     if isinstance(rdd, int):
-        packed = _lut(tables.DEC_LUTS[rdd], cw.device)[cw]
+        packed = lut("dec", cw.device, rdd)[cw]
     else:
         # a corrupt header may announce rdd 5..7: the JAX gather fills those
         # lanes with INT_MIN, which unpacks to nibble 0, no error, not bad
-        flat = _lut(tables.DEC_LUTS.reshape(-1), cw.device)
+        flat = lut("dec_all", cw.device)
         idx = rdd.long() * 256 + cw
         inside = idx < flat.numel()
         packed = torch.where(inside, flat[torch.where(inside, idx, 0)], 0)
@@ -52,7 +74,7 @@ def whiten(codewords: torch.Tensor, bit_ofs: int, rdd) -> torch.Tensor:
     """XOR codewords [..., n] with the whitening stream from absolute
     position `bit_ofs`, masked to 4 + rdd bits; rdd may be a tensor."""
     n = codewords.shape[-1]
-    seq = _lut(tables.WHITEN_SEQ[:, bit_ofs : bit_ofs + n], codewords.device)
+    seq = lut("whiten", codewords.device)[:, bit_ofs : bit_ofs + n]
     if isinstance(rdd, int):
         stream = seq[1 if rdd == 1 else 0]
     else:
@@ -69,7 +91,7 @@ def interleave(codewords: torch.Tensor, ppm: int, rdd: int) -> torch.Tensor:
     cw = codewords[..., : nblocks * ppm].reshape(*lead, nblocks, ppm).long()
     kk = torch.arange(nbits, device=cw.device)
     bits = (cw[..., :, :, None] >> kk) & 1              # [..., x, ppm, nbits]
-    idx = _lut(tables.interleave_gather(ppm, rdd), cw.device)  # (nbits, ppm)
+    idx = lut("interleave", cw.device, ppm, rdd)  # (nbits, ppm)
     sym_bits = bits[..., idx, kk[:, None]]             # [..., x, nbits, ppm]
     weights = 1 << torch.arange(ppm, device=cw.device)
     return (sym_bits * weights).sum(-1).reshape(*lead, nblocks * nbits)
@@ -83,7 +105,7 @@ def deinterleave(symbols: torch.Tensor, ppm: int, rdd: int) -> torch.Tensor:
     sym = symbols[..., : nblocks * nbits].reshape(*lead, nblocks, nbits).long()
     mm = torch.arange(ppm, device=sym.device)
     sym_bits = (sym[..., :, :, None] >> mm) & 1         # [..., x, nbits, ppm]
-    m_idx = _lut(tables.deinterleave_gather(ppm, rdd), sym.device)
+    m_idx = lut("deinterleave", sym.device, ppm, rdd)
     kk = torch.arange(nbits, device=sym.device)
     cw_bits = sym_bits[..., kk[None, :], m_idx]         # [..., x, ppm, nbits]
     weights = 1 << kk
@@ -103,36 +125,29 @@ def header_checksum(h0: torch.Tensor, h1: torch.Tensor) -> torch.Tensor:
     return res
 
 
-def crc16_shift8(crc: torch.Tensor) -> torch.Tensor:
-    """8 steps of the 0x1021 shift register."""
-    for _ in range(8):
-        top = (crc >> 15) & 1
-        crc = ((crc << 1) & 0xFFFF) ^ (top * 0x1021)
-    return crc
+def crc16_step(res: torch.Tensor, byte: torch.Tensor) -> torch.Tensor:
+    """One byte of the payload CRC: 8 steps of the 0x1021 shift register
+    over res [...] (16-bit) as one step of tables.crc16_table, then the
+    byte [...] in [0, 256)."""
+    t = lut("crc16", res.device)
+    return ((res << 8) & 0xFFFF) ^ t[(res >> 8) & 0xFF] ^ byte
 
 
-def xsum8(t: torch.Tensor) -> torch.Tensor:
-    t = t ^ (t >> 4)
-    t = t ^ (t >> 2)
-    t = t ^ (t >> 1)
-    return t & 1
-
-
-def crc16_finish(res: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    res = res ^ v
-    v = (xsum8(v & 0xB8) | (v << 1)) & 0xFF
-    return (res ^ (v << 8)) & 0xFFFF
+def crc16_finish(res: torch.Tensor, n, L: int) -> torch.Tensor:
+    """The CRC from res after n of at most L bytes (an int, or an int
+    tensor of res's shape in [0, L]): res ^ V[n] ^ V[n + 1] << 8 with the
+    masking register V of tables.crc_whitening."""
+    v = lut("crc_whitening", res.device, L + 1)
+    return (res ^ v[n] ^ (v[n + 1] << 8)) & 0xFFFF
 
 
 def sx1272_data_checksum(data: torch.Tensor) -> torch.Tensor:
-    """Payload CRC16 over bytes [..., L] -> [...]: a Python loop over the
-    static byte axis, every packet advancing together (the JAX package's
-    `lax.scan`, lora_tpu/ops/codes.py:215-236)."""
+    """Payload CRC16 over bytes [..., L] in [0, 256) -> [...]: a Python loop
+    over the static byte axis, every packet advancing together, a table
+    step a byte (the JAX package's `lax.scan` of 8 register steps,
+    lora_tpu/ops/codes.py:215-236, bit for bit)."""
     data = data.long()
     res = torch.zeros(data.shape[:-1], dtype=torch.int64, device=data.device)
-    v = torch.full_like(res, 0xFF)
     for i in range(data.shape[-1]):
-        crc = crc16_shift8(res)
-        v = (xsum8(v & 0xB8) | (v << 1)) & 0xFF
-        res = crc ^ data[..., i]
-    return crc16_finish(res, v)
+        res = crc16_step(res, data[..., i])
+    return crc16_finish(res, data.shape[-1], data.shape[-1])

@@ -54,6 +54,29 @@ def as_iq(x, device=None) -> torch.Tensor:
     return torch.complex(t, torch.zeros_like(t))
 
 
+def _target(x, device) -> torch.device:
+    if isinstance(x, torch.Tensor) and device is None:
+        return x.device
+    return resolve_device(device)
+
+
+def stage(a, device=None, dtype=None) -> tuple[torch.Tensor, torch.device]:
+    """as_tensor for an entry point that runs as a captured program
+    (utils/jit.py): a tensor stays where it lies and host data becomes a
+    tensor on the host, which the program copies into a buffer of its own
+    on the card.  -> (tensor, the device the call runs on: `device`, else
+    the tensor's, else the card)."""
+    t = as_tensor(a, None if isinstance(a, torch.Tensor) else "cpu", dtype)
+    return t, _target(a, device)
+
+
+def stage_iq(x, device=None) -> tuple[torch.Tensor, torch.device]:
+    """as_iq as `stage` does as_tensor: -> (complex64 tensor where it lies,
+    or on the host for host data; the device the call runs on)."""
+    t = as_iq(x, None if isinstance(x, torch.Tensor) else "cpu")
+    return t, _target(x, device)
+
+
 def from_planar(re, im, device=None) -> torch.Tensor:
     """Planar float32 (re, im) arrays of any framework -> complex64 tensor."""
     re = as_tensor(re, device, torch.float32)

@@ -142,7 +142,7 @@ def filterbank_fir_plain(xp: torch.Tensor, K: int, taps_per_phase: int,
     lead = xp.shape[:-1]
     x2 = torch.view_as_real(xp[..., : (M + L - 1) * K].reshape(
         *lead, M + L - 1, K))
-    hp = torch.from_numpy(tables.fir_taps_flipped(K, L)).to(xp.device)
+    hp, _ = consts(K, L, xp.device)
     u = hp[L - 1, :, None] * x2[..., :M, :, :]
     for d in range(1, L):
         # fmaf(h, x, u): the float32 product is exact in float64, so the

@@ -18,6 +18,7 @@ channel b of the same x [B, T], and every output takes the offsets' shape.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import _cuda
@@ -29,6 +30,14 @@ from .tables import N_SCAN, TRACK_ROWS, N_TRACK_WIN
 def trunc_half(x: torch.Tensor) -> torch.Tensor:
     """C-style integer division by 2 (toward zero)."""
     return torch.div(x, 2, rounding_mode="trunc")
+
+
+def squelch(thresh: float) -> float:
+    """The squelch threshold rounded to float32, as a Python float: a
+    float32 tensor compares against it as against a float32 tensor holding
+    thresh, and nothing is uploaded (a host-to-device copy of a Python
+    number waits for the card, and a captured program may not make one)."""
+    return float(np.float32(thresh))
 
 
 def _signed(v: torch.Tensor, N: int) -> torch.Tensor:
@@ -68,7 +77,7 @@ def track_plain(x: torch.Tensor, t0: torch.Tensor, sync: int, thresh: float,
     # the K candidates of every channel scan as one flat batch
     xs = xs.reshape(-1, N_TRACK_WIN, N)
     B = xs.shape[0]
-    thr = torch.tensor(thresh, dtype=torch.float32, device=dev)
+    thr = squelch(thresh)
     sync0, sync1 = sync >> 4, sync & 0xF
     state = torch.zeros(B, dtype=torch.int32, device=dev)
     ferr = torch.zeros(B, dtype=torch.float32, device=dev)

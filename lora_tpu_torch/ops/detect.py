@@ -38,10 +38,21 @@ def rotator(ferr, N: int, device=None) -> torch.Tensor:
     thread's samples (csrc/detect.cuh: two sincosf a column, then complex
     products), within 6.4e-6 of the exact rotator after at most 31 steps
     (tests/test_torch_fft_model.py)."""
+    ang = rotator_angle(ferr, N, device)
+    return torch.complex(torch.cos(ang), torch.sin(ang))
+
+
+def rotator_angle(ferr, N: int, device=None) -> torch.Tensor:
+    """The rotator's angle (c * ferr) * n, float32 [..., N]; a number ferr
+    has its product c * ferr formed on the host in float32, so nothing is
+    uploaded (a captured program may not copy host data to the card)."""
+    c = np.float32(-2 * math.pi / N)
+    if not isinstance(ferr, torch.Tensor) and np.ndim(ferr) == 0:
+        n = torch.arange(N, dtype=torch.float32, device=device)
+        return float(np.float32(ferr) * c) * n
     ferr = torch.as_tensor(ferr, dtype=torch.float32, device=device)
     n = torch.arange(N, dtype=torch.float32, device=ferr.device)
-    ang = (ferr * np.float32(-2 * math.pi / N))[..., None] * n
-    return torch.complex(torch.cos(ang), torch.sin(ang))
+    return (ferr * c)[..., None] * n
 
 
 def dechirp(x: torch.Tensor, down: bool = False, ferr=None) -> torch.Tensor:

@@ -38,7 +38,8 @@ def _flat(g: torch.Tensor, r: torch.Tensor, mtu: int, check_range: bool):
     """Check the contract shared by the kernel and its plain version and
     flatten the leading axes: g [*lead, R, N], r [*lead] ->
     (g [BF, R, N], r [BF], lead).  check_range reads r's extremes on the
-    host, which stalls it when r lies on the card."""
+    host, which stalls it when r lies on the card; under a CUDA graph's
+    capture it is a device-side assertion instead."""
     if g.dim() < 3:
         raise ValueError(f"shift_windows: rows of shape {tuple(g.shape)}, "
                          "expected [B, *k, R, N]")
@@ -53,10 +54,15 @@ def _flat(g: torch.Tensor, r: torch.Tensor, mtu: int, check_range: bool):
                         f"got {r.dtype}")
     BF = math.prod(lead)
     if BF and check_range:
-        lo, hi = (int(v) for v in torch.aminmax(r))
-        if lo < 0 or hi >= N:
-            raise ValueError(f"shift_windows: r in [{lo}, {hi}], expected "
-                             f"[0, {N})")
+        if r.is_cuda and torch.cuda.is_current_stream_capturing():
+            # a captured program cannot read r back: the card asserts it
+            torch._assert_async(((r >= 0) & (r < N)).all(),
+                                f"shift_windows: r outside [0, {N})")
+        else:
+            lo, hi = (int(v) for v in torch.aminmax(r))
+            if lo < 0 or hi >= N:
+                raise ValueError(f"shift_windows: r in [{lo}, {hi}], "
+                                 f"expected [0, {N})")
     return g.reshape(BF, R, N), r.reshape(BF), tuple(lead)
 
 

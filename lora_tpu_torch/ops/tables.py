@@ -63,6 +63,27 @@ WHITEN_SEQ = np.stack([
 ])
 
 
+@functools.lru_cache(maxsize=None)
+def crc16_table() -> np.ndarray:
+    """T[h] = 8 steps of the 0x1021 shift register from h << 8, int32 [256].
+    The register is linear, so 8 steps from any 16-bit res are one table
+    step: ((res << 8) & 0xFFFF) ^ T[res >> 8] (the low byte only moves up)."""
+    return np.array([bitref._crc16_shift8(h << 8) for h in range(256)],
+                    np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def crc_whitening(n: int) -> np.ndarray:
+    """V[i] for i in [0, n]: the payload CRC's 8-bit masking register after
+    i bytes, from 0xFF (LoRaCodes.hpp:80-93).  It does not depend on the
+    data, so the register after a packet of L bytes is V[L], and the CRC's
+    last step reads V[L + 1]."""
+    v = [0xFF]
+    for _ in range(n):
+        v.append((bitref._xsum8(v[-1] & 0xB8) | (v[-1] << 1)) & 0xFF)
+    return np.array(v, np.int32)
+
+
 def binary_to_gray_np(x: np.ndarray) -> np.ndarray:
     """Gray map (lora_tpu/ops/codes.py:69-70)."""
     return x ^ (x >> 1)

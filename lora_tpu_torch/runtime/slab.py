@@ -10,13 +10,13 @@ is zero-padded to the slab size, so that every slab has one shape.
 The run is bound by the host.  Filling a slab, the conversion of planar
 host arrays into a complex64 buffer, takes far longer than the slab's
 device work, so a thread fills slab k+1 while slab k is copied,
-demodulated and read back.  Slab k+1 is copied and launched before slab k
-is read back, but `demodulate` itself blocks the host on the copies of its
-squelch threshold: by the time it returns, most of its kernels have run,
-and only the tail of slab k+1's work overlaps slab k's readback.  On one
-stream the copy of a slab cannot overlap the kernels of the one before
-(`chip_smoke.py --profile`, step 6b, measures both: the device's idle
-share and the copy time over kernels).
+demodulated and read back.  Each slab goes to `demodulate` as the pinned
+host buffer itself: on the card its copy lands in the captured program's
+own input buffer (utils/jit.py), and every slab replays one graph.  Slab
+k+1 is copied and launched, with no host sync, before slab k is read back.
+On one stream the copy of a slab cannot overlap the kernels of the one
+before (`chip_smoke.py --profile`, step 6b, measures both: the device's
+idle share and the copy time over kernels).
 """
 
 from __future__ import annotations
@@ -75,10 +75,9 @@ def demodulate_bank(re: np.ndarray, im: np.ndarray, cfg: LoRaConfig,
             slot, host = ahead.result()
             if s + slab < B:
                 ahead = filler.submit(fill, s + slab)
-            x = host.to(dev, non_blocking=slot is not None)
+            r = demodulate(host, cfg, max_frames=max_frames, device=dev)
             if slot is not None:
                 staging.sent(slot, dev)
-            r = demodulate(x, cfg, max_frames=max_frames)
             if pending is not None:
                 outs.append(_to_host(pending))  # slab k is read after k+1
             pending = r

@@ -14,7 +14,10 @@ end, so that no window wraps.  Host blocks reach the ring through pinned
 staging buffers (runtime/staging.py) and a non_blocking copy.  Everything
 runs on the device's current stream, so a block appended while a step is
 pending (pump) is copied after that step's window gather, and the ring a
-step reads is never changed or freed under it.
+step reads is never changed or freed under it.  A step is one program
+(`_step`, utils/jit.py): on the card one captured graph that reads the ring
+in place, the channels' slots its one small input, so that a ring that has
+not grown replays one graph a step.
 
 `StreamDemodulator.offsets` and the ring's contents describe the progress
 completely: save_state / load_state write and read the JAX package's .npz
@@ -33,8 +36,10 @@ import torch
 
 from ..config import LoRaConfig
 from ..models.decoder import OK, decode
-from ..models.demodulator import demodulate, required_samples
+from ..models.demodulator import _demod_whole, check_options, required_samples
+from ..models.softdec import soft_symbols
 from ..ops import cplx
+from ..utils import debugcheck, jit
 from .staging import Staging
 
 
@@ -125,19 +130,57 @@ class _Ring:
         return torch.cat([self.buf[:, i : self.cap],
                           self.buf[:, : W - k]], dim=1)
 
+    def slots(self, offs) -> torch.Tensor:
+        """The store's slots of global offsets [B] (host ints), int64 on the
+        host: the step's small input."""
+        return torch.from_numpy(np.asarray(offs, np.int64) % self.cap)
+
     def gather(self, offs, W: int) -> torch.Tensor:
         """Per-channel windows: global offsets [B] (host ints) -> complex64
         [B, W] (W <= window), one gather over the store's windows."""
         if W > self.window:
             raise ValueError(f"window {W} > the ring's {self.window}")
-        dev = self.buf.device
-        slots = torch.as_tensor(np.asarray(offs, np.int64) % self.cap,
-                                device=dev)
-        rows = torch.arange(self.buf.shape[0], device=dev)
-        return self.buf.unfold(1, W, 1)[rows, slots]
+        return windows(self.buf, self.slots(offs).to(self.buf.device), W)
 
     def trim(self, new_base: int) -> None:
         self.base = min(max(self.base, new_base), self.end)
+
+
+def windows(buf: torch.Tensor, slots: torch.Tensor, W: int) -> torch.Tensor:
+    """buf [B, cap + window - 1] and one slot a row [B] -> the rows'
+    windows [B, W], one gather over the store's windows."""
+    rows = torch.arange(buf.shape[0], device=buf.device)
+    return buf.unfold(1, W, 1)[rows, slots]
+
+
+_FIELDS = ("found", "payload_complete", "t_sync", "consumed", "count",
+           "freq_error", "found_pre", "t_candidate")
+
+
+@jit.program(static=("cfg", "window", "max_frames", "spectra", "soft",
+                     "fused"), inplace=("buf",))
+def _step(buf: torch.Tensor, slots: torch.Tensor, cfg: LoRaConfig,
+          window: int, max_frames: int, spectra: bool, soft: bool,
+          fused: str, device: torch.device):
+    """One device step as one program: every channel's window cut from the
+    ring at its slot, demodulated (models/demodulator._demod_whole), with
+    soft=True the ML symbols (models/softdec.soft_symbols), and the fields
+    the host decisions read packed into one int32 tensor [B, K, n] ->
+    (DemodResult, packed)."""
+    win = windows(buf, slots.to(device), window)
+    dem = _demod_whole(win, cfg, False, max_frames, fused != "off", spectra,
+                       device)
+    B, K = buf.shape[0], max_frames
+    cols = [getattr(dem, f).reshape(B, K).to(torch.int32) for f in _FIELDS]
+    cols += [getattr(dem, f).reshape(B, K).view(torch.int32)
+             for f in ("snr", "power")]
+    parts = [torch.stack(cols, -1),
+             dem.symbols.reshape(B, K, -1).to(torch.int32)]
+    if soft:
+        ssym, smarg = soft_symbols(dem.fft_mag2, cfg, device=device)
+        parts += [ssym.reshape(B, K, -1),
+                  smarg.reshape(B, K, 1).view(torch.int32)]
+    return dem, torch.cat(parts, -1)
 
 
 def _host_block(block) -> tuple:
@@ -170,8 +213,12 @@ class StreamDemodulator:
 
     def __init__(self, cfg: LoRaConfig, channels: int, max_frames: int = 1,
                  exact_advance: bool = False, soft: bool = False,
-                 observer=None, device=None):
+                 observer=None, device=None, fused: str = "auto"):
+        check_options(fused)
         self.cfg = cfg
+        # the demodulator's route (models/demodulator.demodulate): "off"
+        # holds the kernels' steps against the plain versions on the card
+        self.fused = fused
         self.B = channels
         self.device = cplx.resolve_device(device)
         # observer(step_dem, frames, offsets): called after every device
@@ -250,12 +297,17 @@ class StreamDemodulator:
 
     # -- processing ----------------------------------------------------------
     def _step_begin(self):
-        """Cut the current windows and demodulate them.  `demodulate` blocks
-        the host on the copies of its squelch threshold, so most of the
-        step's kernels have run when this returns."""
-        win = self._ring.gather(self.offsets, self.window)
-        return demodulate(win, self.cfg, max_frames=self.max_frames,
-                          spectra=self.soft)
+        """Launch the current step: one program (`_step`, captured on the
+        card) cuts every channel's window, demodulates it and packs what
+        the decisions read.  It makes no host sync, so the step's kernels
+        may still run when this returns.  -> (DemodResult, packed)."""
+        spectra = self.soft or debugcheck.armed()
+        step = _step(self._ring.buf, self._ring.slots(self.offsets), self.cfg,
+                     self.window, self.max_frames, spectra, self.soft,
+                     self.fused, self.device)
+        if debugcheck.armed():
+            debugcheck.check_demod(step[0], self.cfg, self.window)
+        return step
 
     def step(self) -> list[Frame]:
         """One device step: demodulate the current window of every channel."""
@@ -263,25 +315,11 @@ class StreamDemodulator:
             return []
         return self._step_end(self._step_begin())
 
-    def _fetch(self, dem) -> dict:
+    def _fetch(self, packed) -> dict:
         """The step's fields as host numpy [B, K, ...], in one copy."""
-        B, K = self.B, self.max_frames
-        names = ("found", "payload_complete", "t_sync", "consumed", "count",
-                 "freq_error", "found_pre", "t_candidate")
-        cols = [getattr(dem, f).reshape(B, K).to(torch.int32) for f in names]
-        cols += [getattr(dem, f).reshape(B, K).view(torch.int32)
-                 for f in ("snr", "power")]
-        parts = [torch.stack(cols, -1), dem.symbols.reshape(B, K, -1).to(
-            torch.int32)]
-        if self.soft:
-            from ..models.softdec import soft_symbols
-
-            ssym, smarg = soft_symbols(dem.fft_mag2, self.cfg)
-            parts += [ssym.reshape(B, K, -1),
-                      smarg.reshape(B, K, 1).view(torch.int32)]
-        host = torch.cat(parts, -1).cpu().numpy()
-        mtu = dem.symbols.shape[-1]
-        out = {f: host[..., i] for i, f in enumerate(names)}
+        host = packed.cpu().numpy()
+        mtu = self.cfg.mtu
+        out = {f: host[..., i] for i, f in enumerate(_FIELDS)}
         out["snr"] = host[..., 8].view(np.float32)
         out["power"] = host[..., 9].view(np.float32)
         out["symbols"] = host[..., 10 : 10 + mtu]
@@ -291,10 +329,11 @@ class StreamDemodulator:
             out["confidence"] = host[..., -1].view(np.float32)
         return out
 
-    def _step_end(self, dem) -> list[Frame]:
+    def _step_end(self, step) -> list[Frame]:
         """Read a launched step's results, emit frames, advance."""
         K = self.max_frames
-        f = self._fetch(dem)
+        dem, packed = step
+        f = self._fetch(packed)
         found, complete, t_sync = f["found"], f["payload_complete"], f["t_sync"]
         consumed, counts, ferr = f["consumed"], f["count"], f["freq_error"]
         found_pre, t_cand = f["found_pre"], f["t_candidate"]
@@ -379,13 +418,13 @@ class StreamDemodulator:
         into a queue of at most `prefetch` blocks, while this thread, which
         owns the ring and the device, runs the steps and the per-channel
         decisions.  This thread appends the next block after step k's
-        launch and before it reads step k back; as `_step_begin` has waited
-        on the step's squelch copies by then, the block's copy to the card
-        does not overlap the step's kernels (`chip_smoke.py --profile`
-        measures it, step 6a): what runs in parallel is the host's
-        conversion of blocks.  Yields frames in order; an exception of the
-        source re-raises here.  A consumer that stops early releases the
-        ingest thread within its 0.2 s poll."""
+        launch and before it reads step k back: the launch makes no host
+        sync, so the host takes the next block while the step runs, and
+        the block's copy to the card queues behind the step on the device's
+        stream (`chip_smoke.py --profile` measures it, step 6a).  Yields
+        frames in order; an exception of the source re-raises here.  A
+        consumer that stops early releases the ingest thread within its
+        0.2 s poll."""
         q: "queue.Queue[tuple[str, object]]" = queue.Queue(
             maxsize=max(prefetch, 1))
         stop = threading.Event()

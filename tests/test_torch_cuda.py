@@ -3,8 +3,9 @@ at small shapes and at every window size or channel count the kernels
 take, plus the demodulator and the channelized front end on both routes,
 and the streaming runtime's device parts (the mirrored ring, the pinned
 staging rule, streams through feed and pump, chunked resampling, the DC
-blocker, slabs) against the same code on the CPU, and the multi-device
-paths on ranks that share the card against one process.  Marked `cuda`: each
+blocker, slabs) against the same code on the CPU, the multi-device
+paths on ranks that share the card against one process, and the captured
+programs (utils/jit.py) against their calls under disable_jit().  Marked `cuda`: each
 test asks the `dev` fixture for the card and skips without one (the
 kernels have no CPU mode).
 The machine with the card has no jax, and tests/conftest.py imports it, so
@@ -1014,3 +1015,189 @@ def test_bench_e2e_two_slabs_on_card(dev, mode, groups):
     assert comp["h2d_GBs_measured"] > 0
     assert comp["link_bytes_per_sample"] == (8 if mode == "host-convert"
                                              else 4)
+
+
+# --------------------------------------------------------------------------
+# captured programs (utils/jit.py): CUDA graphs against the eager route
+# --------------------------------------------------------------------------
+
+def _same(a, b):
+    """Every field of two results (or two tensors) bit-equal."""
+    import dataclasses
+
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    if isinstance(a, tuple):
+        return all(_same(x, y) for x, y in zip(a, b))
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if (x is None) != (y is None) or (x is not None
+                                          and not torch.equal(x, y)):
+            return False
+    return True
+
+
+def _program_case(name, sf, dev):
+    """(program object, call(x), x resident on the card, kernels per call)
+    for one captured program at a small SF7/SF8 bank."""
+    from lora_tpu_torch.models import decoder as tdec
+    from lora_tpu_torch.models import softdec as tsoft
+
+    cfg = lora_tpu_torch.LoRaConfig(sf=sf, cr="4/8", ampl=1.0, crc_check=True)
+    cfg = cfg.replace(mtu=cfg.num_symbols(6))
+    rng = np.random.default_rng(30 + sf)
+    bank, _ = _two_frames(cfg, rng, 6, 6)
+    bank = torch.as_tensor(bank, device=dev)
+    if name == "demodulate":
+        return (dm._demod_whole, lambda x: api.demodulate(x, cfg), bank,
+                (1, 1, 1, 0, 0))
+    dem = api.demodulate(bank, cfg, spectra=True)
+    if name == "decode":
+        return (tdec._decode, lambda x: api.decode(x, cfg),
+                dem.symbols.clone(), (0,) * 5)
+    if name == "soft_symbols":
+        return (tsoft._soft_symbols, lambda x: api.soft_symbols(x, cfg),
+                dem.fft_mag2.clone(), (0,) * 5)
+    K = 16
+    wide = crandn(rng, (2, K * api.required_samples(cfg)), dev)
+    return (api._channelize_demod_step,
+            lambda x: api.channelized_demodulate(x, K, cfg), wide,
+            (1, 1, 1, 0, 1))
+
+
+@pytest.mark.parametrize("sf", [7, 8])
+@pytest.mark.parametrize("name", ["demodulate", "decode", "soft_symbols",
+                                  "channelized_demodulate"])
+def test_captured_program_replays_as_the_eager_call(dev, name, sf):
+    """One capture a key; each replay bit-equal to the call under
+    disable_jit(); new data written into the input in place gives the new
+    answer; a result already returned does not change on the next call;
+    the kernels' launches counted once a call, captured or not."""
+    from lora_tpu_torch.utils import jit
+
+    prog, call, x, per_call = _program_case(name, sf, dev)
+    wrappers = (cuda_detect.dechirp_detect, cuda_demod.track,
+                cuda_demod.payload_detect, shift_ops.shift_windows,
+                cuda_channelize.filterbank)
+    jit.clear()
+    with jit.disable_jit():
+        want = call(x)
+    c0, before = prog.captures, [w.launches for w in wrappers]
+    got = [call(x) for _ in range(3)]
+    assert prog.captures == c0 + 1 and prog.replays >= 2
+    assert [w.launches - n for w, n in zip(wrappers, before)] == [
+        3 * k for k in per_call]
+    assert all(_same(g, want) for g in got)
+    # new data in place: the next replay reads it (decode and soft_symbols
+    # copy their input into the program's buffer, the banks are read in
+    # place); the results returned before stay as they were
+    y = x.flip(0).clone()
+    with jit.disable_jit():
+        want_y = call(y)
+    x.copy_(y)
+    again = call(x)
+    assert prog.captures == c0 + 1
+    assert _same(again, want_y)
+    assert all(_same(g, want) for g in got)
+
+
+def test_captured_demodulate_replays_make_no_host_sync(dev):
+    """A replay on a resident bank makes no host sync, for the plain call,
+    the spectra and the max_frames = 3 paths and their decoders."""
+    from lora_tpu_torch.utils import jit
+
+    cfg = lora_tpu_torch.LoRaConfig(sf=8, cr="4/8", ampl=1.0, crc_check=True)
+    cfg = cfg.replace(mtu=cfg.num_symbols(6))
+    x, _ = _two_frames(cfg, np.random.default_rng(40), 6, 6)
+    x = torch.as_tensor(x, device=dev)
+    calls = (lambda: api.demodulate(x, cfg),
+             lambda: api.decode_soft(
+                 api.demodulate(x, cfg, spectra=True).fft_mag2, cfg),
+             lambda: api.decode(api.demodulate(
+                 x, cfg, max_frames=3, fused="off").symbols.reshape(
+                     -1, cfg.mtu), cfg))
+    for c in calls:
+        c()
+    torch.cuda.synchronize()
+    n = jit.captures()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for c in calls:
+            c()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert jit.captures() == n
+
+
+def test_failed_capture_raises_on_card(dev):
+    """A program that reads the card back cannot be captured: the call
+    raises, and the card goes on working."""
+    from lora_tpu_torch.utils import jit
+
+    @jit.program()
+    def reads_back(x, device):
+        return x * int(x.sum())
+
+    x = torch.ones(4, device=dev)
+    with pytest.raises(Exception, match="captur"):
+        reads_back(x, dev)
+    assert len(reads_back) == 0
+    with jit.disable_jit():
+        assert reads_back(x, dev).tolist() == [4.0] * 4
+
+
+def test_demodulate_three_frames_routes_agree_on_card(dev):
+    """max_frames=3 on buffers with two frames: fused='auto' (captured and
+    under disable_jit) against 'off', every field; the third slot empty."""
+    from lora_tpu_torch.utils import jit
+
+    cfg = lora_tpu_torch.LoRaConfig(sf=7, cr="4/8", ampl=1.0, crc_check=True)
+    cfg = cfg.replace(mtu=cfg.num_symbols(6))
+    x, payload = _two_frames(cfg, np.random.default_rng(41), 6, 6)
+    x = torch.as_tensor(x, device=dev)
+    auto = [api.demodulate(x, cfg, max_frames=3) for _ in range(2)]
+    with jit.disable_jit():
+        eager = api.demodulate(x, cfg, max_frames=3)
+    off = api.demodulate(x, cfg, max_frames=3, fused="off")
+    assert _same(auto[0], eager) and _same(auto[1], eager)
+    for f in ("found", "symbols", "count", "t_sync", "consumed", "freq_error",
+              "t_candidate", "payload_complete"):
+        assert torch.equal(getattr(eager, f), getattr(off, f)), f
+    assert bool(eager.found[:, :2].all()) and not bool(eager.found[:, 2].any())
+    got = api.extract_payloads(api.decode(eager.symbols[:, :2].reshape(
+        12, -1), cfg))
+    assert got == [bytes(p) for p in payload.reshape(12, -1)]
+
+
+def test_slabs_and_stream_steps_replay_one_graph_on_card(dev):
+    """demodulate_bank copies each pinned slab into one program's buffer
+    (one capture for every slab), and a stream's steps replay one graph
+    while its ring keeps its size."""
+    from lora_tpu_torch.models.decoder import OK
+    from lora_tpu_torch.runtime import StreamDemodulator, decode_frames
+    from lora_tpu_torch.runtime import demodulate_bank, stream
+    from lora_tpu_torch.utils import jit
+
+    cfg = lora_tpu_torch.LoRaConfig(sf=7, cr="4/8", ampl=1.0, crc_check=True)
+    cfg = cfg.replace(mtu=cfg.num_symbols(6))
+    rng = np.random.default_rng(42)
+    x, payload = _two_frames(cfg, rng, 10, 6)
+    jit.clear()
+    c0 = dm._demod_whole.captures
+    got = demodulate_bank(x.real, x.imag, cfg, slab=4, device=dev)
+    assert dm._demod_whole.captures == c0 + 1
+    with jit.disable_jit():
+        want = demodulate_bank(x.real, x.imag, cfg, slab=4, device=dev)
+    assert _same(got, want)
+    for kw in ({}, {"soft": True}, {"max_frames": 3}):
+        c0 = stream._step.captures
+        sd = StreamDemodulator(cfg, 10, device=dev, **kw)
+        cap = sd._ring.cap
+        blocks = (x[:, i : i + 1500] for i in range(0, x.shape[1], 1500))
+        frames = decode_frames(list(sd.pump(blocks)) + sd.flush(), cfg, dev)
+        grown = sd._ring.cap != cap
+        assert stream._step.captures - c0 == 1 + int(grown)
+        ok = sorted((f.channel, f.payload) for f in frames if f.status == OK)
+        assert ok == sorted((b, bytes(payload[b, j])) for b in range(10)
+                            for j in range(2)), kw

@@ -27,7 +27,7 @@ for name in ("ops.channelizer", "ops.cuda_channelize", "roadmap", "config",
              "tools.bench_e2e", "tools.bench_soft", "tools.bench_decode",
              "tools.bench_stream", "examples.wideband_rx",
              "examples.lora_simulation", "examples.modulation_explained",
-             "examples.lora_sdr_relay", "examples.rx_rn2483"):
+             "examples.lora_sdr_relay", "examples.rx_rn2483", "utils.jit"):
     assert "lora_tpu_torch." + name in sys.modules, name
 # the radio examples' SDR module and plotting load only when they run
 assert "SoapySDR" not in sys.modules and "matplotlib" not in sys.modules
