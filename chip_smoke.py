@@ -204,8 +204,8 @@
       over 10,240 channels in the planar int16 mode, then 2 slabs in the
       host-convert and interleaved modes and with --mixed-sf: every frame
       found and decoded ok in each; the record, the compute-only rate and
-      the measured host-to-device rate printed (the wire is built in a
-      thread during 9a);
+      the measured host-to-device rate printed (the wire is built before
+      9a, outside every counted run);
    c. bench_soft and bench_decode at B = 2048, SF10, each path gated on
       every frame byte-exact before it is timed;
    d. bench_stream's bench_pump at its card defaults (every pass the same
@@ -227,12 +227,29 @@
    events, median, min and max of 14 calls each, in the order eager,
    captured, captured, eager), with --profile each one's idle share
    (utils.trace.session), and the memory the flagship graph's pool holds.
+11. The transmit half at the flagship bank (4096 frames of 32 bytes, SF10
+   CR 4/8, seed 1234): encode's first call and a replay (under
+   torch.cuda.set_sync_debug_mode("error")) bit-equal to its call under
+   disable_jit(); encode then modulate counted from 0: kernel F (modulate)
+   launched once and nothing else; kernel F bit-equal to modulate_plain
+   (were the card's cosf/sinf and torch's cos/sin ever to part, the
+   largest difference is printed with the reason and held to 2.4e-7);
+   the F-built bank and the plain-built bank through the same impair and
+   noise: equal demodulate decisions and every frame byte-exact through
+   decode (kernels A, B, C, not F); dcblock captured bit-equal to
+   disable_jit() on two replay-sized blocks with the state across the
+   seam, a replay free of host syncs; times (CUDA events, median, min
+   and max of 14 calls in the order eager, captured, captured, eager) of
+   encode eager and captured, modulate plain and kernel F, dcblock eager
+   and captured; the peak device memory of modulate on each route.
 
 On the card every call of these entry points in steps 3 to 9 runs
 captured too (its first call at a key is the warm-up, whose result it
-returns); each step starts with the programs' caches cleared.
+returns); each step starts with the programs' caches cleared.  Paths that
+build their own bank on the card (9a, 9c, 9d) launch kernel F too; every
+receive path reads 0 for it.
 
-Prints the kernels' JSON line (kernels A to E: launches summed over the
+Prints the kernels' JSON line (kernels A to F: launches summed over the
 driven paths, step 6's StreamDemodulator.pump, demodulate_bank and both
 replays, step 7's paths (summed over their ranks), step 8's and step 9's
 among them, and, in launches_by_path, of each path's run alone, every
@@ -241,8 +258,9 @@ the kernel's, the plain version's and, for kernel E, one PyTorch call's
 time, and the bound: the larger of the bytes each input and output must
 move over 3.35 TB/s and the float32 operations over 67 TFLOP/s; kernel D's
 row carries its bf16 route's error, times, bound, route and the matmul
-yardstick under "bf16"; every other number of a row is measured in this
-run), then {"ok": true, "device": {...}}
+yardstick under "bf16"; kernel F's row, "replaces" the XLA fusion it
+stands for, no pallas_call; every other number of a row is measured in
+this run), then {"ok": true, "device": {...}}
 last.  Any failure raises and exits non-zero.  Imports no jax.
 """
 
@@ -546,6 +564,27 @@ def run_times(fn) -> list:
     return times
 
 
+def in_turns(run_a, run_b):
+    """(ms of run_a, ms of run_b): RUNS CUDA-event calls each, twice, in
+    the order a, b, b, a, each set after a warm-up call."""
+    ms = ([], [])
+    for i in (0, 1, 1, 0):
+        fn = (run_a, run_b)[i]
+        fn()
+        ms[i].extend(run_times(fn))
+    return ms
+
+
+def unjitted(fn):
+    """fn called under utils.jit.disable_jit(): the eager route."""
+    from lora_tpu_torch.utils import jit
+
+    def run():
+        with jit.disable_jit():
+            return fn()
+    return run
+
+
 def timed(fn, sync):
     """Median ms of RUNS calls after one warm-up, by CUDA events."""
     fn()
@@ -579,8 +618,9 @@ def peak_above(fn, sync) -> float:
 
 
 def kernel_wrappers() -> dict:
-    """The wrapper of each kernel, A to E, by the name of its JSON row."""
+    """The wrapper of each kernel, A to F, by the name of its JSON row."""
     from lora_tpu_torch.ops import cuda_channelize, cuda_demod, cuda_detect
+    from lora_tpu_torch.ops import cuda_modulate
     from lora_tpu_torch.ops import shift as shift_ops
 
     return {
@@ -589,6 +629,7 @@ def kernel_wrappers() -> dict:
         "payload": cuda_demod.payload_detect,
         "channelize": cuda_channelize.filterbank,
         "shift": shift_ops.shift_windows,
+        "modulate": cuda_modulate.frame,
     }
 
 
@@ -2859,13 +2900,16 @@ SIM_LINES = ["/noise 1.0", "hello from the card", "/sf 8",
 SIM_MESSAGES = ["hello from the card", "back at sf8"]
 
 S9_ABC = ("detect", "track", "payload")
+# a path that builds its own bank on the card (encode, then kernel F)
+S9_TX = (*S9_ABC, "modulate")
 
 
 def s9a_sensitivity(torch, dev, sync) -> dict:
     """9a: every point of docs/sensitivity_vs_reference.json (through
     run_sensitivity_campaign.point_specs, at each row's n), each bank built
-    once (bench_sensitivity.make_bank, in a thread pool ahead of the card)
-    and given to fused="auto" (kernels A, B, C; C with mag2) and to
+    once (bench_sensitivity.make_bank, in a thread pool ahead of the card,
+    its encode captured beside the main thread's programs: utils/jit.py
+    makes captures take turns) and given to fused="auto" (kernels A, B, C; C with mag2) and to
     fused="off", hard and soft.  Gates: the routes' found, hard- and
     soft-recovered flags differ on at most S9_DIFFER frames; the kernels'
     hard total at least the reference's S9_REF_HARD and no point more than
@@ -2885,22 +2929,31 @@ def s9a_sensitivity(torch, dev, sync) -> dict:
             for s in specs}
     cfg_of = lambda s: cfgs[(s["sf"], s["cr"])]
     t = time.perf_counter()
-    with ThreadPoolExecutor(S9_BANK_THREADS) as pool:
-        banks = [pool.submit(bs.make_bank, cfg_of(s), s["noise"], s["n"],
-                             bs.SEED, s["rotate"], dev) for s in specs]
+    banks = []
 
-        def routes(fused):
-            return [bs.point(cfg_of(s), s["noise"], s["n"],
-                             rotate=s["rotate"], soft=True, fused=fused,
-                             device=dev, bank=b.result())
-                    for s, b in zip(specs, banks)]
+    def route(s, bank, fused):
+        return bs.point(cfg_of(s), s["noise"], s["n"], rotate=s["rotate"],
+                        soft=True, fused=fused, device=dev, bank=bank)
 
-        what = f"9a sensitivity, {len(specs)} points hard and soft"
-        auto, la = count_launches(f"{what}, fused='auto'",
-                                  lambda: routes("auto"), sync, S9_ABC)
-        t_auto = time.perf_counter() - t
-        off, lo = count_launches(f"{what}, fused='off'",
-                                 lambda: routes("off"), sync, ())
+    def auto_route():
+        # the pool starts inside the counted run, so that the banks' kernel
+        # F launches all fall in it (every bank is done by its end)
+        with ThreadPoolExecutor(S9_BANK_THREADS) as pool:
+            made = [pool.submit(bs.make_bank, cfg_of(s), s["noise"], s["n"],
+                                bs.SEED, s["rotate"], dev) for s in specs]
+            out = []
+            for s, m in zip(specs, made):
+                banks.append(m.result())
+                out.append(route(s, banks[-1], "auto"))
+        return out
+
+    what = f"9a sensitivity, {len(specs)} points hard and soft"
+    auto, la = count_launches(f"{what}, fused='auto'", auto_route, sync,
+                              S9_TX)
+    t_auto = time.perf_counter() - t
+    off, lo = count_launches(
+        f"{what}, fused='off'",
+        lambda: [route(s, b, "off") for s, b in zip(specs, banks)], sync, ())
     differ, below = 0, []
     tot = {"hard": 0, "soft": 0, "off_hard": 0, "off_soft": 0, "ref": 0}
     for s, (row, pf), (orow, opf) in zip(specs, auto, off):
@@ -2970,14 +3023,11 @@ def s9b_wire(dev) -> tuple:
 def s9b_e2e(torch, dev, sync, wire) -> dict:
     """9b: tools.bench_e2e over E2E_CHANNELS channels in the default mode
     (planar int16), then 2 slabs in host-convert, interleaved and
-    --mixed-sf, on the wire of s9b_wire (built in a thread during 9a);
-    every frame found and decoded ok in every run.  -> {path: launches}."""
+    --mixed-sf, on the wire of s9b_wire (built before 9a); every frame
+    found and decoded ok in every run.  -> {path: launches}."""
     from lora_tpu_torch.tools import bench_e2e as e2e
 
-    t = time.perf_counter()
-    g10, g8 = wire.result()
-    print(f"9b wire: waited {time.perf_counter() - t:.1f} s for it",
-          flush=True)
+    g10, g8 = wire
     by_path = {}
     for mode, groups, channels in (
             ("planar", [g10], E2E_CHANNELS),
@@ -3013,7 +3063,7 @@ def s9c_soft_decode(torch, dev, sync) -> dict:
         what = f"9c {name} B={S9_B}"
         t = time.perf_counter()
         _, by_path[what] = count_launches(
-            what, lambda: mod.measure(S9_B, 10, dev, S9_REPS), sync, S9_ABC)
+            what, lambda: mod.measure(S9_B, 10, dev, S9_REPS), sync, S9_TX)
         print(f"{what}: {time.perf_counter() - t:.1f} s", flush=True)
     return by_path
 
@@ -3034,7 +3084,7 @@ def s9d_stream_examples(torch, dev, sync) -> dict:
     t = time.perf_counter()
     what = "9d bench_stream.bench_pump"
     recs, by_path[what] = count_launches(
-        what, lambda: bench_stream.bench_pump(device=dev), sync, S9_ABC)
+        what, lambda: bench_stream.bench_pump(device=dev), sync, S9_TX)
     first = sorted((f.channel, f.t_start) for f in recs[0]["frame_list"])
     for r in recs:
         got = decode_frames(r["frame_list"], r["cfg"], device=dev)
@@ -3054,7 +3104,7 @@ def s9d_stream_examples(torch, dev, sync) -> dict:
     what = "9d examples.wideband_rx"
     rc, by_path[what] = count_launches(
         what, lambda: wideband_rx.main(["--device", str(dev)]), sync,
-        ("channelize", *S9_ABC))
+        ("channelize", *S9_TX))
     if rc != 0:
         raise AssertionError(f"{what}: exit {rc}")
     print(f"{what}: byte-exact ({time.perf_counter() - t:.1f} s)",
@@ -3066,7 +3116,7 @@ def s9d_stream_examples(torch, dev, sync) -> dict:
     with contextlib.redirect_stdout(out):
         rc, by_path[what] = count_launches(
             what, lambda: lora_simulation.main(["--device", str(dev)],
-                                               SIM_LINES), sync, S9_ABC)
+                                               SIM_LINES), sync, S9_TX)
     print(out.getvalue(), end="", flush=True)
     got = [ln.split("rx: ", 1)[1].split("   snr=")[0]
            for ln in out.getvalue().splitlines() if "  rx: " in ln]
@@ -3079,23 +3129,20 @@ def s9d_stream_examples(torch, dev, sync) -> dict:
 
 def step9(torch, dev, sync) -> dict:
     """Step 9: the port's tools and examples on the card, each path's
-    kernels counted from 0; 9b's wire is built in a thread meanwhile.
-    -> {path: launches}."""
-    from concurrent.futures import ThreadPoolExecutor
-
+    kernels counted from 0; 9b's wire is built first, outside every counted
+    run (its frames launch kernel F).  -> {path: launches}."""
     t9 = time.perf_counter()
+    wire = s9b_wire(dev)
+    print(f"9b wire: built in {time.perf_counter() - t9:.1f} s", flush=True)
     by_path = {}
-    with ThreadPoolExecutor(1) as pool:
-        wire = pool.submit(s9b_wire, dev)
-        for name, sub in (
-                ("9a", s9a_sensitivity),
-                ("9b", lambda *a: s9b_e2e(*a, wire)),
-                ("9c", s9c_soft_decode), ("9d", s9d_stream_examples)):
-            t = time.perf_counter()
-            by_path.update(sub(torch, dev, sync))
-            fresh(torch)
-            print(f"step {name}: {time.perf_counter() - t:.1f} s",
-                  flush=True)
+    for name, sub in (
+            ("9a", s9a_sensitivity),
+            ("9b", lambda *a: s9b_e2e(*a, wire)),
+            ("9c", s9c_soft_decode), ("9d", s9d_stream_examples)):
+        t = time.perf_counter()
+        by_path.update(sub(torch, dev, sync))
+        fresh(torch)
+        print(f"step {name}: {time.perf_counter() - t:.1f} s", flush=True)
     print(f"step 9: {time.perf_counter() - t9:.1f} s", flush=True)
     return by_path
 
@@ -3229,12 +3276,8 @@ def step10(torch, dev, card, sync, profile=False) -> dict:
             finally:
                 torch.cuda.set_sync_debug_mode(0)
             sync()
-            ms_e, ms_c = [], []
-            for captured in (False, True, True, False):
-                with (contextlib.nullcontext() if captured
-                      else jit.disable_jit()):
-                    (ms_c if captured else ms_e).extend(
-                        run_times(lambda: run(route)))
+            ms_e, ms_c = in_turns(unjitted(lambda: run(route)),
+                                  lambda: run(route))
             name = f"10 captured {what} fused={route!r}"
             _, by_path[name] = count_launches(
                 name, lambda: run(route), sync,
@@ -3295,6 +3338,155 @@ def step10(torch, dev, card, sync, profile=False) -> dict:
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# step 11: the transmit half (encode, kernel F, the DC blocker) at full width
+# ---------------------------------------------------------------------------
+
+# kernel F against modulate_plain: bit-equal is the target (exact integer
+# numerators, the same float32 sequence, the same full-precision cosf and
+# sinf).  If the card's cosf/sinf and torch's cos/sin ever part, the largest
+# difference is printed with the reason and held to 2 ulp at 1.0.
+F_ATOL = 2.4e-7
+
+
+def step11(torch, dev, card, sync):
+    """Step 11: encode captured against eager, kernel F against
+    modulate_plain, the F-built bank and the plain-built bank through the
+    same channel to equal decisions and byte-exact frames, the DC blocker
+    captured against eager across a seam; times and peak memory.
+    -> (check, {path: launches}, (F ms, plain ms), bound)."""
+    from lora_tpu_torch import api
+    from lora_tpu_torch.models import modulator as tmod
+    from lora_tpu_torch.ops import dcblock
+    from lora_tpu_torch.utils import jit
+
+    cfg = flagship_cfg()
+    B, N = B_FLAGSHIP, cfg.N
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    payload = torch.randint(0, 256, (B, 32), generator=g, device=dev,
+                            dtype=torch.int64).to(torch.uint8)
+    by_path = {}
+
+    # ---- a. encode: the first call and a replay against the eager call ----
+    jit.clear()
+    with jit.disable_jit():
+        eager = api.encode(payload, cfg)
+    fields_bit_equal(torch, "encode (first call)", api.encode(payload, cfg),
+                     eager)
+    n_cap = jit.captures()
+    sync()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sym = api.encode(payload, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    fields_bit_equal(torch, "encode", sym, eager)
+    S = sym.shape[1]
+
+    # ---- b. the transmit path, counted; kernel F against its plain version
+    what = "11 encode + modulate"
+    iq, by_path[what] = count_launches(
+        what, lambda: api.modulate(api.encode(payload, cfg), cfg), sync,
+        ("modulate",), exactly=1)
+    if jit.captures() != n_cap:
+        raise AssertionError("11: encode captured again on a replay")
+    plain = tmod.modulate_plain(sym, cfg)
+    T = iq.shape[1]
+    if iq.shape != (B, cfg.frame_samples(S)) or plain.shape != iq.shape:
+        raise AssertionError(f"11: kernel F gave {tuple(iq.shape)}, plain "
+                             f"{tuple(plain.shape)}")
+    chk = Check("modulate")
+    same = torch.equal(iq, plain)
+    if not same:
+        n = int((iq != plain).sum())
+        print(f"kernel F differs from modulate_plain at {n} of {B * T} "
+              f"samples, by at most {float((iq - plain).abs().max()):.3g}: "
+              f"the numerators are exact integers and the float32 sequence "
+              f"is the same, so the card's cosf/sinf and torch's cos/sin "
+              f"part there; held to {F_ATOL}", flush=True)
+    chk.close("real", iq.real, plain.real, tol=F_ATOL)
+    chk.close("imag", iq.imag, plain.imag, tol=F_ATOL)
+    print(f"kernel F: {'bit-equal to' if same else 'within ' + str(F_ATOL) + ' of'} "
+          f"modulate_plain over {B} frames x {T} samples ({S} symbols)",
+          flush=True)
+
+    # ---- c. both banks through the same channel --------------------------
+    Tb = api.required_samples(cfg)
+    dems = []
+    for name in ("kernel F", "plain"):
+        g2 = torch.Generator(device=dev).manual_seed(SEED + 111)
+        frames = iq if name == "kernel F" else plain
+        bank = impair(frames, Tb, N, g2, 3 * N, 0.4)
+        bank = (bank + awgn(bank.shape, SIGMA, g2, dev)).contiguous()
+        what = f"11 demodulate the {name}-built bank"
+        dem, by_path[what] = count_launches(
+            what, lambda: api.demodulate(bank, cfg), sync, S9_ABC)
+        byte_exact(api, what, api.decode(dem.symbols, cfg), payload)
+        dems.append(dem)
+        del bank
+    for f in ("found", "symbols", "count", "t_sync", "consumed",
+              "freq_error"):
+        if not torch.equal(getattr(dems[0], f), getattr(dems[1], f)):
+            raise AssertionError(f"11: the F-built and plain-built banks "
+                                 f"differ in {f}")
+    print(f"11: the F-built and the plain-built bank, through the same "
+          f"channel, give equal decisions; all {B} frames of each "
+          f"byte-exact", flush=True)
+    del dems, iq, plain
+    sync()
+    torch.cuda.empty_cache()
+
+    # ---- d. the DC blocker: captured against eager across a seam, on blocks
+    # the size of step 6c's dc_block replay chunks
+    g3 = torch.Generator(device=dev).manual_seed(SEED + 112)
+    x = (awgn((2 * REPLAY_CHUNK_K,), 1.0, g3, dev) + (3.0 - 1.5j)).contiguous()
+    half = (x[:REPLAY_CHUNK_K], x[REPLAY_CHUNK_K:])
+    with jit.disable_jit():
+        y0, s0 = dcblock.dcblock(half[0])
+        y1, s1 = dcblock.dcblock(half[1], state=s0)
+    for i in range(3):
+        a0, t0 = dcblock.dcblock(half[0])
+        a1, t1 = dcblock.dcblock(half[1], state=t0)
+        fields_bit_equal(torch, f"dcblock call {i}", (a0, t0, a1, t1),
+                         (y0, s0, y1, s1))
+    sync()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        dcblock.dcblock(half[1], state=s0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    print(f"11: dcblock captured bit-equal to disable_jit() over two blocks "
+          f"of {REPLAY_CHUNK_K} samples with the state across the seam; no host "
+          "sync in a replay", flush=True)
+
+    # ---- e. times and peak memory ------------------------------------------
+    enc = lambda: api.encode(payload, cfg)
+    enc_e, enc_c = in_turns(unjitted(enc), enc)
+    mod_p, mod_f = in_turns(lambda: tmod.modulate_plain(sym, cfg),
+                            lambda: api.modulate(sym, cfg))
+    dc = lambda: dcblock.dcblock(half[1], state=s0)
+    dc_e, dc_c = in_turns(unjitted(dc), dc)
+    peak_f = peak_above(lambda: api.modulate(sym, cfg), sync)
+    peak_p = peak_above(lambda: tmod.modulate_plain(sym, cfg), sync)
+    out_gb = B * T * 8 / 1e9
+    nbytes = B * T * 8 + B * S * 4 + (T - (S + cfg.padding) * cfg.NN) * 8
+    # the float32 products of each data sample's sequence (num / D, * 2 pi,
+    # the two * ampl); cosf and sinf's own polynomials are not counted
+    bnd = bound(nbytes, 4.0 * B * S * cfg.NN)
+    med = lambda t: sorted(t)[len(t) // 2]
+    print(f"11 times at B = {B}, T = {T}: encode eager {spread(enc_e)}, "
+          f"captured {spread(enc_c)}; modulate plain {spread(mod_p)}, "
+          f"kernel F {spread(mod_f)} (bound {bnd['bound_ms']:.3f} ms by "
+          f"{bnd['bound_by']}, {med(mod_f) / bnd['bound_ms']:.2f}x it); "
+          f"dcblock on {REPLAY_CHUNK_K} samples eager {spread(dc_e)}, captured "
+          f"{spread(dc_c)} [{card}]", flush=True)
+    print(f"11 memory: modulate allocates at its peak {peak_f:.3f} GB on "
+          f"kernel F and {peak_p:.3f} GB on the plain route, for an output "
+          f"of {out_gb:.3f} GB [{card}]", flush=True)
+    jit.clear()
+    return chk, by_path, (med(mod_f), med(mod_p)), bnd
+
+
 def main() -> int:
     import torch
 
@@ -3339,10 +3531,16 @@ def main() -> int:
     t10 = time.perf_counter()
     by_path10 = step10(torch, dev, card, sync, profile)
     print(f"step 10: {time.perf_counter() - t10:.1f} s", flush=True)
+    fresh(torch)
+    t11 = time.perf_counter()
+    (checks["modulate"], by_path11, ms["modulate"],
+     bounds["modulate"]) = step11(torch, dev, card, sync)
+    print(f"step 11: {time.perf_counter() - t11:.1f} s", flush=True)
     # every driven path's run, each counted from 0
     by_path = {"demodulate(fused='auto')": launches,
                "channelized_demodulate(fused='auto')": c3_launches, **by_path,
-               **by_path6, **by_path7, **by_path8, **by_path9, **by_path10}
+               **by_path6, **by_path7, **by_path8, **by_path9, **by_path10,
+               **by_path11}
 
     sources = {
         "detect": ("lora_tpu_torch/csrc/detect.cu",
@@ -3358,10 +3556,14 @@ def main() -> int:
                        "lora_tpu/ops/pallas_channelize.py:376, "
                        "lora_tpu/ops/pallas_channelize.py:187"),
         "shift": ("lora_tpu_torch/csrc/shift.cu", "lora_tpu/ops/shift.py:68"),
+        "modulate": ("lora_tpu_torch/csrc/modulate.cu",
+                     "XLA fusion of lora_tpu/models/modulator.py:72 "
+                     "(no pallas_call)"),
     }
     # the one PyTorch call that computes a kernel's function, where there is
     # one: torch.take_along_dim for the shift; the others fuse a dechirp, a
-    # transform and reductions, or a polyphase FIR and an IDFT
+    # transform and reductions, a polyphase FIR and an IDFT, or a chirp
+    # synthesis with a prefix sum
     library = {"shift": lib_shift}
     kernels = [
         {
@@ -3377,7 +3579,8 @@ def main() -> int:
             **bounds[name],
             "library_ms": library.get(name),
         }
-        for name in ("detect", "track", "payload", "channelize", "shift")
+        for name in ("detect", "track", "payload", "channelize", "shift",
+                     "modulate")
     ]
     # kernel D's bf16 route (step 8b, route 3): its time against its plain
     # version and the float32 route's, its error, its bound and the matmul

@@ -9,6 +9,7 @@ import torch
 from ..config import HEADER_RDD, N_HEADER_CODEWORDS, LoRaConfig
 
 from ..ops import codes, cplx
+from ..utils import jit
 
 
 def _bytes_to_nibbles(data: torch.Tensor, n_nibbles: int) -> torch.Tensor:
@@ -24,12 +25,23 @@ def encode(payload, cfg: LoRaConfig, payload_len: int | None = None,
            device=None) -> torch.Tensor:
     """payload uint8/int [B, L] (or [L]) -> int32 [B, S] symbols in
     [0, 2^sf), S = cfg.num_symbols(L).  A tensor is encoded where it lies;
-    host data goes to `device` (the card when None)."""
-    payload = cplx.as_tensor(payload, device)
+    host data goes to `device` (the card when None).  On the card this runs
+    as one captured program per (cfg, payload_len) and payload layout
+    (utils/jit.py), lora_tpu's jitted `encode`
+    (lora_tpu/models/encoder.py:43)."""
+    data, dev = cplx.stage(payload, device)
     if payload_len is None:
-        payload_len = payload.shape[-1]
-    squeeze = payload.dim() == 1
-    data = torch.atleast_2d(payload).long()[..., :payload_len]
+        payload_len = data.shape[-1]
+    squeeze = data.dim() == 1
+    symbols = _encode(torch.atleast_2d(data), cfg, payload_len, dev)
+    return symbols[0] if squeeze else symbols
+
+
+@jit.program(static=("cfg", "payload_len"))
+def _encode(data: torch.Tensor, cfg: LoRaConfig, payload_len: int,
+            device: torch.device) -> torch.Tensor:
+    """encode of payload bytes [B, L] on `device`, with no host sync."""
+    data = data.to(device).long()[..., :payload_len]
     ppm, rdd, sf = cfg.PPM, cfg.rdd, cfg.sf
 
     if cfg.crc:
@@ -73,5 +85,4 @@ def encode(payload, cfg: LoRaConfig, payload_len: int | None = None,
         )
     # Gray decode + LSB padding for reduced symbol sets.  Symbols are below
     # 2^sf; the JAX package returns them as uint16, the port as int32.
-    symbols = (codes.gray_to_binary(symbols) << (sf - ppm)).to(torch.int32)
-    return symbols[0] if squeeze else symbols
+    return (codes.gray_to_binary(symbols) << (sf - ppm)).to(torch.int32)

@@ -5,23 +5,33 @@ Frame on air: preamble upchirps | 2 sync-word upchirps | 2 downchirps |
 1/4 downchirp | data upchirps | zero padding.  Per-symbol phases come from
 the closed-form integer chirp (ops/chirp.py); phase continuity across
 symbols is an exclusive prefix sum of the symbols' end carries mod D.  The
-JAX package sums in uint32 and lets it wrap (D divides 2^32); the port sums
-in int64 and reduces with `& (D - 1)`.
+JAX package sums in uint32 and lets it wrap (D divides 2^32); the plain
+route sums in int64 and reduces with `& (D - 1)`, kernel F in uint32.
+
+The head depends on the config alone: its numerators and end carry are
+built once per config on the host, and its IQ made from them once per
+device by the plain ops, so that `modulate` reads nothing back from the
+card.  On a CUDA tensor `modulate` is one launch of kernel F
+(ops/cuda_modulate.py), lora_tpu's one fused program; on a CPU tensor it
+runs the plain route, `modulate_plain`.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from ..config import LoRaConfig
 
-from ..ops import cplx
+from ..ops import cplx, cuda_modulate
 from ..ops.chirp import chirp_phase_nums
 
 
-def preamble_nums(cfg: LoRaConfig, device=None):
-    """Head of the frame (preamble, sync, 2.25 downchirps) as phase
-    numerators int64 [head_len] and the end carry."""
+@functools.lru_cache(maxsize=None)
+def _head(cfg: LoRaConfig) -> tuple[torch.Tensor, int]:
+    """The head's phase numerators, int64 [head_len] on the host, and its
+    end carry: segment by segment, each from the carry of the ones before."""
     N, ovs, NN = cfg.N, cfg.ovs, cfg.NN
     D = N * ovs * ovs
     plan = (
@@ -32,10 +42,28 @@ def preamble_nums(cfg: LoRaConfig, device=None):
     segs = []
     carry = 0
     for s, n, down in plan:
-        num, end = chirp_phase_nums(s, n, N, ovs, down, device=device)
+        num, end = chirp_phase_nums(s, n, N, ovs, down, device="cpu")
         segs.append((num + carry) & (D - 1))
         carry = (carry + int(end)) & (D - 1)
     return torch.cat(segs), carry
+
+
+def preamble_nums(cfg: LoRaConfig, device=None):
+    """Head of the frame (preamble, sync, 2.25 downchirps) as phase
+    numerators int64 [head_len] on `device` (the card when None; on the
+    host the cached table itself: do not write into it), and the end carry
+    (an int)."""
+    nums, carry = _head(cfg)
+    return nums.to(cplx.resolve_device(device)), carry
+
+
+@functools.lru_cache(maxsize=None)
+def frame_head(cfg: LoRaConfig, device: torch.device) -> torch.Tensor:
+    """The head's IQ, complex64 [head_len] on `device`, made once per device
+    by the plain ops (the samples every route copies)."""
+    D = cfg.N * cfg.ovs * cfg.ovs
+    nums, _ = preamble_nums(cfg, device)
+    return cplx.from_turns(nums.to(torch.float32) / D, cfg.ampl)
 
 
 def tx_frame_events(cfg: LoRaConfig, num_symbols: int) -> dict:
@@ -57,30 +85,26 @@ def tx_frame_events(cfg: LoRaConfig, num_symbols: int) -> dict:
     }
 
 
+def _frames(route, symbols, cfg: LoRaConfig, device) -> torch.Tensor:
+    syms = cplx.as_tensor(symbols, device)
+    squeeze = syms.dim() == 1
+    syms = torch.atleast_2d(syms)
+    head = frame_head(cfg, syms.device)
+    out = route(syms, head, _head(cfg)[1], cfg.N,
+                cfg.ovs, cfg.padding, cfg.ampl)
+    return out[0] if squeeze else out
+
+
 def modulate(symbols, cfg: LoRaConfig, device=None) -> torch.Tensor:
     """symbols int [B, S] (or [S]) -> complex64 [B, T], T =
     cfg.frame_samples(S), at cfg.ovs samples per chip.  A tensor is
     modulated where it lies; host data goes to `device` (the card when
-    None)."""
-    syms = cplx.as_tensor(symbols, device)
-    squeeze = syms.dim() == 1
-    syms = torch.atleast_2d(syms).long()
-    dev = syms.device
-    B, S = syms.shape
-    N, ovs, NN = cfg.N, cfg.ovs, cfg.NN
-    D = N * ovs * ovs
+    None).  On the card this is one launch of kernel F; on the CPU the
+    plain route."""
+    return _frames(cuda_modulate.frame, symbols, cfg, device)
 
-    head_nums, head_carry = preamble_nums(cfg, dev)
-    head = cplx.from_turns(head_nums.to(torch.float32) / D, cfg.ampl)
 
-    nums, carries = chirp_phase_nums(syms, NN, N, ovs, False)  # [B,S,NN], [B,S]
-    starts = (torch.cumsum(carries, dim=-1) - carries + head_carry) & (D - 1)
-    nums = (nums + starts[..., None]) & (D - 1)
-    data = cplx.from_turns(nums.to(torch.float32) / D, cfg.ampl)
-
-    out = torch.cat([
-        head.expand(B, -1),
-        data.reshape(B, S * NN),
-        torch.zeros((B, cfg.padding * NN), dtype=torch.complex64, device=dev),
-    ], dim=-1)
-    return out[0] if squeeze else out
+def modulate_plain(symbols, cfg: LoRaConfig, device=None) -> torch.Tensor:
+    """modulate by the plain route, op by op, on any device: kernel F's
+    plain version (ops/cuda_modulate.frame_plain)."""
+    return _frames(cuda_modulate.frame_plain, symbols, cfg, device)

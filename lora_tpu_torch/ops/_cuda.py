@@ -10,6 +10,7 @@ runs at import time: the CPU tests import every module of the port.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -19,6 +20,7 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
+import threading
 
 import numpy as np
 import torch
@@ -28,7 +30,8 @@ from .chirp import dechirp_table
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "lora_tpu_torch"
-SOURCES = ("detect.cu", "track.cu", "payload.cu", "channelize.cu", "shift.cu")
+SOURCES = ("detect.cu", "track.cu", "payload.cu", "channelize.cu", "shift.cu",
+           "modulate.cu")
 HEADERS = ("detect.cuh", "fft.cuh")
 # no --use_fast_math: full-precision sincosf/log10f/sqrtf keep the dB values
 # and the derotator's two factors on the plain version's float32 rounding.
@@ -53,6 +56,7 @@ _ARGTYPES = {
     "lora_channelize_bf16": [_P, _L, _P, _L, _L, _I, _I, _L, _P, _P, _P, _P],
     "lora_channelize_route": [_I, _I, _I],
     "lora_shift": [_P, _L, _L, _I, _I, _P, _P, _P],
+    "lora_modulate": [_P, _L, _I, _P, _I, _I, _I, _I, _L, _F, _F, _P, _P],
 }
 
 
@@ -117,6 +121,41 @@ def library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+# A captured program's launches (utils/jit.py) are tallied in the thread
+# that captures, not counted: the capture keeps them as the graph's credit
+# and each replay adds them.  A launch in another thread meanwhile (a bank
+# built in a thread) counts as usual.
+_capture = threading.local()
+_COUNTS = threading.Lock()
+
+
+def launched(wrapper) -> None:
+    """Count one launch of a kernel wrapper (its `.launches`), where it
+    launches."""
+    tally = getattr(_capture, "tally", None)
+    if tally is not None:
+        tally[wrapper] = tally.get(wrapper, 0) + 1
+    else:
+        credit(wrapper, 1)
+
+
+def credit(wrapper, n: int) -> None:
+    with _COUNTS:
+        wrapper.launches += n
+
+
+@contextlib.contextmanager
+def tally():
+    """Tally this thread's launches in the dict it yields instead of
+    counting them (a graph's capture)."""
+    prev = getattr(_capture, "tally", None)
+    _capture.tally = counted = {}
+    try:
+        yield counted
+    finally:
+        _capture.tally = prev
 
 
 def check(err: int, name: str) -> None:

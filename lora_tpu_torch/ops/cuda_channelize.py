@@ -211,7 +211,7 @@ def filterbank(x: torch.Tensor, K: int, taps_per_phase: int,
             err = lib.lora_channelize(*args, wk.data_ptr(), y.data_ptr(),
                                       _cuda.stream(dev), 0)
             _cuda.check(err, "lora_channelize")
-        filterbank.launches += 1
+        _cuda.launched(filterbank)
     return y.reshape(*lead, K, M)
 
 

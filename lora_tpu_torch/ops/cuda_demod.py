@@ -141,7 +141,7 @@ def track(x: torch.Tensor, t0: torch.Tensor, sync: int, thresh: float,
         power.data_ptr(), snr.data_ptr(), _cuda.stream(dev),
     )
     _cuda.check(err, "lora_track")
-    track.launches += 1
+    _cuda.launched(track)
     return {
         "synced": state == 1,
         "k_sync": k_sync,
@@ -211,7 +211,7 @@ def payload_detect(x: torch.Tensor, data_start: torch.Tensor,
         mag2.data_ptr() if want_mag2 else None, _cuda.stream(dev),
     )
     _cuda.check(err, "lora_payload")
-    payload_detect.launches += 1
+    _cuda.launched(payload_detect)
     if want_mag2:
         return value, power, noise, mag2
     return value, power, noise

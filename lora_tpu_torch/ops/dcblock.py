@@ -21,6 +21,8 @@ so nothing overflows, unlike a cumulative sum of x * alpha^-n); the
 estimates entering the blocks follow the same recurrence over the blocks'
 last values with alpha^BLOCK in place of alpha, solved by the same routine.
 The carried state (the last estimate) makes chunked streaming seam-free.
+On the card a call runs as one captured program per alpha and layout
+(utils/jit.py), lora_tpu's jitted `_dcblock` (lora_tpu/ops/dcblock.py:58).
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import numpy as np
 import torch
 
 from . import cplx
+from ..utils import jit
 
 BLOCK = 1024
 
@@ -88,17 +91,29 @@ def dcblock(x, alpha: float = 0.999, state: Optional[DcState] = None,
     alpha sets the tracking constant: the -3 dB cutoff is about
     (1-alpha)/pi of the sample rate; the 0.999 default settles in about
     1000 samples, well under one LoRa symbol at SF10 and above."""
-    x = cplx.as_iq(x, device)
+    x, dev = cplx.stage_iq(x, device)
     if x.shape[-1] == 0:
+        x = x.to(dev)
         z = x.real.new_zeros(x.shape[:-1])
         return x, state if state is not None else DcState(z, z)
-    a = float(np.float32(alpha))
-    planes = torch.view_as_real(x).movedim(-1, 0)  # [2, ..., T]
-    if state is None:
+    c_re, c_im = (None, None) if state is None else state
+    y, m_re, m_im = _dcblock(x, float(np.float32(alpha)), c_re, c_im, dev)
+    return y, DcState(m_re, m_im)
+
+
+@jit.program(static=("a",), inplace=("x",))
+def _dcblock(x: torch.Tensor, a: float, c_re: Optional[torch.Tensor],
+             c_im: Optional[torch.Tensor], device: torch.device):
+    """dcblock of complex64 x [..., T] on `device` from the estimates
+    (c_re, c_im) (None: zeros), with no host sync -> (y, last estimate's
+    re, im)."""
+    planes = torch.view_as_real(x.to(device)).movedim(-1, 0)  # [2, ..., T]
+    if c_re is None:
         c = planes.new_zeros(planes.shape[:-1])
     else:
-        c = torch.stack([state.re, state.im]).to(planes.device, torch.float32)
+        c = torch.stack([c_re, c_im]).to(device, torch.float32)
     b = planes * np.float32(1.0 - a)
     m = _recur(b, a, c)
     y = torch.complex(planes[0] - m[0], planes[1] - m[1])
-    return y, DcState(m[0, ..., -1], m[1, ..., -1])
+    last = m[..., -1].clone()  # contiguous, as a replay's clone is
+    return y, last[0], last[1]

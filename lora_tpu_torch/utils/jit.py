@@ -30,15 +30,22 @@ changes a result returned before.  A failed capture raises: there is no
 fallback, and the only eager route on the card is `disable_jit()`.
 
 Graphs capture with capture_error_mode "thread_local", so that another
-thread (the stream's ingest thread) may copy and pin memory meanwhile.  A
-program's graphs share one memory pool: replays run one at a time on the
-caller's stream (a lock, and a wait when the stream changes), and their
-outputs are cloned before the next replay can overwrite them.
+thread (the stream's ingest thread) may copy and pin memory meanwhile.
+Programs warm up and capture from one thread at a time, under one lock
+for the process: the capture and warm-up streams are torch's pooled
+streams, which two threads' programs may share, and a stream that one
+thread captures on refuses another's work
+(cudaErrorStreamCaptureIsolation).  Replays and eager work do not take
+that lock.  A program's graphs share one memory pool: replays run one at a
+time on the caller's stream (a lock, and a wait when the stream changes),
+and their outputs are cloned before the next replay can overwrite them.
 
-Launch counters: the `.launches` of each kernel wrapper (kernels A to E)
+Launch counters: the `.launches` of each kernel wrapper (kernels A to F)
 count real launches, so a capture takes back what it added and every replay
 credits the launches counted at its capture: each call adds one launch a
-kernel, captured or not.
+kernel, captured or not.  The capture's launches are tallied in its own
+thread (ops/_cuda.tally), so that a launch another thread counts meanwhile
+(a bank built in a thread) is neither credited to the graph nor lost.
 """
 
 from __future__ import annotations
@@ -57,6 +64,8 @@ import torch
 MAXSIZE = 8
 
 _local = threading.local()
+# held over every warm-up and capture (see the module's note)
+_capturing = threading.RLock()
 _programs: "weakref.WeakSet[Program]" = weakref.WeakSet()
 
 
@@ -75,14 +84,10 @@ def disable_jit():
         _local.eager -= 1
 
 
-def _counters() -> tuple:
-    """The kernel wrappers whose `.launches` a replay credits."""
-    from ..ops import cuda_channelize, cuda_demod, cuda_detect
-    from ..ops import shift
+def _cuda():
+    from ..ops import _cuda
 
-    return (cuda_detect.dechirp_detect, cuda_demod.track,
-            cuda_demod.payload_detect, shift.shift_windows,
-            cuda_channelize.filterbank)
+    return _cuda
 
 
 # ---------------------------------------------------------------------------
@@ -198,6 +203,7 @@ class Program:
         self._cache: "collections.OrderedDict[tuple, _Entry]" = \
             collections.OrderedDict()
         self._copied_bases: set = set()
+        self._dead: list = []   # keys whose in-place storage went
         self._lock = threading.RLock()
         self._pools: dict = {}
         self._side: dict = {}
@@ -220,6 +226,7 @@ class Program:
         homes = tuple(n for n, v in tensors.items() if n in self.inplace
                       and v is not None and v.device == dev)
         with self._lock:
+            self._sweep()
             key = (base, tuple(tensors[n].data_ptr() for n in homes))
             if key not in self._cache and homes and base in self._copied_bases:
                 key, homes = (base, "copied"), ()
@@ -250,29 +257,23 @@ class Program:
             args = {**a, **{n: (tensors[n] if b is None else b)
                             for n, b in buffers.items()}}
             main = _card.current_stream(dev)
-            side = self._side.setdefault(dev, _card.new_stream(dev))
-            side.wait_stream(main)
             _local.eager = _eager_depth() + 1
             try:
-                with _card.stream(side):
-                    out = self.fn(**args)  # the warm-up, returned
-                main.wait_stream(side)
-                warm: list = []
-                spec = _flatten(out, warm)
-                for t in warm:
-                    if t.device == dev:  # made on the side stream
-                        _card.record_stream(t, main)
-                wrappers = _counters()
-                before = [w.launches for w in wrappers]
-                try:
-                    graph, captured = _card.capture(self.fn, args,
-                                                    self._pool(dev))
-                finally:
-                    credit = tuple((w, w.launches - b)
-                                   for w, b in zip(wrappers, before)
-                                   if w.launches != b)
-                    for w, b in zip(wrappers, before):
-                        w.launches = b
+                with _capturing:
+                    side = self._side.setdefault(dev, _card.new_stream(dev))
+                    side.wait_stream(main)
+                    with _card.stream(side):
+                        out = self.fn(**args)  # the warm-up, returned
+                    main.wait_stream(side)
+                    warm: list = []
+                    spec = _flatten(out, warm)
+                    for t in warm:
+                        if t.device == dev:  # made on the side stream
+                            _card.record_stream(t, main)
+                    with _cuda().tally() as counted:
+                        graph, captured = _card.capture(self.fn, args,
+                                                        self._pool(dev))
+                    credit = tuple(counted.items())
             finally:
                 _local.eager -= 1
             outputs: list = []
@@ -296,10 +297,17 @@ class Program:
         return out
 
     def _gone(self, key, _ref) -> None:
-        """A storage an entry reads in place was freed: drop the entry, and
-        copy arguments of its shape from now on if it served one call."""
-        with self._lock:
-            entry = self._cache.pop(key, None)
+        """A storage an entry reads in place was freed: its entry goes at
+        the next look-up.  No lock is taken here: the storage may die in a
+        thread that holds the capture lock while another, holding this
+        program's, waits for it."""
+        self._dead.append(key)
+
+    def _sweep(self) -> None:
+        """Drop the entries whose storage went, and copy arguments of the
+        shape of one that served a single call from now on (under _lock)."""
+        while self._dead:
+            entry = self._cache.pop(self._dead.pop(), None)
             if entry is not None and entry.calls <= 1:
                 self._copied_bases.add(entry.base)
 
@@ -316,7 +324,7 @@ class Program:
             outs = [t.clone() for t in entry.outputs]
             self._last_stream = stream
         for w, n in entry.credit:
-            w.launches += n
+            _cuda().credit(w, n)
         entry.calls += 1
         self.replays += 1
         return _build(entry.spec, iter(outs))
@@ -325,12 +333,15 @@ class Program:
         """Drop every graph, buffer and pool of this program."""
         with self._lock:
             self._cache.clear()
+            self._dead.clear()
             self._copied_bases.clear()
             self._pools.clear()
             self._last_stream = None
 
     def __len__(self) -> int:
-        return len(self._cache)
+        with self._lock:
+            self._sweep()
+            return len(self._cache)
 
 
 def program(static=(), inplace=()):

@@ -1201,3 +1201,177 @@ def test_slabs_and_stream_steps_replay_one_graph_on_card(dev):
         ok = sorted((f.channel, f.payload) for f in frames if f.status == OK)
         assert ok == sorted((b, bytes(payload[b, j])) for b in range(10)
                             for j in range(2)), kw
+
+
+# --------------------------------------------------------------------------
+# the transmit half: kernel F, encode and dcblock as captured programs
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("pre", [8, 12])
+@pytest.mark.parametrize("ovs", [1, 2])
+@pytest.mark.parametrize("sf", range(7, 13))
+def test_modulate_kernel_bit_equal_to_plain(dev, sf, ovs, pre):
+    """Kernel F against modulate_plain on the card, two sync words, the
+    wrap's edge symbols among random ones: bit-equal (the same float32
+    sequence and the same cosf/sinf), one launch a call."""
+    from lora_tpu_torch.ops import cuda_modulate
+
+    rng = np.random.default_rng(200 * sf + 10 * ovs + pre)
+    for sync in (0x12, 0x3C):
+        cfg = lora_tpu_torch.LoRaConfig(sf=sf, cr="4/8", ovs=ovs, sync=sync,
+                                        preamble_symbols=pre, ampl=0.7)
+        syms = rng.integers(0, cfg.N, (5, int(rng.integers(9, 40))))
+        syms[0, :3] = [0, 1, cfg.N - 1]
+        x = torch.as_tensor(syms, device=dev)
+        n0 = cuda_modulate.frame.launches
+        got = tmod.modulate(x, cfg)
+        assert cuda_modulate.frame.launches == n0 + 1
+        want = tmod.modulate_plain(x, cfg)
+        assert got.shape == (5, cfg.frame_samples(x.shape[1]))
+        assert torch.equal(got, want), (sync, (got - want).abs().max().item())
+
+
+def test_modulate_kernel_takes_any_integer_layout(dev):
+    """int64, a strided view and a 255-byte payload's symbols (a scan over
+    more symbols than threads) go through one cast and one launch."""
+    from lora_tpu_torch.ops import cuda_modulate
+
+    cfg = lora_tpu_torch.LoRaConfig(sf=7, cr="4/8", ampl=1.0)
+    rng = np.random.default_rng(255)
+    pay = rng.integers(0, 256, (4, 255)).astype(np.uint8)
+    sym = api.encode(pay, cfg, device=dev)
+    assert sym.dtype == torch.int32 and sym.shape[1] > 256
+    for x in (sym, sym.long(), sym.t().contiguous().t(), sym[0]):
+        n0 = cuda_modulate.frame.launches
+        got = api.modulate(x, cfg)
+        assert cuda_modulate.frame.launches == n0 + 1
+        assert torch.equal(got, tmod.modulate_plain(x, cfg))
+    cpu = api.modulate(sym.cpu(), cfg)
+    assert (api.modulate(sym, cfg).cpu() - cpu).abs().max().item() <= 1e-6
+
+
+def test_modulate_kernel_failure_raises(dev, monkeypatch):
+    """A failed build or launch of kernel F raises; modulate never falls back
+    to the plain route on the card."""
+    from lora_tpu_torch.ops import _cuda, cuda_modulate
+
+    cfg = lora_tpu_torch.LoRaConfig(sf=7)
+    x = torch.zeros((2, 10), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="at most"):
+        api.modulate(torch.zeros((1, cuda_modulate.MAX_SYMBOLS + 1),
+                                 dtype=torch.int32, device=dev), cfg)
+
+    def no_build():
+        raise RuntimeError("nvcc failed (1): modulate.cu")
+
+    class Refused:
+        @staticmethod
+        def lora_modulate(*args):
+            return 9  # cudaErrorInvalidConfiguration
+
+    n0 = cuda_modulate.frame.launches
+    monkeypatch.setattr(_cuda, "library", no_build)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        api.modulate(x, cfg)
+    monkeypatch.setattr(_cuda, "library", lambda: Refused)
+    with pytest.raises(RuntimeError, match="CUDA error 9"):
+        api.modulate(x, cfg)
+    assert cuda_modulate.frame.launches == n0
+
+
+def test_encode_and_dcblock_captured_equal_eager(dev):
+    """encode and dcblock replay their graphs bit-equal to their calls under
+    disable_jit(), the DC blocker's state across a seam, with no host sync
+    in a replay."""
+    from lora_tpu_torch.models import encoder as tenc
+    from lora_tpu_torch.ops import dcblock
+    from lora_tpu_torch.utils import jit
+
+    rng = np.random.default_rng(43)
+    cfg = lora_tpu_torch.LoRaConfig(sf=8, cr="4/6", ampl=1.0)
+    pay = torch.as_tensor(rng.integers(0, 256, (64, 32)).astype(np.uint8),
+                          device=dev)
+    x = crandn(rng, (4, 50_000), dev) + (1.5 - 0.5j)
+    jit.clear()
+    with jit.disable_jit():
+        sym = api.encode(pay, cfg)
+        y0, s0 = dcblock.dcblock(x[:, :20_000])
+        y1, s1 = dcblock.dcblock(x[:, 20_000:], state=s0)
+
+    def run():
+        a0, t0 = dcblock.dcblock(x[:, :20_000])
+        a1, t1 = dcblock.dcblock(x[:, 20_000:], state=t0)
+        return api.encode(pay, cfg), a0, t0, a1, t1
+
+    want = (sym, y0, s0, y1, s1)
+    for _ in range(3):
+        assert _same(run(), want)
+    c0 = jit.captures()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert jit.captures() == c0 and _same(got, want)
+    assert tenc._encode.replays > 0 and dcblock._dcblock.replays > 0
+    cpu = api.encode(pay.cpu(), cfg)
+    assert torch.equal(sym.cpu(), cpu)
+
+
+def test_threads_capture_at_once_in_turns(dev):
+    """A thread that captures encode at a new payload length and one that
+    captures demodulate and decode at a new bank size, released together
+    each round (a relay's transmit and receive threads): their captures
+    take turns under the capture lock, and every result is bit-equal to
+    its disable_jit() call."""
+    import threading
+
+    from lora_tpu_torch.utils import jit
+
+    rng = np.random.default_rng(45)
+    cfg = lora_tpu_torch.LoRaConfig(sf=7, cr="4/5", ampl=1.0)
+    rounds = 4
+    pays = [torch.as_tensor(rng.integers(0, 256, (8, 3 + r)).astype(np.uint8),
+                            device=dev) for r in range(rounds)]
+    banks = [torch.as_tensor(_bank(cfg, rng, 3 + r, 0.05), device=dev)
+             for r in range(rounds)]
+
+    def tx(r):
+        return api.encode(pays[r], cfg)
+
+    def rx(r):
+        dem = api.demodulate(banks[r], cfg)
+        return dem, api.decode(dem.symbols, cfg)
+
+    jit.clear()
+    with jit.disable_jit():
+        want = [[f(r) for r in range(rounds)] for f in (tx, rx)]
+    start = threading.Barrier(2)
+    got, errors = [[], []], []
+
+    def work(i, f):
+        try:
+            for r in range(rounds):
+                start.wait(timeout=60)
+                got[i].append(f(r))
+            torch.cuda.current_stream().synchronize()
+        except BaseException as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+            start.abort()
+
+    c0 = jit.captures()
+    threads = [threading.Thread(target=work, args=(i, f))
+               for i, f in enumerate((tx, rx))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors
+    assert jit.captures() - c0 == 3 * rounds
+    for i in range(2):
+        for a, b in zip(got[i], want[i]):
+            assert _same(a, b)
+    jit.clear()

@@ -29,7 +29,7 @@ from lora_tpu.ops import detect as jdet
 import lora_tpu_torch
 from lora_tpu_torch import api
 from lora_tpu_torch.models import decoder as tdec
-from lora_tpu_torch.ops import _bitref, codes, tables
+from lora_tpu_torch.ops import _bitref, _cuda, codes, tables
 from lora_tpu_torch.ops import cuda_demod
 from lora_tpu_torch.ops import detect as det_ops
 from lora_tpu_torch.utils import jit
@@ -65,12 +65,9 @@ class StubGraph:
 
     def replay(self):
         fresh = []
-        counts = [w.launches for w in jit._counters()]
-        with jit.disable_jit():
+        with jit.disable_jit(), _cuda.tally():  # no wrapper runs
             jit._flatten(self.fn(**{k: a() for k, a in self.args.items()}),
                          fresh)
-        for w, n in zip(jit._counters(), counts):  # no wrapper runs
-            w.launches = n
         for o, f in zip(self.outputs, fresh):
             o.copy_(f)
 
@@ -123,7 +120,6 @@ class Counter:
 def card(monkeypatch):
     counter = Counter()
     monkeypatch.setattr(jit, "_card", StubCard)
-    monkeypatch.setattr(jit, "_counters", lambda: (counter,))
     StubCard.fail = False
     yield counter
     jit.clear()
@@ -135,7 +131,7 @@ def make(counter=None):
     @jit.program(static=("k",), inplace=("x",))
     def prog(x, w, k, device):
         if counter is not None:
-            counter.launches += 1
+            _cuda.launched(counter)
         return {"y": x.sum(-1) * w + k, "n": x.shape[0]}
 
     return prog
@@ -267,6 +263,126 @@ def test_launches_count_once_a_call(card):
     assert entry.credit == ((card, 1),)
 
 
+def test_launch_counts_from_threads_are_neither_lost_nor_tallied():
+    """Threads count launches while others tally theirs (a capture): every
+    counted launch lands on the counter, every tallied one in its own
+    thread's tally only."""
+    import sys
+    import threading
+
+    counter = Counter()
+    workers, n = 12, 20000
+    tallies = []
+    start, done = threading.Barrier(workers), threading.Barrier(workers)
+
+    def count():
+        start.wait(timeout=30)
+        for _ in range(n):
+            _cuda.launched(counter)
+        done.wait(timeout=30)
+
+    def work(i):
+        if i % 3 == 0:  # its tally open while every other thread counts
+            with _cuda.tally() as counted:
+                count()
+            tallies.append(counted[counter])
+        else:
+            count()
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(i,))
+                   for i in range(workers)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert tallies == [n] * 4
+    assert counter.launches == 8 * n
+
+
+def test_threads_warm_up_and_capture_one_at_a_time(card):
+    """Two threads calling two programs at new keys at once: their warm-ups
+    and captures never overlap (on the card they may share a pooled
+    stream), and each result is the eager one."""
+    import threading
+    import time
+
+    inside, most = [0], [0]
+    guard = threading.Lock()
+
+    def body(x, k):
+        with guard:
+            inside[0] += 1
+            most[0] = max(most[0], inside[0])
+        time.sleep(0.002)
+        with guard:
+            inside[0] -= 1
+        return x * k
+
+    progs = [jit.program(static=("k",))(
+        lambda x, k, device: body(x, k)) for _ in range(2)]
+    rounds = 6
+    start = threading.Barrier(2)
+    got = [[], []]
+
+    def work(i):
+        x = torch.full((3,), float(i + 1))
+        for k in range(rounds):
+            start.wait(timeout=30)
+            got[i].append(progs[i](x, k, CPU))
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads)
+    assert most[0] == 1
+    assert [p.captures for p in progs] == [rounds, rounds]
+    for i in range(2):
+        assert [g.tolist() for g in got[i]] == [[(i + 1.0) * k] * 3
+                                                for k in range(rounds)]
+
+
+def test_an_entry_goes_when_its_storage_dies_under_another_capture(card):
+    """A bank that dies inside another thread's capture drops its entry
+    without waiting on the program's lock, which a thread waiting for the
+    capture lock holds."""
+    import threading
+
+    prog = make()
+    bank = [torch.ones(3, 2)]
+    prog(bank[0], torch.ones(3), 0, CPU)
+    holding, release = threading.Event(), threading.Event()
+
+    def hold():
+        with prog._lock:
+            holding.set()
+            release.wait(timeout=30)
+
+    def drop():
+        with jit._capturing:
+            bank.clear()          # the entry's callback runs here
+
+    holder, dropper = (threading.Thread(target=f) for f in (hold, drop))
+    holder.start()
+    try:
+        assert holding.wait(timeout=30)
+        dropper.start()
+        dropper.join(timeout=5)
+        assert not dropper.is_alive()
+    finally:
+        release.set()
+        holder.join(timeout=30)
+        dropper.join(timeout=30)
+    assert len(prog) == 0
+
+
 def test_failed_capture_raises_and_restores(card):
     prog = make(counter=card)
     x = torch.ones(2, 2)
@@ -353,6 +469,50 @@ def test_decode_and_host_data_captured_equal_eager(card):
     with jit.disable_jit():
         gray = api.decode(sym, plain, device="cpu")
     fields_equal(api.decode(sym, plain, device="cpu"), gray)
+
+
+def test_encode_captured_equals_eager(card):
+    from lora_tpu_torch.models import encoder as tenc
+
+    rng = np.random.default_rng(12)
+    pay = rng.integers(0, 256, (4, 21)).astype(np.uint8)
+    for kw in (dict(sf=7, cr="4/8"), dict(sf=8, cr="4/5", crc=False),
+               dict(sf=7, cr="4/6", explicit_header=False, data_length=21)):
+        cfg = lora_tpu_torch.LoRaConfig(**kw)
+        with jit.disable_jit():
+            want = api.encode(pay, cfg, device="cpu")
+            short = api.encode(torch.from_numpy(pay[0]), cfg, payload_len=9)
+        for _ in range(2):
+            assert torch.equal(api.encode(pay, cfg, device="cpu"), want)
+            assert torch.equal(api.encode(torch.from_numpy(pay[0]), cfg,
+                                          payload_len=9), short)
+        np.testing.assert_array_equal(want.numpy(), np.asarray(
+            japi_encode(pay, kw)).astype(np.int32))
+    assert tenc._encode.replays >= 6
+
+
+def japi_encode(pay, kw):
+    from lora_tpu import api as japi
+
+    return japi.encode(jnp.asarray(pay), lora_tpu.LoRaConfig(**kw))
+
+
+def test_dcblock_captured_equals_eager_across_a_seam(card):
+    from lora_tpu_torch.ops import dcblock as tdc
+
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy((rng.standard_normal((3, 5000)) + 2.0 + 1j * (
+        rng.standard_normal((3, 5000)) - 1.0)).astype(np.complex64))
+    with jit.disable_jit():
+        y0, s0 = tdc.dcblock(x[:, :2100], device="cpu")
+        y1, s1 = tdc.dcblock(x[:, 2100:], state=s0, device="cpu")
+    for _ in range(3):
+        g0, t0 = tdc.dcblock(x[:, :2100].clone(), device="cpu")
+        g1, t1 = tdc.dcblock(x[:, 2100:].clone(), state=t0, device="cpu")
+        for a, b in ((g0, y0), (g1, y1), (t0.re, s0.re), (t0.im, s0.im),
+                     (t1.re, s1.re), (t1.im, s1.im)):
+            assert torch.equal(a, b)
+    assert tdc._dcblock.replays >= 2
 
 
 @pytest.mark.parametrize("fused", ["auto", "off", "bf16"])

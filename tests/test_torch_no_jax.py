@@ -17,7 +17,8 @@ for m in pkgutil.walk_packages(lora_tpu_torch.__path__, "lora_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
 for name in ("ops.channelizer", "ops.cuda_channelize", "roadmap", "config",
-             "ops._bitref", "ops.shift", "models.softdec", "runtime.stream",
+             "ops._bitref", "ops.shift", "ops.cuda_modulate", "models.softdec",
+             "runtime.stream",
              "runtime.slab", "runtime.iqio", "hw.capture", "cli",
              "utils.debugcheck", "ops.resample", "ops.dcblock",
              "parallel.mesh", "parallel.halo", "parallel.channelize",
