@@ -24,7 +24,7 @@ from .models.modulator import modulate
 from .models.softdec import decode_soft, guard_soft_status, soft_symbols
 from .ops import channelizer as chz
 from .ops import cplx
-from .utils import debugcheck, jit
+from .utils import debugcheck, jit, trace
 
 __all__ = [
     "LoRaConfig",
@@ -113,23 +113,24 @@ def channelized_demodulate(wide, K: int, cfg: LoRaConfig,
     off it) and demodulates as "auto".  On the card a block runs as one
     captured program per static arguments (utils/jit.py), lora_tpu's
     `_channelize_demod_step` (lora_tpu/api.py:62-94)."""
-    check_options(fused)
-    armed = debugcheck.armed()
-    wide, dev = cplx.stage_iq(wide, device)
-    if state is not None:
-        state, _ = cplx.stage_iq(state, dev)
-    squeeze = wide.dim() == 1
-    dem, new_state = _channelize_demod_step(
-        wide[None] if squeeze else wide, state, K, cfg, taps_per_phase,
-        max_frames, fused, spectra or armed, dev)
-    if armed:
-        T = max(wide.shape[-1] // K, required_samples(cfg))
-        debugcheck.check_demod(dem, cfg, T)
-    if squeeze:
-        dem = DemodResult(**{f.name: None if getattr(dem, f.name) is None
-                             else getattr(dem, f.name)[0]
-                             for f in dataclasses.fields(dem)})
-    return dem, new_state
+    with trace.span("lora.channelized_demodulate"):
+        check_options(fused)
+        armed = debugcheck.armed()
+        wide, dev = cplx.stage_iq(wide, device)
+        if state is not None:
+            state, _ = cplx.stage_iq(state, dev)
+        squeeze = wide.dim() == 1
+        dem, new_state = _channelize_demod_step(
+            wide[None] if squeeze else wide, state, K, cfg, taps_per_phase,
+            max_frames, fused, spectra or armed, dev)
+        if armed:
+            T = max(wide.shape[-1] // K, required_samples(cfg))
+            debugcheck.check_demod(dem, cfg, T)
+        if squeeze:
+            dem = DemodResult(**{f.name: None if getattr(dem, f.name) is None
+                                 else getattr(dem, f.name)[0]
+                                 for f in dataclasses.fields(dem)})
+        return dem, new_state
 
 
 @jit.program(static=("K", "cfg", "taps_per_phase", "max_frames", "fused",

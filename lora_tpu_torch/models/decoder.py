@@ -18,7 +18,7 @@ from ..config import (HEADER_RDD, N_HEADER_CODEWORDS,
                              N_HEADER_SYMBOLS, LoRaConfig)
 
 from ..ops import codes, cplx
-from ..utils import jit
+from ..utils import jit, trace
 
 OK = 0
 DROP_HEADER_FEC = 1
@@ -83,17 +83,18 @@ def decode(symbols, cfg: LoRaConfig, num_symbols: int | None = None,
     None).  On the card this runs as one captured program per (cfg,
     num_symbols) and symbols' layout (utils/jit.py), lora_tpu's jitted
     `decode` (lora_tpu/models/decoder.py:104)."""
-    sym, dev = cplx.stage(symbols, device)
-    if num_symbols is None:
-        num_symbols = sym.shape[-1]
-    squeeze = sym.dim() == 1
-    result = _decode(torch.atleast_2d(sym), cfg, num_symbols, dev)
-    if not squeeze:
-        return result
-    if isinstance(result, torch.Tensor):
-        return result[0]
-    return DecodeResult(**{f.name: getattr(result, f.name)[0]
-                           for f in dataclasses.fields(result)})
+    with trace.span("lora.decode"):
+        sym, dev = cplx.stage(symbols, device)
+        if num_symbols is None:
+            num_symbols = sym.shape[-1]
+        squeeze = sym.dim() == 1
+        result = _decode(torch.atleast_2d(sym), cfg, num_symbols, dev)
+        if not squeeze:
+            return result
+        if isinstance(result, torch.Tensor):
+            return result[0]
+        return DecodeResult(**{f.name: getattr(result, f.name)[0]
+                               for f in dataclasses.fields(result)})
 
 
 @jit.program(static=("cfg", "num_symbols"))

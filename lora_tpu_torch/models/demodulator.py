@@ -44,7 +44,7 @@ from ..ops import shift as shift_ops
 from ..ops.cuda_demod import squelch, trunc_half
 from ..ops.tables import TRACK_ROWS, payload_rows
 from ..roadmap import no_counterpart
-from ..utils import debugcheck, jit
+from ..utils import debugcheck, jit, trace
 
 
 @dataclasses.dataclass
@@ -292,24 +292,25 @@ def demodulate(x, cfg: LoRaConfig, debug: bool = False, max_frames: int = 1,
     Inside utils.debugcheck.debug_checks() the result is checked on the
     host before it is returned (DemodCheckError), and spectra are carried
     so that the payload windows are checked too."""
-    check_options(fused)
-    if max_frames < 1:
-        raise ValueError(f"max_frames must be >= 1, got {max_frames}")
-    armed = debugcheck.armed()
-    if armed and not debug:
-        spectra = True
-    x, dev = cplx.stage_iq(x, device)
-    squeeze = x.dim() == 1
-    res = _demod_whole(x[None] if squeeze else x, cfg, debug, max_frames,
-                       fused != "off", spectra, dev)
-    if armed:
-        debugcheck.check_demod(res, cfg, max(x.shape[-1],
-                                              required_samples(cfg)))
-    if squeeze:
-        res = DemodResult(**{
-            f.name: None if getattr(res, f.name) is None
-            else getattr(res, f.name)[0] for f in dataclasses.fields(res)})
-    return res
+    with trace.span("lora.demodulate"):
+        check_options(fused)
+        if max_frames < 1:
+            raise ValueError(f"max_frames must be >= 1, got {max_frames}")
+        armed = debugcheck.armed()
+        if armed and not debug:
+            spectra = True
+        x, dev = cplx.stage_iq(x, device)
+        squeeze = x.dim() == 1
+        res = _demod_whole(x[None] if squeeze else x, cfg, debug, max_frames,
+                           fused != "off", spectra, dev)
+        if armed:
+            debugcheck.check_demod(res, cfg, max(x.shape[-1],
+                                                  required_samples(cfg)))
+        if squeeze:
+            res = DemodResult(**{
+                f.name: None if getattr(res, f.name) is None
+                else getattr(res, f.name)[0] for f in dataclasses.fields(res)})
+        return res
 
 
 @jit.program(static=("cfg", "debug", "max_frames", "use_kernels", "spectra"),

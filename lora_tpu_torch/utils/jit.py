@@ -40,6 +40,14 @@ that lock.  A program's graphs share one memory pool: replays run one at a
 time on the caller's stream (a lock, and a wait when the stream changes),
 and their outputs are cloned before the next replay can overwrite them.
 
+Spans (utils/trace.span, recorded only while a torch.profiler session
+records): a call on the card is `lora.program:<fn name>`, holding
+`lora.program.lookup` (the key, this program's lock, the sweep), then
+`lora.program.capture` at a new key, or `lora.program.copy_in` (only for an
+entry with buffers), `lora.program.launch` (the graph's replay) and
+`lora.program.clone_out`.  A call run eagerly has none: a span inside a
+captured function would run at its capture only.
+
 Launch counters: the `.launches` of each kernel wrapper (kernels A to F)
 count real launches, so a capture takes back what it added and every replay
 credits the launches counted at its capture: each call adds one launch a
@@ -59,6 +67,8 @@ import threading
 import weakref
 
 import torch
+
+from . import trace
 
 # entries a program keeps, least recently used first out
 MAXSIZE = 8
@@ -208,6 +218,7 @@ class Program:
         self._pools: dict = {}
         self._side: dict = {}
         self._last_stream = None
+        self._span = f"lora.program:{fn.__name__}"
         functools.update_wrapper(self, fn)
         _programs.add(self)
 
@@ -219,20 +230,25 @@ class Program:
         dev = torch.device(a["device"])
         if not _card.takes(dev) or _eager_depth():
             return self.fn(**a)
-        dev = _card.resolve(dev)
-        tensors = {n: v for n, v in a.items() if n not in self.static}
-        base = (tuple(a[n] for n in self.static),
-                tuple(_meta(v, dev) for v in tensors.values()))
-        homes = tuple(n for n, v in tensors.items() if n in self.inplace
-                      and v is not None and v.device == dev)
-        with self._lock:
-            self._sweep()
-            key = (base, tuple(tensors[n].data_ptr() for n in homes))
-            if key not in self._cache and homes and base in self._copied_bases:
-                key, homes = (base, "copied"), ()
-            entry = self._cache.get(key)
+        with trace.span(self._span), contextlib.ExitStack() as held:
+            with trace.span("lora.program.lookup"):
+                dev = _card.resolve(dev)
+                tensors = {n: v for n, v in a.items() if n not in self.static}
+                base = (tuple(a[n] for n in self.static),
+                        tuple(_meta(v, dev) for v in tensors.values()))
+                homes = tuple(n for n, v in tensors.items()
+                              if n in self.inplace and v is not None
+                              and v.device == dev)
+                held.enter_context(self._lock)
+                self._sweep()
+                key = (base, tuple(tensors[n].data_ptr() for n in homes))
+                if (key not in self._cache and homes
+                        and base in self._copied_bases):
+                    key, homes = (base, "copied"), ()
+                entry = self._cache.get(key)
             if entry is None:
-                return self._capture(a, tensors, homes, dev, key, base)
+                with trace.span("lora.program.capture"):
+                    return self._capture(a, tensors, homes, dev, key, base)
             self._cache.move_to_end(key)
             return self._replay(entry, tensors, dev)
 
@@ -317,11 +333,16 @@ class Program:
             stream = _card.current_stream(dev)
             if self._last_stream is not None and self._last_stream != stream:
                 stream.wait_stream(self._last_stream)
-            for n, b in entry.buffers.items():
-                if b is not None:
-                    b.copy_(tensors[n], non_blocking=True)
-            entry.graph.replay()
-            outs = [t.clone() for t in entry.outputs]
+            copies = [(b, tensors[n]) for n, b in entry.buffers.items()
+                      if b is not None]
+            if copies:
+                with trace.span("lora.program.copy_in"):
+                    for b, v in copies:
+                        b.copy_(v, non_blocking=True)
+            with trace.span("lora.program.launch"):
+                entry.graph.replay()
+            with trace.span("lora.program.clone_out"):
+                outs = [t.clone() for t in entry.outputs]
             self._last_stream = stream
         for w, n in entry.credit:
             _cuda().credit(w, n)

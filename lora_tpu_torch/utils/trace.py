@@ -5,6 +5,10 @@
     `dir` (open it in Perfetto, chrome://tracing or TensorBoard);
     `session()` is that recording, which keeps every kernel of the region
     where torch.profiler alone drops a session's first ones.
+  - `span(name)` marks a stretch of the program's host code in whatever
+    torch.profiler session records in the process (`session`, `profile`,
+    or a caller's own), on its clock beside the card's kernels; with no
+    session recording it is one shared no-op, and costs a flag test.
   - `frame_events(dem, cfg)` turns a DemodResult bank into one record per
     found frame, the counterpart of the reference's stream labels.
 """
@@ -19,6 +23,7 @@ from typing import Iterator
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 
 # torch.profiler on the card drops the first device records of a session,
@@ -41,6 +46,23 @@ def absorbing(name: str) -> bool:
     return ABSORB_KERNEL in name or name == ABSORB_RANGE
 
 
+# what span() returns when no profiler records: one shared no-op context
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A torch.profiler range `name` while a profiler records in the
+    process, else the shared no-op context.  The program's spans:
+    `lora.demodulate`, `lora.channelized_demodulate`, `lora.decode` (an
+    entry point's whole host path) and, on the card, `lora.program:<fn>`
+    around a captured program's call with its children
+    `lora.program.lookup`, `.capture`, `.copy_in`, `.launch`, `.clone_out`
+    (utils/jit.py)."""
+    if torch.autograd._profiler_enabled():
+        return record_function(name)
+    return _OFF
+
+
 @contextlib.contextmanager
 def session() -> Iterator["torch.profiler.profile"]:
     """A torch.profiler session of CPU activity, and of the card's when
@@ -50,7 +72,7 @@ def session() -> Iterator["torch.profiler.profile"]:
     of them.  Yields the profiler; its results hold those launches and
     their range, which the caller leaves out by `absorbing`."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
     cuda = torch.cuda.is_available()
     activities = [ProfilerActivity.CPU]

@@ -738,6 +738,68 @@ def test_trace_profile_keeps_every_kernel_of_one_call(dev, tmp_path):
     assert bool(dem.found.any())
 
 
+def test_program_spans_hold_the_decode_graphs_launch(dev, tmp_path):
+    """One traced demodulate and decode of a small bank on the card through
+    utils.trace.session: the kernels of _decode's graph carry the
+    correlation id of a cudaGraphLaunch whose host interval lies inside
+    lora.program.launch inside lora.decode, on one thread; and
+    device_ms.decode's rule (phybench/metrics) on that trace reads the
+    device time of what the program's copy_in, launch and clone_out spans
+    of that call launched."""
+    import json
+
+    from lora_tpu_torch.utils import trace
+    from phybench import harness
+    from phybench.trace import Trace
+
+    cfg = lora_tpu_torch.LoRaConfig(sf=7, cr="4/8", ampl=1.0, crc_check=True)
+    cfg = cfg.replace(mtu=cfg.num_symbols(6))
+    x, _ = _two_frames(cfg, np.random.default_rng(7), 6, 6)
+    x = torch.as_tensor(x, device=dev)
+    for _ in range(2):  # captured, then replayed
+        api.decode(api.demodulate(x, cfg).symbols, cfg)
+    torch.cuda.synchronize()
+    with trace.session() as prof:
+        api.decode(api.demodulate(x, cfg).symbols, cfg)
+        torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X"]
+
+    def spans(name):
+        return [e for e in events if e.get("cat") == "user_annotation"
+                and e["name"] == name]
+
+    def inside(e, s):
+        return (e.get("tid") == s.get("tid") and s["ts"] - 1e-3 <= e["ts"]
+                and e["ts"] + e["dur"] <= s["ts"] + s["dur"] + 1e-3)
+
+    calls = [e for e in events if e.get("cat") in ("cuda_runtime",
+                                                   "cuda_driver")
+             and "correlation" in e.get("args", {})]
+    (dec,) = spans("lora.decode")
+    (prog,) = [s for s in spans("lora.program:_decode") if inside(s, dec)]
+    (launch,) = [s for s in spans("lora.program.launch") if inside(s, prog)]
+    (graph,) = [e for e in calls if "GraphLaunch" in e["name"]
+                and inside(e, launch)]
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and e["args"].get("correlation")
+               == graph["args"]["correlation"]]
+    assert kernels  # the graph's kernels, named by the launch's id
+    steps = [s for n in ("copy_in", "launch", "clone_out")
+             for s in spans(f"lora.program.{n}") if inside(s, prog)]
+    assert len(steps) == 3
+    ids = {e["args"]["correlation"] for e in calls
+           if any(inside(e, s) for s in steps)}
+    tr = Trace(events)
+    want = sum(e["dur"] for e in tr.device
+               if e["args"].get("correlation") in ids) * 1e-3
+    got = harness.reader("device_ms.decode")(harness.Reading(tr, {}))
+    assert got == pytest.approx(want)
+    assert want >= sum(k["dur"] for k in kernels) * 1e-3 > 0
+
+
 def test_host_data_lands_on_the_card(dev):
     """device=None means the card in every entry point that takes host
     data; a tensor stays where its caller put it."""

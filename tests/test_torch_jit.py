@@ -590,6 +590,103 @@ def test_cpu_calls_are_the_same_with_and_without_disable_jit():
 
 
 # ---------------------------------------------------------------------------
+# spans: the entry points' and the programs' ranges in a profiler session
+# ---------------------------------------------------------------------------
+
+def lora_spans(prof) -> list:
+    """The lora.* ranges a profiler recorded, each as (its name, the name of
+    the innermost lora.* range around it, or None), sorted."""
+    out = []
+    for e in prof.events():
+        if not e.name.startswith("lora."):
+            continue
+        p = e.cpu_parent
+        while p is not None and not p.name.startswith("lora."):
+            p = p.cpu_parent
+        out.append((e.name, None if p is None else p.name))
+    return sorted(out, key=str)
+
+
+def recorded(fn) -> list:
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    return lora_spans(prof)
+
+
+def entry_call(entry):
+    """(a call of the entry point on a small bank, its program's name)."""
+    cfg, x, _ = sf7_bank()
+    if entry == "decode":
+        sym = api.demodulate(x, cfg).symbols
+        return lambda: api.decode(sym, cfg), "_decode"
+    if entry == "demodulate":
+        return lambda: api.demodulate(x, cfg), "_demod_whole"
+    from lora_tpu_torch.ops import channelizer as chz
+
+    u = torch.zeros((1, 4, x.shape[1]), dtype=torch.complex64)
+    u[0, :3] = x
+    wide, _ = chz.synthesize(u)
+    return (lambda: api.channelized_demodulate(wide, 4, cfg),
+            "_channelize_demod_step")
+
+
+def nested(entry, prog, children) -> list:
+    top, mid = f"lora.{entry}", f"lora.program:{prog}"
+    return sorted([(top, None), (mid, top)]
+                  + [(f"lora.program.{c}", mid) for c in children], key=str)
+
+
+@pytest.mark.parametrize("entry", ["decode", "demodulate",
+                                   "channelized_demodulate"])
+def test_a_first_call_spans_its_capture(card, entry):
+    call, prog = entry_call(entry)
+    jit.clear()
+    assert recorded(call) == nested(entry, prog, ("lookup", "capture"))
+
+
+@pytest.mark.parametrize("entry, children", [
+    ("decode", ("lookup", "copy_in", "launch", "clone_out")),
+    # the bank, and the wideband block, read in place: nothing copied in
+    ("demodulate", ("lookup", "launch", "clone_out")),
+    ("channelized_demodulate", ("lookup", "launch", "clone_out")),
+])
+def test_a_replay_spans_its_steps(card, entry, children):
+    call, prog = entry_call(entry)
+    call()
+    assert recorded(call) == nested(entry, prog, children)
+
+
+def test_without_a_profiler_a_span_is_the_one_no_op(card, monkeypatch):
+    from lora_tpu_torch.utils import trace
+
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) entered")
+
+    monkeypatch.setattr(trace, "record_function", refuse)
+    assert trace.span("lora.decode") is trace.span("x") is trace._OFF
+    call, _ = entry_call("decode")
+    r0 = tdec._decode.replays
+    for _ in range(3):
+        call()
+    assert tdec._decode.replays - r0 == 2
+
+
+@pytest.mark.parametrize("route", ["cpu", "disable_jit"])
+def test_eager_calls_span_no_program(card, monkeypatch, route):
+    if route == "cpu":
+        monkeypatch.setattr(jit, "_card", jit._Card)  # the CPU: eager
+    call, _ = entry_call("decode")
+    c0 = jit.captures()
+    with jit.disable_jit() if route == "disable_jit" else \
+            contextlib.nullcontext():
+        got = recorded(call)
+    assert got == [("lora.decode", None)]
+    assert jit.captures() == c0
+
+
+# ---------------------------------------------------------------------------
 # the sync-free rewrites against lora_tpu
 # ---------------------------------------------------------------------------
 
