@@ -215,12 +215,12 @@
       (SF10, then /sf 8) come back byte-exact.
 
 10. The captured programs (lora_tpu_torch/utils/jit.py: demodulate,
-   decode, soft_symbols and channelized_demodulate each one CUDA graph per
+   soft_symbols and channelized_demodulate each one CUDA graph per
    static arguments) at full width on the banks of steps 3, 4 and 5e: the
    flagship bank, config 3, spectra=True + decode_soft, max_frames=2 and
-   debug=True, each on both routes, and decode of the flagship bank's
-   symbols (and max_frames=2 on a second bank, whose frames are counted,
-   not gated): the first call and a replay bit-equal in every field to
+   debug=True, each on both routes (and max_frames=2 on a second bank,
+   whose frames are counted, not gated): the first call and a replay
+   bit-equal in every field to
    the call under disable_jit(), frames byte-exact, no capture over the
    timed calls, one replay on the resident input under
    torch.cuda.set_sync_debug_mode("error"), eager and captured times (CUDA
@@ -242,14 +242,28 @@
    and max of 14 calls in the order eager, captured, captured, eager) of
    encode eager and captured, modulate plain and kernel F, dcblock eager
    and captured; the peak device memory of modulate on each route.
+12. Kernel G (decode in one launch) at both cells' shapes: 4096 frames of
+   SF10 CR 4/8 (68 int16 symbols each, as the flagship bank's demodulate
+   gives them) and 256 x 64 frames of SF7 CR 4/5 (60 symbols, the
+   wideband cell's [streams, channels, mtu]), each half encoded 32-byte
+   payloads and half random symbols: every field held to 0 against
+   decode_plain, one launch a call (counted from 0), the encoded half
+   decoded OK; kernel G's device time (torch.profiler, 14 calls) beside
+   its bound by bytes; times (CUDA events, median, min and max of 14 calls
+   in the order plain, kernel, kernel, plain) of a call of kernel G (its
+   wrapper's host time within), of decode_plain captured as one CUDA graph
+   (the route decode took before kernel G) and of decode_plain eager.
 
 On the card every call of these entry points in steps 3 to 9 runs
 captured too (its first call at a key is the warm-up, whose result it
 returns); each step starts with the programs' caches cleared.  Paths that
 build their own bank on the card (9a, 9c, 9d) launch kernel F too; every
-receive path reads 0 for it.
+receive path reads 0 for it.  Kernel G runs wherever a path decodes, on
+both routes (decode follows no route): step 3's slice, 5d, the decode of
+step 6's streamed frames and both replays, 7a, 7d, 9a to 9d, step 10's
+soft path and step 12.
 
-Prints the kernels' JSON line (kernels A to F: launches summed over the
+Prints the kernels' JSON line (kernels A to G: launches summed over the
 driven paths, step 6's StreamDemodulator.pump, demodulate_bank and both
 replays, step 7's paths (summed over their ranks), step 8's and step 9's
 among them, and, in launches_by_path, of each path's run alone, every
@@ -259,8 +273,10 @@ time, and the bound: the larger of the bytes each input and output must
 move over 3.35 TB/s and the float32 operations over 67 TFLOP/s; kernel D's
 row carries its bf16 route's error, times, bound, route and the matmul
 yardstick under "bf16"; kernel F's row, "replaces" the XLA fusion it
-stands for, no pallas_call; every other number of a row is measured in
-this run), then {"ok": true, "device": {...}}
+stands for, no pallas_call; kernel G's row, its error from step 12, its
+times at the SF10 bank's shape and under "wideband" at the wideband
+cell's, beside the captured plain route's; every other
+number of a row is measured in this run), then {"ok": true, "device": {...}}
 last.  Any failure raises and exits non-zero.  Imports no jax.
 """
 
@@ -618,9 +634,9 @@ def peak_above(fn, sync) -> float:
 
 
 def kernel_wrappers() -> dict:
-    """The wrapper of each kernel, A to F, by the name of its JSON row."""
-    from lora_tpu_torch.ops import cuda_channelize, cuda_demod, cuda_detect
-    from lora_tpu_torch.ops import cuda_modulate
+    """The wrapper of each kernel, A to G, by the name of its JSON row."""
+    from lora_tpu_torch.ops import cuda_channelize, cuda_decode, cuda_demod
+    from lora_tpu_torch.ops import cuda_detect, cuda_modulate
     from lora_tpu_torch.ops import shift as shift_ops
 
     return {
@@ -630,6 +646,7 @@ def kernel_wrappers() -> dict:
         "channelize": cuda_channelize.filterbank,
         "shift": shift_ops.shift_windows,
         "modulate": cuda_modulate.frame,
+        "decode": cuda_decode.decode,
     }
 
 
@@ -768,11 +785,13 @@ def flagship(torch, dev, card, sync, profile=False):
                                                            dev, sync)
 
     # ---- b. the slice through the kernels --------------------------------
-    dem, launches = count_launches(
-        "demodulate(fused='auto')",
-        lambda: api.demodulate(bank, cfg, fused="auto"), sync,
-        ("detect", "track", "payload"))
-    dec = api.decode(dem.symbols, cfg)
+    def slice_():
+        d = api.demodulate(bank, cfg, fused="auto")
+        return d, api.decode(d.symbols, cfg)
+
+    (dem, dec), launches = count_launches(
+        "demodulate(fused='auto') + decode", slice_, sync,
+        ("detect", "track", "payload", "decode"))
     lost = (~dem.found).nonzero().reshape(-1).tolist()
     if lost:
         raise AssertionError(f"{len(lost)} of {B} frames not found: {lost}")
@@ -1366,7 +1385,7 @@ def receive_options(torch, dev, card, sync, checks, profile=False):
 
     dem, dec = drive("demodulate(spectra=True, fused='auto') + decode_soft",
                      lambda: soft(bank, "auto"),
-                     ("detect", "track", "payload"))
+                     ("detect", "track", "payload", "decode"))
     ref, rdec = soft(bank, "off")
     routes_equal(torch, "soft", dem, ref)
     e_m2 = windows_close("soft: fft_mag2", dem.fft_mag2, ref.fft_mag2)
@@ -1609,7 +1628,8 @@ def profile_once(what, fn, sync, wall_ms: float):
 
 def streaming(torch, dev, card, sync, cfg, profile=False):
     """Step 6a: StreamDemodulator over STREAM_CHANNELS channel streams of
-    host blocks.  -> {kernel: launches} of the pump run."""
+    host blocks.  -> {path: launches} of the pump run and of the decode of
+    its frames."""
     import io
 
     from lora_tpu_torch import api
@@ -1670,7 +1690,9 @@ def streaming(torch, dev, card, sync, cfg, profile=False):
                                  f"{launches[k]} times in {n_steps} steps")
     if n_steps < 2:
         raise AssertionError(f"streaming: {n_steps} device steps")
-    frames = decode_frames(frames, cfg, dev)
+    frames, dec_launches = count_launches(
+        "decode_frames (pump)", lambda: decode_frames(frames, cfg, dev),
+        sync, ("decode",), exactly=1)
     n = stream_frames_exact("pump", frames, payload, starts, OK)
     print(f"stream pump: {n}/{n} frames found once, byte-exact, t_start "
           f"within 1 sample; {len(frames)} frames reported, none extra OK; "
@@ -1738,7 +1760,8 @@ def streaming(torch, dev, card, sync, cfg, profile=False):
     print(f"stream checkpoint: save_state at sample {cut}, load_state into a "
           f"new demodulator: the same frames and pointers ({nbytes / 1e9:.2f} "
           f"GB, {t_ckpt * 1e3:.3f} ms round trip) [{card}]", flush=True)
-    return launches
+    return {"StreamDemodulator.pump": launches,
+            "decode_frames (pump)": dec_launches}
 
 
 def stream_modes(torch, dev, card, sync, cfg) -> dict:
@@ -1794,7 +1817,10 @@ def stream_modes(torch, dev, card, sync, cfg) -> dict:
                     raise AssertionError(f"{what}: kernel C launched "
                                          f"{by_path[what]['payload']} times "
                                          f"in {len(steps)} steps")
-                frames = decode_frames(frames, cfg, dev)
+                frames, by_path[f"decode_frames ({what})"] = count_launches(
+                    f"decode_frames ({what})",
+                    lambda: decode_frames(frames, cfg, dev), sync,
+                    ("decode",))
                 n = stream_frames_exact(what, frames, payload, starts, OK)
                 runs[(route, captured)] = frames
                 print(f"{what}: {n}/{n} frames found once, byte-exact; "
@@ -2004,7 +2030,7 @@ def replay(torch, dev, card, sync, cfg, chk_d, profile=False):
                 path, "cf32", cfg, capture_rate=REPLAY_K * rate,
                 channel_rate=rate, channel=REPLAY_CHANNEL, dc_block=True,
                 chunk=REPLAY_CHUNK_K, observer=observer(steps), device=dev),
-            sync, ("channelize", "detect", "track", "payload"))
+            sync, ("channelize", "detect", "track", "payload", "decode"))
         f = one_frame(what, frames, payload)
         seam = REPLAY_CHUNK_K // REPLAY_K  # chunk seams, at the channel rate
         end = 3000 + body.shape[0] // 2
@@ -2051,7 +2077,7 @@ def replay(torch, dev, card, sync, cfg, chk_d, profile=False):
             what, lambda: replay_file(
                 path, "cf32", cfg, capture_rate=REPLAY_RATIO * rate,
                 channel_rate=rate, observer=observer(steps), device=dev),
-            sync, ("detect", "track", "payload"))
+            sync, ("detect", "track", "payload", "decode"))
         f = one_frame(what, frames, payload)
         print(f"{what}: {wide.shape[0]} capture samples, the frame "
               f"(channel samples {m0} to {m0 + fr.shape[0]}) over the chunk "
@@ -2066,8 +2092,7 @@ def replay(torch, dev, card, sync, cfg, chk_d, profile=False):
 def step6(torch, dev, card, sync, checks, profile=False):
     """Step 6: streaming, slab and replay on the flagship config."""
     cfg = flagship_cfg()
-    by_path = {"StreamDemodulator.pump": streaming(torch, dev, card, sync,
-                                                   cfg, profile)}
+    by_path = streaming(torch, dev, card, sync, cfg, profile)
     fresh(torch)
     by_path.update(stream_modes(torch, dev, card, sync, cfg))
     fresh(torch)
@@ -2270,7 +2295,8 @@ def s7a(torch, dist, dev, sync) -> dict:
         return gather_result(dem, mesh), gather_result(dec, mesh), m
 
     (g, gdec, m), rec = s7_drive(torch, dist, "7a shard_demodulate", mesh,
-                                 path, sync, ("detect", "track", "payload"))
+                                 path, sync, ("detect", "track", "payload",
+                                              "decode"))
     rec["rows"] = x.shape[0]
     single = None
     if mesh.rank == 0:
@@ -2515,7 +2541,7 @@ def s7d(torch, dist, dev, sync) -> dict:
         disp = ChannelDispatcher(configs, soft=soft, mesh=mesh)
         res, rec = s7_drive(torch, dist, what, mesh,
                             lambda: disp.run(streams), sync,
-                            ("detect", "track", "payload"), runs=1)
+                            ("detect", "track", "payload", "decode"), runs=1)
         alone = None
         if mesh.rank == 0:
             bad = [r.channel for r in res if not (
@@ -2949,11 +2975,12 @@ def s9a_sensitivity(torch, dev, sync) -> dict:
 
     what = f"9a sensitivity, {len(specs)} points hard and soft"
     auto, la = count_launches(f"{what}, fused='auto'", auto_route, sync,
-                              S9_TX)
+                              (*S9_TX, "decode"))
     t_auto = time.perf_counter() - t
     off, lo = count_launches(
         f"{what}, fused='off'",
-        lambda: [route(s, b, "off") for s, b in zip(specs, banks)], sync, ())
+        lambda: [route(s, b, "off") for s, b in zip(specs, banks)], sync,
+        ("decode",))
     differ, below = 0, []
     tot = {"hard": 0, "soft": 0, "off_hard": 0, "off_soft": 0, "ref": 0}
     for s, (row, pf), (orow, opf) in zip(specs, auto, off):
@@ -3038,7 +3065,8 @@ def s9b_e2e(torch, dev, sync, wire) -> dict:
                 f" {channels} channels")
         t = time.perf_counter()
         (rec, comp), by_path[what] = count_launches(
-            what, lambda: e2e.run(groups, mode, channels, dev), sync, S9_ABC)
+            what, lambda: e2e.run(groups, mode, channels, dev), sync,
+            (*S9_ABC, "decode"))
         if not rec.get("of") or not (rec["frames_found"]
                                      == rec["frames_decoded_ok"]
                                      == rec["of"] == channels):
@@ -3063,7 +3091,8 @@ def s9c_soft_decode(torch, dev, sync) -> dict:
         what = f"9c {name} B={S9_B}"
         t = time.perf_counter()
         _, by_path[what] = count_launches(
-            what, lambda: mod.measure(S9_B, 10, dev, S9_REPS), sync, S9_TX)
+            what, lambda: mod.measure(S9_B, 10, dev, S9_REPS), sync,
+            (*S9_TX, "decode"))
         print(f"{what}: {time.perf_counter() - t:.1f} s", flush=True)
     return by_path
 
@@ -3086,8 +3115,11 @@ def s9d_stream_examples(torch, dev, sync) -> dict:
     recs, by_path[what] = count_launches(
         what, lambda: bench_stream.bench_pump(device=dev), sync, S9_TX)
     first = sorted((f.channel, f.t_start) for f in recs[0]["frame_list"])
-    for r in recs:
-        got = decode_frames(r["frame_list"], r["cfg"], device=dev)
+    decoded, by_path[f"{what} decode_frames"] = count_launches(
+        f"{what} decode_frames", lambda: [
+            decode_frames(r["frame_list"], r["cfg"], device=dev)
+            for r in recs], sync, ("decode",), exactly=len(recs))
+    for r, got in zip(recs, decoded):
         bad = [f.channel for f in got
                if f.payload != bytes(r["payload"][f.channel].tolist())]
         same = sorted((f.channel, f.t_start) for f in got) == first
@@ -3104,7 +3136,7 @@ def s9d_stream_examples(torch, dev, sync) -> dict:
     what = "9d examples.wideband_rx"
     rc, by_path[what] = count_launches(
         what, lambda: wideband_rx.main(["--device", str(dev)]), sync,
-        ("channelize", *S9_TX))
+        ("channelize", *S9_TX, "decode"))
     if rc != 0:
         raise AssertionError(f"{what}: exit {rc}")
     print(f"{what}: byte-exact ({time.perf_counter() - t:.1f} s)",
@@ -3116,7 +3148,8 @@ def s9d_stream_examples(torch, dev, sync) -> dict:
     with contextlib.redirect_stdout(out):
         rc, by_path[what] = count_launches(
             what, lambda: lora_simulation.main(["--device", str(dev)],
-                                               SIM_LINES), sync, S9_TX)
+                                               SIM_LINES), sync,
+            (*S9_TX, "decode"))
     print(out.getvalue(), end="", flush=True)
     got = [ln.split("rx: ", 1)[1].split("   snr=")[0]
            for ln in out.getvalue().splitlines() if "  rx: " in ln]
@@ -3199,7 +3232,6 @@ def step10(torch, dev, card, sync, profile=False) -> dict:
     wide, pay3 = make_wideband(api, chz, cfg3, C3_STREAMS, C3_K, C3_SIGMA,
                                SEED + 11, dev)
     want = [bytes(p) for p in payload.cpu().numpy().tolist()]
-    syms = api.demodulate(bank, cfg).symbols
     B, K3 = B_FLAGSHIP, C3_K
 
     def frames(what, dec, sent):
@@ -3236,19 +3268,16 @@ def step10(torch, dev, card, sync, profile=False) -> dict:
         "demodulate(debug=True)": (
             lambda r: api.demodulate(bank, cfg, debug=True, fused=r),
             lambda out: frames("debug", hard(out), want), bank.numel()),
-        "decode (flagship symbols)": (
-            lambda r: api.decode(syms, cfg),
-            lambda out: frames("decode", out, want), None),
     }
     expect = {"demodulate(debug=True)": ("detect", "track", "shift"),
               "channelized_demodulate (config 3)": ("channelize", "detect",
                                                     "track", "payload"),
-              "decode (flagship symbols)": ()}
+              "demodulate(spectra=True) + decode_soft": ("detect", "track",
+                                                         "payload", "decode")}
     by_path = {}
     pool_gb = None
     for what, (run, check, samples) in paths.items():
-        for route in (("auto",) if what.startswith("decode") else
-                      ("auto", "off")):
+        for route in ("auto", "off"):
             jit.clear()
             sync()
             torch.cuda.empty_cache()
@@ -3279,11 +3308,12 @@ def step10(torch, dev, card, sync, profile=False) -> dict:
             ms_e, ms_c = in_turns(unjitted(lambda: run(route)),
                                   lambda: run(route))
             name = f"10 captured {what} fused={route!r}"
+            kernels = expect.get(what, ("detect", "track", "payload"))
+            if route == "off":  # kernel G follows no route
+                kernels = tuple(k for k in kernels if k == "decode")
             _, by_path[name] = count_launches(
-                name, lambda: run(route), sync,
-                expect.get(what, ("detect", "track", "payload"))
-                if route == "auto" else (), exactly=1 if route == "auto"
-                and what != "decode (flagship symbols)" else None)
+                name, lambda: run(route), sync, kernels,
+                exactly=1 if route == "auto" else None)
             if jit.captures() != n_cap:
                 raise AssertionError(f"{what} {route}: "
                                      f"{jit.captures() - n_cap} captures "
@@ -3487,6 +3517,96 @@ def step11(torch, dev, card, sync):
     return chk, by_path, (med(mod_f), med(mod_p)), bnd
 
 
+# ---------------------------------------------------------------------------
+# step 12: kernel G (decode) at both cells' shapes
+# ---------------------------------------------------------------------------
+
+def step12(torch, dev, card, sync):
+    """Step 12: kernel G against decode_plain at the SF10 bank's shape and
+    at the wideband cell's: every field bit-equal, one launch a call, the
+    encoded half decoded OK; times of kernel G, of decode_plain captured
+    and of decode_plain eager, and kernel G's bound by bytes.
+    -> (Check, {path: launches}, {shape: times}, {shape: bound})."""
+    from lora_tpu_torch import LoRaConfig, api
+    from lora_tpu_torch.models import decoder as tdec
+    from lora_tpu_torch.utils import jit, trace
+
+    @jit.program(static=("cfg", "num_symbols"))
+    def plain_graph(sym, cfg, num_symbols, device):
+        """the route decode took before kernel G: decode_plain, one graph"""
+        return tdec.decode_plain(sym.to(device), cfg, num_symbols)
+
+    shapes = {
+        "sf10-bank": (flagship_cfg(), (B_FLAGSHIP,), 4),
+        "wideband": (LoRaConfig(sf=7, cr="4/5", preamble_symbols=16,
+                                sync=0x2B), (256, 64), 2),
+    }
+    chk = Check("decode")
+    by_path, times, bounds = {}, {}, {}
+    for name, (cfg, lead, tail) in shapes.items():
+        cfg = cfg.replace(crc_check=True)
+        B = int(np.prod(lead))
+        g = torch.Generator(device=dev).manual_seed(SEED + 120)
+        pay = torch.randint(0, 256, (B, 32), generator=g, device=dev,
+                            dtype=torch.int64).to(torch.uint8)
+        sym = api.encode(pay, cfg)
+        sym = torch.cat([sym, torch.randint(0, cfg.N, (B, tail), generator=g,
+                                            device=dev, dtype=torch.int32)],
+                        dim=1)
+        sym[B // 2 :] = torch.randint(0, cfg.N, sym[B // 2 :].shape,
+                                      generator=g, device=dev,
+                                      dtype=torch.int32)
+        x = sym.to(torch.int16).reshape(*lead, -1).contiguous()
+        S = x.shape[-1]
+        what = f"12 decode ({name}, {tuple(x.shape)})"
+        got, by_path[what] = count_launches(
+            what, lambda: api.decode(x, cfg), sync, ("decode",), exactly=1)
+        want = tdec.decode_plain(x, cfg, S)
+        for f in dataclasses.fields(want):  # bit-equal: held to 0
+            chk.close(f"{what} {f.name}", getattr(got, f.name),
+                      getattr(want, f.name), tol=0)
+        ok = got.status.reshape(-1)[: B // 2]
+        if not bool((ok == 0).all()):
+            raise AssertionError(f"{what}: {int((ok != 0).sum())} encoded "
+                                 "frames not decoded OK")
+        fields_bit_equal(torch, f"{what} captured plain",
+                         plain_graph(x, cfg, S, dev), want)
+        kern = lambda: api.decode(x, cfg)
+        graph = lambda: plain_graph(x, cfg, S, dev)
+        ms_p, ms_g = in_turns(graph, kern)
+        ms_e = run_times(lambda: tdec.decode_plain(x, cfg, S))
+        # the kernel's own device time: a call's CUDA events also hold the
+        # wrapper's host time, during which the card waits
+        sync()
+        with trace.session() as prof:
+            for _ in range(2 * RUNS):
+                kern()
+            sync()
+        ev = [e for e in prof.key_averages() if "decode_kernel" in e.key]
+        dev_ms = sum(e.self_device_time_total for e in ev) / 1e3 / (2 * RUNS)
+        if sum(e.count for e in ev) != 2 * RUNS:
+            raise AssertionError(f"{what}: the trace holds "
+                                 f"{sum(e.count for e in ev)} launches of "
+                                 f"kernel G, not {2 * RUNS}")
+        M = got.data.shape[-1]
+        bnd = bound(B * S * 2 + B * M + B * (7 * 4 + 1), 0.0)
+        med = lambda t: sorted(t)[len(t) // 2]
+        print(f"12 decode at {name} {tuple(x.shape)} int16: kernel G "
+              f"{dev_ms * 1e3:.2f} us on the card (bound "
+              f"{bnd['bound_ms'] * 1e3:.3f} us by {bnd['bound_by']}, "
+              f"{dev_ms / bnd['bound_ms']:.0f}x it), a call (CUDA events, "
+              f"the wrapper's host time within) {spread(ms_g)}; "
+              f"decode_plain captured {spread(ms_p)}, eager {spread(ms_e)}; "
+              f"every field bit-equal, {B // 2} encoded frames OK "
+              f"[{card}]", flush=True)
+        times[name] = {"ms": dev_ms, "call_ms": med(ms_g),
+                       "plain_ms": med(ms_e), "captured_plain_ms": med(ms_p)}
+        bounds[name] = bnd
+        del x, sym, got, want
+    jit.clear()
+    return chk, by_path, times, bounds
+
+
 def main() -> int:
     import torch
 
@@ -3536,11 +3656,16 @@ def main() -> int:
     (checks["modulate"], by_path11, ms["modulate"],
      bounds["modulate"]) = step11(torch, dev, card, sync)
     print(f"step 11: {time.perf_counter() - t11:.1f} s", flush=True)
+    fresh(torch)
+    t12 = time.perf_counter()
+    checks["decode"], by_path12, ms12, bounds12 = step12(torch, dev, card,
+                                                         sync)
+    print(f"step 12: {time.perf_counter() - t12:.1f} s", flush=True)
     # every driven path's run, each counted from 0
-    by_path = {"demodulate(fused='auto')": launches,
+    by_path = {"demodulate(fused='auto') + decode": launches,
                "channelized_demodulate(fused='auto')": c3_launches, **by_path,
                **by_path6, **by_path7, **by_path8, **by_path9, **by_path10,
-               **by_path11}
+               **by_path11, **by_path12}
 
     sources = {
         "detect": ("lora_tpu_torch/csrc/detect.cu",
@@ -3587,6 +3712,19 @@ def main() -> int:
     # yardstick of its IDFT
     row_d = next(k for k in kernels if k["name"] == "channelize")
     row_d["bf16"] = {"max_abs_err": chk16.max_abs_err, **ms16, **bound16}
+    # kernel G: its launches over every path, its difference from
+    # decode_plain (step 12, held to 0), its times at both cells' shapes
+    kernels.append({
+        "name": "decode", "route": "cuda",
+        "source": "lora_tpu_torch/csrc/decode.cu",
+        "replaces": "XLA fusion of lora_tpu/models/decoder.py:104 "
+                    "(no pallas_call)",
+        "launches": sum(n["decode"] for n in by_path.values()),
+        "launches_by_path": {p: n["decode"] for p, n in by_path.items()},
+        "max_abs_err": checks["decode"].max_abs_err,
+        **ms12["sf10-bank"], **bounds12["sf10-bank"], "library_ms": None,
+        "wideband": {**ms12["wideband"], **bounds12["wideband"]},
+    })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

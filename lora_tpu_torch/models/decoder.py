@@ -5,7 +5,9 @@ The same pipeline, status codes and preserved reference quirks: the
 decoder's whitening flag is never consulted, the header checksum is never
 verified, and in explicit mode without CRC the output length is
 packetLength - 2; the codeword tail past the symbols decodes as the raw
-whitening stream (lora_tpu/models/decoder.py:18-26, 142-155).
+whitening stream (lora_tpu/models/decoder.py:18-26, 142-155).  On the card
+the whole decode is one launch of kernel G (ops/cuda_decode.py); on the
+CPU it runs op by op (decode_plain).
 """
 
 from __future__ import annotations
@@ -17,8 +19,8 @@ import torch
 from ..config import (HEADER_RDD, N_HEADER_CODEWORDS,
                              N_HEADER_SYMBOLS, LoRaConfig)
 
-from ..ops import codes, cplx
-from ..utils import jit, trace
+from ..ops import codes, cplx, cuda_decode
+from ..utils import trace
 
 OK = 0
 DROP_HEADER_FEC = 1
@@ -80,15 +82,25 @@ def decode(symbols, cfg: LoRaConfig, num_symbols: int | None = None,
     """symbols int [B, S] (or [S]) -> DecodeResult; with
     cfg.interleaving=False the Gray-mapped symbols pass through.  A tensor
     is decoded where it lies; host data goes to `device` (the card when
-    None).  On the card this runs as one captured program per (cfg,
-    num_symbols) and symbols' layout (utils/jit.py), lora_tpu's jitted
+    None).  On the card this is one launch of kernel G, lora_tpu's jitted
     `decode` (lora_tpu/models/decoder.py:104)."""
     with trace.span("lora.decode"):
         sym, dev = cplx.stage(symbols, device)
         if num_symbols is None:
             num_symbols = sym.shape[-1]
         squeeze = sym.dim() == 1
-        result = _decode(torch.atleast_2d(sym), cfg, num_symbols, dev)
+        sym = torch.atleast_2d(sym).to(dev)
+        if sym.device.type == "cpu":
+            result = decode_plain(sym, cfg, num_symbols)
+        else:
+            result = cuda_decode.decode(sym, cfg, num_symbols)
+        if isinstance(result, tuple):  # kernel G's outputs
+            data, ints, crc_present = result
+            offset, length, status, packet_length, rdd, fec_errors, bad = (
+                ints.unbind(0))
+            result = DecodeResult(data, offset, length, status,
+                                  packet_length, rdd, crc_present,
+                                  fec_errors, bad)
         if not squeeze:
             return result
         if isinstance(result, torch.Tensor):
@@ -97,11 +109,10 @@ def decode(symbols, cfg: LoRaConfig, num_symbols: int | None = None,
                                for f in dataclasses.fields(result)})
 
 
-@jit.program(static=("cfg", "num_symbols"))
-def _decode(sym: torch.Tensor, cfg: LoRaConfig, num_symbols: int,
-            device: torch.device):
-    """decode of symbols [B, S] on `device`, with no host sync."""
-    sym = sym.to(device).long()
+def decode_plain(sym: torch.Tensor, cfg: LoRaConfig, num_symbols: int):
+    """decode of symbols [..., S] op by op on their device: the plain
+    version of kernel G."""
+    sym = sym.long()
     dev = sym.device
     ppm, cfg_rdd, sf = cfg.PPM, cfg.rdd, cfg.sf
 

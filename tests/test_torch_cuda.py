@@ -30,12 +30,15 @@ import torch
 
 import lora_tpu_torch
 from lora_tpu_torch import api
+from lora_tpu_torch.models import decoder as tdec
 from lora_tpu_torch.models import demodulator as dm
 from lora_tpu_torch.models import modulator as tmod
 from lora_tpu_torch.ops import channelizer as chz
-from lora_tpu_torch.ops import cuda_channelize, cuda_demod, cuda_detect, tables
+from lora_tpu_torch.ops import cuda_channelize, cuda_decode, cuda_demod
+from lora_tpu_torch.ops import cuda_detect, tables
 from lora_tpu_torch.ops import detect as det_ops
 from lora_tpu_torch.ops import shift as shift_ops
+from test_torch_decode_model import CODES, FIELDS, FLAGS, decode_cases, flagged
 
 pytestmark = pytest.mark.cuda
 
@@ -740,14 +743,14 @@ def test_trace_profile_keeps_every_kernel_of_one_call(dev, tmp_path):
 
 def test_program_spans_hold_the_decode_graphs_launch(dev, tmp_path):
     """One traced demodulate and decode of a small bank on the card through
-    utils.trace.session: the kernels of _decode's graph carry the
-    correlation id of a cudaGraphLaunch whose host interval lies inside
-    lora.program.launch inside lora.decode, on one thread; and
-    device_ms.decode's rule (phybench/metrics) on that trace reads the
-    device time of what the program's copy_in, launch and clone_out spans
-    of that call launched."""
+    utils.trace.session: decode runs no captured program (no
+    lora.program:_decode span), and inside lora.decode lies exactly one
+    launch of kernel G, whose kernel carries that launch's correlation id;
+    device_ms.decode's rule (phybench/metrics) on that trace reads that
+    kernel's device time; the wrapper counts one launch a call."""
     import json
 
+    from lora_tpu_torch.ops import cuda_decode
     from lora_tpu_torch.utils import trace
     from phybench import harness
     from phybench.trace import Trace
@@ -756,12 +759,14 @@ def test_program_spans_hold_the_decode_graphs_launch(dev, tmp_path):
     cfg = cfg.replace(mtu=cfg.num_symbols(6))
     x, _ = _two_frames(cfg, np.random.default_rng(7), 6, 6)
     x = torch.as_tensor(x, device=dev)
-    for _ in range(2):  # captured, then replayed
+    for _ in range(2):  # the demodulator captured, then replayed
         api.decode(api.demodulate(x, cfg).symbols, cfg)
     torch.cuda.synchronize()
+    n0 = cuda_decode.decode.launches
     with trace.session() as prof:
         api.decode(api.demodulate(x, cfg).symbols, cfg)
         torch.cuda.synchronize()
+    assert cuda_decode.decode.launches == n0 + 1
     path = tmp_path / "trace.json"
     prof.export_chrome_trace(str(path))
     events = [e for e in json.loads(path.read_text())["traceEvents"]
@@ -779,25 +784,20 @@ def test_program_spans_hold_the_decode_graphs_launch(dev, tmp_path):
                                                    "cuda_driver")
              and "correlation" in e.get("args", {})]
     (dec,) = spans("lora.decode")
-    (prog,) = [s for s in spans("lora.program:_decode") if inside(s, dec)]
-    (launch,) = [s for s in spans("lora.program.launch") if inside(s, prog)]
-    (graph,) = [e for e in calls if "GraphLaunch" in e["name"]
-                and inside(e, launch)]
-    kernels = [e for e in events if e.get("cat") == "kernel"
-               and e["args"].get("correlation")
-               == graph["args"]["correlation"]]
-    assert kernels  # the graph's kernels, named by the launch's id
-    steps = [s for n in ("copy_in", "launch", "clone_out")
-             for s in spans(f"lora.program.{n}") if inside(s, prog)]
-    assert len(steps) == 3
-    ids = {e["args"]["correlation"] for e in calls
-           if any(inside(e, s) for s in steps)}
+    assert not spans("lora.program:_decode")
+    assert not [s for s in events if s.get("cat") == "user_annotation"
+                and s["name"].startswith("lora.program") and inside(s, dec)]
+    ids = {e["args"]["correlation"] for e in calls if inside(e, dec)}
+    launched = [e for e in events if e.get("cat") == "kernel"
+                and e["args"].get("correlation") in ids]
+    (kernel,) = launched
+    assert "decode_kernel" in kernel["name"]
     tr = Trace(events)
     want = sum(e["dur"] for e in tr.device
                if e["args"].get("correlation") in ids) * 1e-3
     got = harness.reader("device_ms.decode")(harness.Reading(tr, {}))
     assert got == pytest.approx(want)
-    assert want >= sum(k["dur"] for k in kernels) * 1e-3 > 0
+    assert want == pytest.approx(kernel["dur"] * 1e-3) and want > 0
 
 
 def test_host_data_lands_on_the_card(dev):
@@ -1101,8 +1101,8 @@ def _same(a, b):
 
 def _program_case(name, sf, dev):
     """(program object, call(x), x resident on the card, kernels per call)
-    for one captured program at a small SF7/SF8 bank."""
-    from lora_tpu_torch.models import decoder as tdec
+    for one entry point at a small SF7/SF8 bank: a captured program, or
+    (decode) kernel G's one launch, whose program is None."""
     from lora_tpu_torch.models import softdec as tsoft
 
     cfg = lora_tpu_torch.LoRaConfig(sf=sf, cr="4/8", ampl=1.0, crc_check=True)
@@ -1112,53 +1112,57 @@ def _program_case(name, sf, dev):
     bank = torch.as_tensor(bank, device=dev)
     if name == "demodulate":
         return (dm._demod_whole, lambda x: api.demodulate(x, cfg), bank,
-                (1, 1, 1, 0, 0))
+                (1, 1, 1, 0, 0, 0))
     dem = api.demodulate(bank, cfg, spectra=True)
     if name == "decode":
-        return (tdec._decode, lambda x: api.decode(x, cfg),
-                dem.symbols.clone(), (0,) * 5)
+        return (None, lambda x: api.decode(x, cfg), dem.symbols.clone(),
+                (0, 0, 0, 0, 0, 1))
     if name == "soft_symbols":
         return (tsoft._soft_symbols, lambda x: api.soft_symbols(x, cfg),
-                dem.fft_mag2.clone(), (0,) * 5)
+                dem.fft_mag2.clone(), (0,) * 6)
     K = 16
     wide = crandn(rng, (2, K * api.required_samples(cfg)), dev)
     return (api._channelize_demod_step,
             lambda x: api.channelized_demodulate(x, K, cfg), wide,
-            (1, 1, 1, 0, 1))
+            (1, 1, 1, 0, 1, 0))
 
 
 @pytest.mark.parametrize("sf", [7, 8])
 @pytest.mark.parametrize("name", ["demodulate", "decode", "soft_symbols",
                                   "channelized_demodulate"])
 def test_captured_program_replays_as_the_eager_call(dev, name, sf):
-    """One capture a key; each replay bit-equal to the call under
-    disable_jit(); new data written into the input in place gives the new
-    answer; a result already returned does not change on the next call;
-    the kernels' launches counted once a call, captured or not."""
+    """One capture a key (none for decode, which is kernel G's one launch);
+    each call bit-equal to the call under disable_jit(); new data written
+    into the input in place gives the new answer; a result already returned
+    does not change on the next call; the kernels' launches counted once a
+    call, captured or not."""
+    from lora_tpu_torch.ops import cuda_decode
     from lora_tpu_torch.utils import jit
 
     prog, call, x, per_call = _program_case(name, sf, dev)
     wrappers = (cuda_detect.dechirp_detect, cuda_demod.track,
                 cuda_demod.payload_detect, shift_ops.shift_windows,
-                cuda_channelize.filterbank)
+                cuda_channelize.filterbank, cuda_decode.decode)
+    captures = (lambda: prog.captures) if prog else jit.captures
     jit.clear()
     with jit.disable_jit():
         want = call(x)
-    c0, before = prog.captures, [w.launches for w in wrappers]
+    c0, before = captures(), [w.launches for w in wrappers]
     got = [call(x) for _ in range(3)]
-    assert prog.captures == c0 + 1 and prog.replays >= 2
+    assert captures() == c0 + (1 if prog else 0)
+    assert prog is None or prog.replays >= 2
     assert [w.launches - n for w, n in zip(wrappers, before)] == [
         3 * k for k in per_call]
     assert all(_same(g, want) for g in got)
-    # new data in place: the next replay reads it (decode and soft_symbols
-    # copy their input into the program's buffer, the banks are read in
-    # place); the results returned before stay as they were
+    # new data in place: the next call reads it (soft_symbols copies its
+    # input into the program's buffer, the banks are read in place, decode
+    # reads it where it lies); the results returned before stay as they were
     y = x.flip(0).clone()
     with jit.disable_jit():
         want_y = call(y)
     x.copy_(y)
     again = call(x)
-    assert prog.captures == c0 + 1
+    assert captures() == c0 + (1 if prog else 0)
     assert _same(again, want_y)
     assert all(_same(g, want) for g in got)
 
@@ -1341,6 +1345,163 @@ def test_modulate_kernel_failure_raises(dev, monkeypatch):
     assert cuda_modulate.frame.launches == n0
 
 
+# --------------------------------------------------------------------------
+# kernel G: decode in one launch, against its plain version
+# --------------------------------------------------------------------------
+
+def _decode_equal(x, cfg, n=None, what=""):
+    """api.decode of x on the card (kernel G, one launch) against
+    decode_plain of the same symbols on the CPU, every field bit-equal.
+    -> the card's result."""
+    n0 = cuda_decode.decode.launches
+    got = api.decode(x, cfg, n)
+    assert cuda_decode.decode.launches == n0 + 1, what
+    sym = torch.atleast_2d(x.cpu())
+    want = tdec.decode_plain(sym, cfg, n or sym.shape[-1])
+    if x.dim() == 1:
+        want = type(want)(**{f: getattr(want, f)[0] for f in FIELDS})
+    for f in FIELDS:
+        a, b = getattr(got, f), getattr(want, f)
+        assert a.is_cuda and a.dtype == b.dtype and a.shape == b.shape, \
+            (what, f)
+        assert torch.equal(a.cpu(), b), (what, f)
+    return got
+
+
+@pytest.mark.parametrize("explicit", [True, False])
+@pytest.mark.parametrize("sf, cr, ppm", CODES)
+def test_decode_kernel_bit_equal_to_plain(dev, sf, cr, ppm, explicit):
+    """Kernel G against decode_plain on every decoder flag of a header
+    mode: encoded, damaged and random frames, in int16, int32 and int64
+    symbols by turns; every field bit-equal, one launch a call."""
+    cfg0, sym = decode_cases(sf, cr, ppm, explicit,
+                             1000 * sf + 7 * ppm + int(cr[-1]) + 3 * explicit)
+    dtypes = (torch.int16, torch.int32, torch.int64)
+    for i, flags in enumerate(f for f in FLAGS if f[0] == explicit):
+        cfg = flagged(cfg0, flags)
+        x = torch.as_tensor(sym, device=dev).to(dtypes[i % 3])
+        _decode_equal(x, cfg, what=f"{cfg} {x.dtype}")
+
+
+def test_decode_kernel_reaches_every_status(dev):
+    """Over the grid's explicit cases on the card: every status and every
+    rate a header can announce (5 to 7 among them)."""
+    statuses, rates = set(), set()
+    for sf, cr, ppm in CODES:
+        cfg0, sym = decode_cases(sf, cr, ppm, True, 77 + sf)
+        x = torch.as_tensor(sym, device=dev).to(torch.int16)
+        for flags in FLAGS[:8]:
+            got = _decode_equal(x, flagged(cfg0, flags))
+            statuses |= set(got.status.cpu().tolist())
+            rates |= set(got.rdd.cpu().tolist())
+    assert statuses == set(range(6))
+    assert rates == set(range(8))
+
+
+def test_decode_kernel_takes_any_layout(dev):
+    """uint8, int8, a strided view, leading axes [2, 10, S], a single frame
+    [S], num_symbols below the width, the Gray passthrough (interleaving
+    off, any integer, negative ones too): one launch each, bit-equal."""
+    cfg, sym = decode_cases(7, "4/6", 0, True, 41)
+    cfg = cfg.replace(crc_check=True)
+    x = torch.as_tensor(sym, device=dev)
+    S = x.shape[1]
+    for t in (x.to(torch.uint8), x.to(torch.int8), x.t().contiguous().t(),
+              x.to(torch.int16)[:, :],
+              torch.cat([x, x]).reshape(2, 20, S), x[4]):
+        _decode_equal(t, cfg, what=f"{t.dtype} {tuple(t.shape)}")
+    for n in range(S - 8, S):
+        try:
+            cuda_decode.geometry(cfg, S, n)
+        except ValueError:
+            continue
+        _decode_equal(x, cfg, n, what=f"num_symbols {n}")
+    gray = cfg.replace(interleaving=False)
+    rng = np.random.default_rng(42)
+    wide = torch.as_tensor(rng.integers(-(1 << 40), 1 << 40, (70, 33)),
+                           device=dev)
+    for t in (x, x.to(torch.int16), wide):
+        n0 = cuda_decode.decode.launches
+        got = api.decode(t, gray)
+        assert cuda_decode.decode.launches == n0 + 1
+        assert got.dtype == torch.int32
+        assert torch.equal(got.cpu(), tdec.decode_plain(
+            t.cpu(), gray, t.shape[-1]))
+
+
+@pytest.mark.parametrize("shape, sf, cr, payload", [
+    ((4096,), 10, "4/8", 32),     # the SF10 bank cell's decode
+    ((256, 64), 7, "4/5", 32),    # the wideband cell's, leading axes kept
+    ((96,), 7, "4/8", 255),       # the longest payload
+    ((40,), 7, "4/5", None),      # the longest row: fewer frames a block
+])
+def test_decode_kernel_at_full_width(dev, shape, sf, cr, payload):
+    """The cells' shapes, the longest payload and the longest row that
+    geometry() accepts (1,465 symbols at SF7 CR 4/5, 2,046 payload
+    codewords; its tiles take 32 frames a block, above 48 KB of shared
+    memory): encoded frames and random rows, bit-equal to decode_plain."""
+    rng = np.random.default_rng(sf + int(cr[-1]))
+    cfg = lora_tpu_torch.LoRaConfig(sf=sf, cr=cr, crc_check=True)
+    B = int(np.prod(shape))
+    if payload is None:
+        sym = rng.integers(0, cfg.N, (B, _longest_row(cfg)))
+    else:
+        pay = rng.integers(0, 256, (B, payload)).astype(np.uint8)
+        sym = api.encode(pay, cfg, device="cpu").numpy()
+        sym = np.concatenate([sym, rng.integers(0, cfg.N, (B, 4))], 1)
+        sym[B // 2 :] = rng.integers(0, cfg.N, sym[B // 2 :].shape)
+    x = torch.as_tensor(sym, device=dev).to(torch.int16)
+    got = _decode_equal(x.reshape(*shape, -1), cfg, what=str(shape))
+    if payload is not None:
+        ok = got.status.reshape(-1)[: B // 2].cpu()
+        assert bool((ok == 0).all())
+
+
+def _longest_row(cfg) -> int:
+    """The most symbols a row that geometry() accepts, decoded whole."""
+    longest = 0
+    for S in range(1, 2 * tables.WHITEN_LEN):
+        try:
+            cuda_decode.geometry(cfg, S, S)
+        except ValueError:
+            continue
+        longest = S
+    return longest
+
+
+def test_decode_kernel_failure_raises(dev, monkeypatch):
+    """What kernel G does not take raises; a failed build or launch raises;
+    decode never falls back to the plain route on the card."""
+    from lora_tpu_torch.ops import _cuda
+
+    cfg = lora_tpu_torch.LoRaConfig(sf=7)
+    x = torch.zeros((2, 20), dtype=torch.int32, device=dev)
+    n0 = cuda_decode.decode.launches
+    with pytest.raises(ValueError, match="outside"):
+        api.decode(torch.zeros((1, _longest_row(cfg) + 8),
+                               dtype=torch.int32, device=dev), cfg)
+    with pytest.raises(TypeError, match="integer"):
+        api.decode(x.float(), cfg)
+    with pytest.raises(ValueError, match="codewords"):
+        api.decode(x, cfg, 40)
+
+    def no_build():
+        raise RuntimeError("nvcc failed (1): decode.cu")
+
+    class Refused:
+        @staticmethod
+        def lora_decode(*args):
+            return 9  # cudaErrorInvalidConfiguration
+
+    monkeypatch.setattr(_cuda, "library", no_build)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        api.decode(x, cfg)
+    monkeypatch.setattr(_cuda, "library", lambda: Refused)
+    with pytest.raises(RuntimeError, match="CUDA error 9"):
+        api.decode(x, cfg)
+    assert cuda_decode.decode.launches == n0
+
+
 def test_encode_and_dcblock_captured_equal_eager(dev):
     """encode and dcblock replay their graphs bit-equal to their calls under
     disable_jit(), the DC blocker's state across a seam, with no host sync
@@ -1384,10 +1545,10 @@ def test_encode_and_dcblock_captured_equal_eager(dev):
 
 def test_threads_capture_at_once_in_turns(dev):
     """A thread that captures encode at a new payload length and one that
-    captures demodulate and decode at a new bank size, released together
-    each round (a relay's transmit and receive threads): their captures
-    take turns under the capture lock, and every result is bit-equal to
-    its disable_jit() call."""
+    captures demodulate at a new bank size and decodes its symbols (kernel
+    G, no capture), released together each round (a relay's transmit and
+    receive threads): their captures take turns under the capture lock, and
+    every result is bit-equal to its disable_jit() call."""
     import threading
 
     from lora_tpu_torch.utils import jit
@@ -1432,7 +1593,7 @@ def test_threads_capture_at_once_in_turns(dev):
         t.join(timeout=300)
     assert not any(t.is_alive() for t in threads)
     assert not errors, errors
-    assert jit.captures() - c0 == 3 * rounds
+    assert jit.captures() - c0 == 2 * rounds
     for i in range(2):
         for a, b in zip(got[i], want[i]):
             assert _same(a, b)
