@@ -253,6 +253,11 @@
    in the order plain, kernel, kernel, plain) of a call of kernel G (its
    wrapper's host time within), of decode_plain captured as one CUDA graph
    (the route decode took before kernel G) and of decode_plain eager.
+13. Kernel R (the fractional resampler) against its plain version at the
+   US902-928 cell's shape (8,192 channels of 65,536 samples -> 40,960,
+   ratio 8/5, 14 taps): bit-equal, one launch a call; its device time by
+   torch.profiler, the plain route's by CUDA events, and its bound.
+   Kernel R also runs in step 6c's fractional replay, which counts it.
 
 On the card every call of these entry points in steps 3 to 9 runs
 captured too (its first call at a key is the warm-up, whose result it
@@ -263,7 +268,7 @@ both routes (decode follows no route): step 3's slice, 5d, the decode of
 step 6's streamed frames and both replays, 7a, 7d, 9a to 9d, step 10's
 soft path and step 12.
 
-Prints the kernels' JSON line (kernels A to G: launches summed over the
+Prints the kernels' JSON line (kernels A to G and R: launches summed over the
 driven paths, step 6's StreamDemodulator.pump, demodulate_bank and both
 replays, step 7's paths (summed over their ranks), step 8's and step 9's
 among them, and, in launches_by_path, of each path's run alone, every
@@ -634,9 +639,10 @@ def peak_above(fn, sync) -> float:
 
 
 def kernel_wrappers() -> dict:
-    """The wrapper of each kernel, A to G, by the name of its JSON row."""
+    """The wrapper of each kernel, A to G and R, by the name of its JSON
+    row."""
     from lora_tpu_torch.ops import cuda_channelize, cuda_decode, cuda_demod
-    from lora_tpu_torch.ops import cuda_detect, cuda_modulate
+    from lora_tpu_torch.ops import cuda_detect, cuda_modulate, cuda_resample
     from lora_tpu_torch.ops import shift as shift_ops
 
     return {
@@ -647,6 +653,7 @@ def kernel_wrappers() -> dict:
         "shift": shift_ops.shift_windows,
         "modulate": cuda_modulate.frame,
         "decode": cuda_decode.decode,
+        "resample": cuda_resample.resample,
     }
 
 
@@ -2077,7 +2084,7 @@ def replay(torch, dev, card, sync, cfg, chk_d, profile=False):
             what, lambda: replay_file(
                 path, "cf32", cfg, capture_rate=REPLAY_RATIO * rate,
                 channel_rate=rate, observer=observer(steps), device=dev),
-            sync, ("detect", "track", "payload", "decode"))
+            sync, ("resample", "detect", "track", "payload", "decode"))
         f = one_frame(what, frames, payload)
         print(f"{what}: {wide.shape[0]} capture samples, the frame "
               f"(channel samples {m0} to {m0 + fr.shape[0]}) over the chunk "
@@ -3607,6 +3614,63 @@ def step12(torch, dev, card, sync):
     return chk, by_path, times, bounds
 
 
+# ---------------------------------------------------------------------------
+# step 13: kernel R (the fractional resampler) at the US902-928 cell's shape
+# ---------------------------------------------------------------------------
+
+# 8,192 channels of 65,536 samples at the 200-kHz slot rate -> 40,960 at
+# the 125-kHz LoRa rate (phybench's us915-wideband-128)
+R_ROWS = 8192
+R_T = 65536
+R_M = 40960
+R_RATIO = 1.6
+
+
+def step13(torch, dev, card, sync):
+    """Step 13: kernel R against the plain route at the US902-928 cell's
+    shape: bit-equal, one launch a call; its device time by the profiler,
+    a call and the plain route by CUDA events, and its bound by bytes.
+    -> (Check, {path: launches}, (kernel ms, plain ms), bound)."""
+    from lora_tpu_torch.ops import resample as rs
+    from lora_tpu_torch.utils import trace
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 130)
+    x = torch.randn((R_ROWS, R_T), dtype=torch.complex64, device=dev,
+                    generator=g)
+    table = rs.table_on(0, R_M, R_RATIO, 0, dev)
+    taps = rs._taps_eff(R_RATIO)
+    what = f"13 resample ({R_ROWS} x {R_T} -> {R_M}, {taps} taps)"
+    kern = lambda: rs.weigh(x, table, R_RATIO)
+    plain = lambda: rs.weigh(x, table, R_RATIO, plain=True)
+    chk = Check("resample")
+    by_path = {}
+    got, by_path[what] = count_launches(what, kern, sync, ("resample",),
+                                        exactly=1)
+    chk.close(what, torch.view_as_real(got), torch.view_as_real(plain()),
+              tol=0)
+    del got
+    ms_k, ms_p = interleaved(kern, plain, sync)
+    sync()
+    with trace.session() as prof:
+        for _ in range(2 * RUNS):
+            kern()
+        sync()
+    ev = [e for e in prof.key_averages() if "resample_kernel" in e.key]
+    if sum(e.count for e in ev) != 2 * RUNS:
+        raise AssertionError(f"{what}: the trace holds "
+                             f"{sum(e.count for e in ev)} launches of "
+                             f"kernel R, not {2 * RUNS}")
+    dev_ms = sum(e.self_device_time_total for e in ev) / 1e3 / (2 * RUNS)
+    bnd = bound(R_ROWS * (R_T + R_M) * 8, 4 * taps * R_ROWS * R_M)
+    share = 100 * bnd["bound_ms"] / dev_ms
+    print(f"{what}: kernel R {dev_ms:.3f} ms on the card ({share:.1f}% of "
+          f"its bound {bnd['bound_ms']:.3f} ms by {bnd['bound_by']}), a call "
+          f"(CUDA events) {ms_k:.3f} ms, the plain route {ms_p:.3f} ms; "
+          f"bit-equal [{card}]", flush=True)
+    del x
+    return chk, by_path, (dev_ms, ms_p), bnd
+
+
 def main() -> int:
     import torch
 
@@ -3661,11 +3725,16 @@ def main() -> int:
     checks["decode"], by_path12, ms12, bounds12 = step12(torch, dev, card,
                                                          sync)
     print(f"step 12: {time.perf_counter() - t12:.1f} s", flush=True)
+    fresh(torch)
+    t13 = time.perf_counter()
+    (checks["resample"], by_path13, ms["resample"],
+     bounds["resample"]) = step13(torch, dev, card, sync)
+    print(f"step 13: {time.perf_counter() - t13:.1f} s", flush=True)
     # every driven path's run, each counted from 0
     by_path = {"demodulate(fused='auto') + decode": launches,
                "channelized_demodulate(fused='auto')": c3_launches, **by_path,
                **by_path6, **by_path7, **by_path8, **by_path9, **by_path10,
-               **by_path11, **by_path12}
+               **by_path11, **by_path12, **by_path13}
 
     sources = {
         "detect": ("lora_tpu_torch/csrc/detect.cu",
@@ -3683,6 +3752,9 @@ def main() -> int:
         "shift": ("lora_tpu_torch/csrc/shift.cu", "lora_tpu/ops/shift.py:68"),
         "modulate": ("lora_tpu_torch/csrc/modulate.cu",
                      "XLA fusion of lora_tpu/models/modulator.py:72 "
+                     "(no pallas_call)"),
+        "resample": ("lora_tpu_torch/csrc/resample.cu",
+                     "XLA fusion of lora_tpu/ops/resample.py:80 `_apply` "
                      "(no pallas_call)"),
     }
     # the one PyTorch call that computes a kernel's function, where there is
@@ -3705,7 +3777,7 @@ def main() -> int:
             "library_ms": library.get(name),
         }
         for name in ("detect", "track", "payload", "channelize", "shift",
-                     "modulate")
+                     "modulate", "resample")
     ]
     # kernel D's bf16 route (step 8b, route 3): its time against its plain
     # version and the float32 route's, its error, its bound and the matmul

@@ -9,6 +9,7 @@ nothing here picks the CPU by itself (ops/cplx.as_tensor)."""
 from __future__ import annotations
 
 import dataclasses
+from fractions import Fraction
 
 import numpy as np
 import torch
@@ -24,6 +25,7 @@ from .models.modulator import modulate
 from .models.softdec import decode_soft, guard_soft_status, soft_symbols
 from .ops import channelizer as chz
 from .ops import cplx
+from .ops import resample as rs
 from .utils import debugcheck, jit, trace
 
 __all__ = [
@@ -95,15 +97,27 @@ def aggregate_metrics(dem: DemodResult, statuses=None) -> dict:
 def channelized_demodulate(wide, K: int, cfg: LoRaConfig,
                            taps_per_phase: int = 8, max_frames: int = 1,
                            state=None, fused: str = "auto",
-                           spectra: bool = False, device=None):
+                           spectra: bool = False, device=None,
+                           slot_ratio=1):
     """Wideband front end (BASELINE.json config 3): polyphase-channelize
-    [S, T] (or [T]) at rate K*BW into K channels and demodulate every
-    channel.  Returns (DemodResult with leading [S, K] axes, or [K] for a
-    1-D input, then the candidate axis when max_frames > 1; the channelizer
-    state [S, taps_per_phase*K - 1] to pass as `state` with the next
-    block).  spectra=True carries the payload |FFT|^2 windows in fft_mag2
-    [S, K, mtu, N] for decode_soft.  A tensor is processed where it lies;
-    host data goes to `device` (the card when None).
+    [S, T] (or [T]) at K times the slot spacing into K channels and
+    demodulate every channel.  Returns (DemodResult with leading [S, K]
+    axes, or [K] for a 1-D input, then the candidate axis when max_frames
+    > 1; the channelizer state [S, taps_per_phase*K - 1] to pass as
+    `state` with the next block).  spectra=True carries the payload
+    |FFT|^2 windows in fft_mag2 [S, K, mtu, N] for decode_soft.  A tensor
+    is processed where it lies; host data goes to `device` (the card when
+    None).
+
+    slot_ratio: a slot's samples per LoRa sample, the slot spacing over the
+    bandwidth (a Fraction, or a number taken as the nearest fraction with
+    a denominator up to 10^6): 8/5 for LoRaWAN US902-928's 125-kHz uplinks
+    200 kHz apart.  Where it is not 1, each of the filterbank's channels
+    (M = T/K samples) is resampled to cfg's rate (ops/resample.py,
+    `block_plan`: floor(M / slot_ratio) outputs of a block after no state,
+    the taps past the block's end clamped to its last sample) before the
+    demodulator, inside the same program, and the state passed and returned
+    is the pair (the channelizer's state, the resampler's ResampleState).
 
     fused="auto" runs kernel D then the demod kernels for a CUDA tensor,
     and their plain versions for a CPU tensor; "off" runs the plain
@@ -117,14 +131,27 @@ def channelized_demodulate(wide, K: int, cfg: LoRaConfig,
         check_options(fused)
         armed = debugcheck.armed()
         wide, dev = cplx.stage_iq(wide, device)
+        ratio = Fraction(slot_ratio).limit_denominator(10**6)
+        rstate = tail = plan = None
+        if ratio != 1 and state is not None:
+            state, rstate = state
+            if rstate is not None:
+                tail, _ = cplx.stage_iq(rstate.tail, dev)
         if state is not None:
             state, _ = cplx.stage_iq(state, dev)
         squeeze = wide.dim() == 1
+        M = wide.shape[-1] // K
+        if ratio != 1:
+            plan, m_next, origin = rs.block_plan(rstate, M, ratio, dev)
+            M = plan.shape[-1]
         dem, new_state = _channelize_demod_step(
             wide[None] if squeeze else wide, state, K, cfg, taps_per_phase,
-            max_frames, fused, spectra or armed, dev)
+            max_frames, fused, spectra or armed, dev, ratio, tail, plan)
+        if ratio != 1:
+            new_state, tail = new_state
+            new_state = (new_state, rs.ResampleState(m_next, origin, tail))
         if armed:
-            T = max(wide.shape[-1] // K, required_samples(cfg))
+            T = max(M, required_samples(cfg))
             debugcheck.check_demod(dem, cfg, T)
         if squeeze:
             dem = DemodResult(**{f.name: None if getattr(dem, f.name) is None
@@ -134,18 +161,29 @@ def channelized_demodulate(wide, K: int, cfg: LoRaConfig,
 
 
 @jit.program(static=("K", "cfg", "taps_per_phase", "max_frames", "fused",
-                     "spectra"), inplace=("wb",))
+                     "spectra", "slot_ratio"), inplace=("wb",))
 def _channelize_demod_step(wb: torch.Tensor, state, K: int, cfg: LoRaConfig,
                            taps_per_phase: int, max_frames: int, fused: str,
-                           spectra: bool, device: torch.device):
-    """Kernel D's filterbank and the demodulation of its S*K channels as
-    one program on `device`; the result has leading [S, K] axes."""
+                           spectra: bool, device: torch.device,
+                           slot_ratio: Fraction = 1, tail=None, plan=None):
+    """Kernel D's filterbank, where slot_ratio is not 1 kernel R's
+    resampling of every channel after its history `tail` at the plan `plan`
+    (ops/resample.block_plan), and the demodulation of its S*K channels as
+    one program on `device`; the result has leading [S, K] axes, and the
+    state is then the pair (the channelizer's, the resampler's tail)."""
     wb = wb.to(device)
     if state is not None:
         state = state.to(device)
     y, new_state = chz.channelize(
         wb, K, taps_per_phase, state=state, bf16=fused == "bf16",
         impl="xla" if fused == "off" else "auto")
+    if slot_ratio != 1:
+        if tail is not None:
+            y = torch.cat([tail.to(device), y], -1)
+        keep = rs.history(y.shape[-1], float(slot_ratio))
+        new_state = (new_state, y[..., y.shape[-1] - keep:].clone())
+        y = rs.weigh(y, plan.to(device), float(slot_ratio),
+                     plain=fused == "off")
     S, _, M = y.shape
     dem = _demod_whole(y.reshape(S * K, M), cfg, False, max_frames,
                        fused != "off", spectra, device)

@@ -31,7 +31,7 @@ from .chirp import dechirp_table
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" / "lora_tpu_torch"
 SOURCES = ("detect.cu", "track.cu", "payload.cu", "channelize.cu", "shift.cu",
-           "modulate.cu", "decode.cu")
+           "modulate.cu", "decode.cu", "resample.cu")
 HEADERS = ("detect.cuh", "fft.cuh")
 # no --use_fast_math: full-precision sincosf/log10f/sqrtf keep the dB values
 # and the derotator's two factors on the plain version's float32 rounding.
@@ -59,6 +59,7 @@ _ARGTYPES = {
     "lora_modulate": [_P, _L, _I, _P, _I, _I, _I, _I, _L, _F, _F, _P, _P],
     "lora_decode": [_P, _I, _L, _I, _L, _L, _I, _I, _I, _I, _I, _I, _I, _I,
                     _I, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P],
+    "lora_resample": [_P, _L, _L, _L, _L, _P, _L, _I, _P, _I, _I, _P, _P],
 }
 
 

@@ -48,7 +48,7 @@ entry with buffers), `lora.program.launch` (the graph's replay) and
 `lora.program.clone_out`.  A call run eagerly has none: a span inside a
 captured function would run at its capture only.
 
-Launch counters: the `.launches` of each kernel wrapper (kernels A to G)
+Launch counters: the `.launches` of each kernel wrapper (kernels A to G, R)
 count real launches, so a capture takes back what it added and every replay
 credits the launches counted at its capture: each call adds one launch a
 kernel, captured or not.  The capture's launches are tallied in its own

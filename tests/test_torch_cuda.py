@@ -932,20 +932,26 @@ def test_stream_on_card_matches_cpu(dev):
 def test_resample_stream_bit_equal_on_card(dev):
     """Chunked resample_stream equals the one-shot resample bit for bit on
     the card (the taps summed in one fixed order), at ratios that decimate
-    and interpolate, and stays within 2e-6 of the CPU's result."""
+    (8/5 among them, the US902-928 cell's) and interpolate, and stays
+    within 2e-6 of the CPU's result; each call with outputs is one launch
+    of kernel R."""
+    from lora_tpu_torch.ops import cuda_resample
     from lora_tpu_torch.ops import resample as rs
 
     rng = np.random.default_rng(13)
     T = 200_003
     x = crandn(rng, (2, T), dev)
-    cuts = [0, 1037, 1038, 65536, 65537, 150001, T]
-    for ratio in (4.096, 1.7, 0.37):
+    cuts = [0, 7, 1037, 1038, 65536, 65537, 150001, T]
+    for ratio in (4.096, 1.7, 1.6, 0.37):
+        before = cuda_resample.resample.launches
         full = rs.resample(x, ratio)
         assert full.is_cuda
         state, parts = None, []
         for a, b in zip(cuts[:-1], cuts[1:]):
             y, state = rs.resample_stream(x[:, a:b], ratio, state)
             parts.append(y)
+        calls = 1 + sum(y.shape[-1] > 0 for y in parts)
+        assert cuda_resample.resample.launches == before + calls
         got = torch.cat(parts, -1)
         n = min(got.shape[-1], full.shape[-1])
         assert n >= full.shape[-1] - 8
@@ -1597,4 +1603,130 @@ def test_threads_capture_at_once_in_turns(dev):
     for i in range(2):
         for a, b in zip(got[i], want[i]):
             assert _same(a, b)
+    jit.clear()
+
+
+# -- kernel R, the fractional resampler ---------------------------------------
+
+def _resample_input(rng, layout, T, dev):
+    """complex64 input of T samples a row in a layout kernel R must read
+    where it lies: rows [R, T], a column stride of 2, leading axes, and
+    leading axes whose strides do not merge (a transposed bank)."""
+    if layout == "rows":
+        return crandn(rng, (13, T), dev)
+    if layout == "col_stride":
+        return crandn(rng, (5, 2 * T), dev)[:, ::2]
+    if layout == "leading":
+        return crandn(rng, (3, 5, T), dev)
+    return crandn(rng, (5, 3, T), dev).transpose(0, 1)
+
+
+@pytest.mark.parametrize("ratio", [1.6, 0.625, 0.37, 1.7, 4.096])
+@pytest.mark.parametrize("layout", ["rows", "col_stride", "leading",
+                                    "unmerged"])
+def test_resample_kernel_matches_plain(dev, ratio, layout):
+    """Kernel R bit-equal to the plain route on the card and on the CPU, at
+    ratios under and over 1, row counts and output lengths that are no
+    multiple of a block's rows or tile, any strides, edge-clamped taps at
+    both ends (out_len past the input's end)."""
+    from lora_tpu_torch.ops import cuda_resample
+    from lora_tpu_torch.ops import resample as rs
+
+    rng = np.random.default_rng(int(ratio * 1000))
+    T = 10_007
+    x = _resample_input(rng, layout, T, dev)
+    M = int(T / ratio) + 3
+    table = rs.table_on(0, M, ratio, 0, dev)
+    before = cuda_resample.resample.launches
+    got = rs.weigh(x, table, ratio)
+    assert cuda_resample.resample.launches == before + 1
+    assert got.shape == x.shape[:-1] + (M,) and got.is_contiguous()
+    assert torch.equal(got, rs.weigh(x, table, ratio, plain=True))
+    cpu = rs.weigh(x.cpu(), table.cpu(), ratio)
+    assert torch.equal(got.cpu(), cpu)
+
+
+def test_resample_kernel_at_the_cells_shape(dev):
+    """8,192 rows of 65,536 samples -> 40,960 at 8/5 (the US902-928 cell's
+    channels), bit-equal to the plain route; one launch a call."""
+    from lora_tpu_torch.ops import cuda_resample
+    from lora_tpu_torch.ops import resample as rs
+
+    g = torch.Generator(device=dev).manual_seed(41)
+    x = torch.randn((8192, 65536), dtype=torch.complex64, device=dev,
+                    generator=g)
+    table = rs.table_on(0, 40960, 1.6, 0, dev)
+    before = cuda_resample.resample.launches
+    got = rs.weigh(x, table, 1.6)
+    assert cuda_resample.resample.launches == before + 1
+    for lo in range(0, 8192, 2048):  # the plain route's temporaries, in parts
+        assert torch.equal(got[lo : lo + 2048],
+                           rs.weigh(x[lo : lo + 2048], table, 1.6,
+                                    plain=True)), lo
+
+
+def _spaced_case(dev, seed=43):
+    """A small US902-928-style wideband block on the card: K = 16 slots of
+    SF7 at 8/5 of its rate, a frame on every slot."""
+    from fractions import Fraction
+
+    from lora_tpu_torch.ops import resample as rs
+
+    cfg = lora_tpu_torch.LoRaConfig(sf=7, cr="4/5", ampl=1.0,
+                                    preamble_symbols=8, sync=0x34)
+    cfg = cfg.replace(mtu=cfg.num_symbols(8) + 2)
+    K, S, Mp = 16, 2, 7680
+    Mw = Mp * 8 // 5
+    rng = np.random.default_rng(seed)
+    payload = rng.integers(0, 256, (S * K, 8)).astype(np.uint8)
+    fr = api.modulate(api.encode(payload, cfg, device="cpu"), cfg).numpy()
+    u = np.zeros((S * K, Mp), np.complex64)
+    for c in range(S * K):
+        d = int(rng.integers(0, cfg.N))
+        u[c, d : d + fr.shape[1]] = fr[c]
+    up = rs.resample(torch.as_tensor(u), 0.625, out_len=Mw, device="cpu")
+    wide, _ = chz.synthesize(up.reshape(S, K, Mw))
+    wide = wide + 0.01 * torch.complex(torch.randn(wide.shape),
+                                       torch.randn(wide.shape))
+    return cfg, K, Fraction(8, 5), wide.to(dev), payload
+
+
+def test_spaced_slots_on_card_match_the_plain_route(dev):
+    """channelized_demodulate(slot_ratio=8/5) on the card: one captured
+    program running kernels D, R, A, B, C once each a call, equal to the
+    eager call bit for bit and to the plain route in its decisions, every
+    frame byte-exact; a replay makes no host sync; the state's halves give
+    the whole's resampled grid."""
+    from lora_tpu_torch.ops import cuda_resample
+    from lora_tpu_torch.utils import jit
+
+    cfg, K, r, wide, payload = _spaced_case(dev)
+    call = lambda: api.channelized_demodulate(wide, K, cfg, slot_ratio=r)
+    wrappers = (cuda_channelize.filterbank, cuda_resample.resample,
+                cuda_detect.dechirp_detect, cuda_demod.track,
+                cuda_demod.payload_detect)
+    jit.clear()
+    with jit.disable_jit():
+        want, wstate = call()
+    c0, before = api._channelize_demod_step.captures, [
+        w.launches for w in wrappers]
+    got = [call() for _ in range(3)]
+    assert api._channelize_demod_step.captures == c0 + 1
+    assert [w.launches - n for w, n in zip(wrappers, before)] == [3] * 5
+    for g, st in got:
+        assert _same(g, want) and torch.equal(st[0], wstate[0])
+        assert torch.equal(st[1].tail, wstate[1].tail)
+        assert st[1][:2] == wstate[1][:2]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        call()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    off, _ = api.channelized_demodulate(wide, K, cfg, fused="off",
+                                        slot_ratio=r)
+    for f in ("found", "t_sync", "count", "freq_error", "symbols"):
+        assert torch.equal(getattr(want, f), getattr(off, f)), f
+    dec = api.decode(want.symbols.reshape(-1, cfg.mtu), cfg)
+    assert api.extract_payloads(dec) == [bytes(p) for p in payload.tolist()]
     jit.clear()

@@ -20,7 +20,8 @@ for name in ("ops.channelizer", "ops.cuda_channelize", "roadmap", "config",
              "ops._bitref", "ops.shift", "ops.cuda_modulate", "models.softdec",
              "runtime.stream",
              "runtime.slab", "runtime.iqio", "hw.capture", "cli",
-             "utils.debugcheck", "ops.resample", "ops.dcblock",
+             "utils.debugcheck", "ops.resample", "ops.cuda_resample",
+             "ops.dcblock",
              "parallel.mesh", "parallel.halo", "parallel.channelize",
              "parallel.dispatch", "parallel.multihost", "parallel.comm",
              "parallel.dryrun", "benchmarks", "utils.trace",
