@@ -255,9 +255,13 @@
    (the route decode took before kernel G) and of decode_plain eager.
 13. Kernel R (the fractional resampler) against its plain version at the
    US902-928 cell's shape (8,192 channels of 65,536 samples -> 40,960,
-   ratio 8/5, 14 taps): bit-equal, one launch a call; its device time by
-   torch.profiler, the plain route's by CUDA events, and its bound.
-   Kernel R also runs in step 6c's fractional replay, which counts it.
+   ratio 8/5, 14 taps): its register-blocked route (the plan's period, the
+   route counter `resample.blocked`), bit-equal, one launch a call; its
+   device time by torch.profiler and its share of its bound, the plain
+   route's by CUDA events; the general route's device time on the same
+   plan and on 4.096's (no short period, the same rows, bit-equal too).
+   Kernel R also runs in step 6c's fractional replay (4.096 and its
+   inverse, the general route), which counts it.
 
 On the card every call of these entry points in steps 3 to 9 runs
 captured too (its first call at a key is the warm-up, whose result it
@@ -3628,9 +3632,15 @@ R_RATIO = 1.6
 
 def step13(torch, dev, card, sync):
     """Step 13: kernel R against the plain route at the US902-928 cell's
-    shape: bit-equal, one launch a call; its device time by the profiler,
-    a call and the plain route by CUDA events, and its bound by bytes.
-    -> (Check, {path: launches}, (kernel ms, plain ms), bound)."""
+    shape: its register-blocked route (the plan's period of 5 outputs over
+    8 inputs) bit-equal, one launch a call and counted in
+    `resample.blocked`; its device time by the profiler beside its bound,
+    a call and the plain route by CUDA events; the general route on the
+    same plan and on a plan without a short period (4.096, a period of 125
+    outputs) on the same rows, timed by the profiler in turns with it, the
+    latter bit-equal too.  -> (Check, {path: launches}, (kernel ms, plain
+    ms), bound)."""
+    from lora_tpu_torch.ops import cuda_resample
     from lora_tpu_torch.ops import resample as rs
     from lora_tpu_torch.utils import trace
 
@@ -3638,37 +3648,76 @@ def step13(torch, dev, card, sync):
     x = torch.randn((R_ROWS, R_T), dtype=torch.complex64, device=dev,
                     generator=g)
     table = rs.table_on(0, R_M, R_RATIO, 0, dev)
+    runs = rs.runs_on(0, R_M, R_RATIO)
+    if runs is None:
+        raise AssertionError("13: the cell's plan takes kernel R's general "
+                             "route")
     taps = rs._taps_eff(R_RATIO)
     what = f"13 resample ({R_ROWS} x {R_T} -> {R_M}, {taps} taps)"
-    kern = lambda: rs.weigh(x, table, R_RATIO)
+    kern = lambda: rs.weigh(x, table, R_RATIO, runs=runs)
+    general = lambda: rs.weigh(x, table, R_RATIO)
     plain = lambda: rs.weigh(x, table, R_RATIO, plain=True)
     chk = Check("resample")
     by_path = {}
+    b0 = cuda_resample.resample.blocked
     got, by_path[what] = count_launches(what, kern, sync, ("resample",),
                                         exactly=1)
+    if cuda_resample.resample.blocked != b0 + 1:
+        raise AssertionError(f"{what}: the call took kernel R's general "
+                             "route")
     chk.close(what, torch.view_as_real(got), torch.view_as_real(plain()),
               tol=0)
     del got
     ms_k, ms_p = interleaved(kern, plain, sync)
+    # a plan without a short period on the same rows: the general route
+    r2 = 4.096
+    m2 = int((R_T - rs._taps_eff(r2)) / r2)
+    table2 = rs.table_on(0, m2, r2, 0, dev)
+    if rs.runs_on(0, m2, r2) is not None:
+        raise AssertionError("13: 4.096's plan takes the blocked route")
+    general2 = lambda: rs.weigh(x, table2, r2)
+    chk.close(f"13 resample at {r2} ({R_ROWS} x {R_T} -> {m2})",
+              torch.view_as_real(general2()),
+              torch.view_as_real(rs.weigh(x, table2, r2, plain=True)), tol=0)
     sync()
-    with trace.session() as prof:
-        for _ in range(2 * RUNS):
-            kern()
-        sync()
-    ev = [e for e in prof.key_averages() if "resample_kernel" in e.key]
-    if sum(e.count for e in ev) != 2 * RUNS:
-        raise AssertionError(f"{what}: the trace holds "
-                             f"{sum(e.count for e in ev)} launches of "
-                             f"kernel R, not {2 * RUNS}")
-    dev_ms = sum(e.self_device_time_total for e in ev) / 1e3 / (2 * RUNS)
+    dev_ms = {}
+    for name, fn in (("blocked", kern), ("general", general),
+                     ("general 4.096", general2), ("general 4.096", general2),
+                     ("general", general), ("blocked", kern)):
+        with trace.session() as prof:
+            for _ in range(RUNS):
+                fn()
+            sync()
+        ev = [e for e in prof.key_averages() if "resample_kernel" in e.key]
+        if sum(e.count for e in ev) != RUNS:
+            raise AssertionError(f"{what}: the trace holds "
+                                 f"{sum(e.count for e in ev)} launches of "
+                                 f"kernel R, not {RUNS}")
+        ms = sum(e.self_device_time_total for e in ev) / 1e3 / RUNS
+        dev_ms[name] = min(dev_ms.get(name, ms), ms)
     bnd = bound(R_ROWS * (R_T + R_M) * 8, 4 * taps * R_ROWS * R_M)
-    share = 100 * bnd["bound_ms"] / dev_ms
-    print(f"{what}: kernel R {dev_ms:.3f} ms on the card ({share:.1f}% of "
-          f"its bound {bnd['bound_ms']:.3f} ms by {bnd['bound_by']}), a call "
-          f"(CUDA events) {ms_k:.3f} ms, the plain route {ms_p:.3f} ms; "
-          f"bit-equal [{card}]", flush=True)
+    bnd2 = bound(R_ROWS * (R_T + m2) * 8, 4 * rs._taps_eff(r2) * R_ROWS * m2)
+    share = lambda ms, b: f"{100 * b['bound_ms'] / ms:.1f}%"
+    print(f"{what}: kernel R, register-blocked route (period {runs.period} "
+          f"outputs over {runs.advance} inputs, runs of "
+          f"{cuda_resample.RUN} periods, align "
+          f"{runs.align}; resample.blocked {cuda_resample.resample.blocked}, "
+          f"resample.launches {cuda_resample.resample.launches}) "
+          f"{dev_ms['blocked']:.3f} ms on the card "
+          f"({share(dev_ms['blocked'], bnd)} of its bound "
+          f"{bnd['bound_ms']:.3f} ms by {bnd['bound_by']}); the general "
+          f"route on the same plan {dev_ms['general']:.3f} ms "
+          f"({share(dev_ms['general'], bnd)}); a call (CUDA events) "
+          f"{ms_k:.3f} ms, the plain route {ms_p:.3f} ms; bit-equal "
+          f"[{card}]", flush=True)
+    print(f"13 resample at {r2} ({R_ROWS} x {R_T} -> {m2}, "
+          f"{rs._taps_eff(r2)} taps, no short period): kernel R's general "
+          f"route {dev_ms['general 4.096']:.3f} ms on the card "
+          f"({share(dev_ms['general 4.096'], bnd2)} of its bound "
+          f"{bnd2['bound_ms']:.3f} ms by {bnd2['bound_by']}); bit-equal "
+          f"[{card}]", flush=True)
     del x
-    return chk, by_path, (dev_ms, ms_p), bnd
+    return chk, by_path, (dev_ms["blocked"], ms_p), bnd
 
 
 def main() -> int:

@@ -132,7 +132,7 @@ def channelized_demodulate(wide, K: int, cfg: LoRaConfig,
         armed = debugcheck.armed()
         wide, dev = cplx.stage_iq(wide, device)
         ratio = Fraction(slot_ratio).limit_denominator(10**6)
-        rstate = tail = plan = None
+        rstate = tail = plan = runs = None
         if ratio != 1 and state is not None:
             state, rstate = state
             if rstate is not None:
@@ -142,11 +142,13 @@ def channelized_demodulate(wide, K: int, cfg: LoRaConfig,
         squeeze = wide.dim() == 1
         M = wide.shape[-1] // K
         if ratio != 1:
+            m0 = 0 if rstate is None else rstate.m_next
             plan, m_next, origin = rs.block_plan(rstate, M, ratio, dev)
             M = plan.shape[-1]
+            runs = rs.runs_on(m0, M, float(ratio))
         dem, new_state = _channelize_demod_step(
             wide[None] if squeeze else wide, state, K, cfg, taps_per_phase,
-            max_frames, fused, spectra or armed, dev, ratio, tail, plan)
+            max_frames, fused, spectra or armed, dev, ratio, tail, plan, runs)
         if ratio != 1:
             new_state, tail = new_state
             new_state = (new_state, rs.ResampleState(m_next, origin, tail))
@@ -161,16 +163,19 @@ def channelized_demodulate(wide, K: int, cfg: LoRaConfig,
 
 
 @jit.program(static=("K", "cfg", "taps_per_phase", "max_frames", "fused",
-                     "spectra", "slot_ratio"), inplace=("wb",))
+                     "spectra", "slot_ratio", "runs"), inplace=("wb",))
 def _channelize_demod_step(wb: torch.Tensor, state, K: int, cfg: LoRaConfig,
                            taps_per_phase: int, max_frames: int, fused: str,
                            spectra: bool, device: torch.device,
-                           slot_ratio: Fraction = 1, tail=None, plan=None):
+                           slot_ratio: Fraction = 1, tail=None, plan=None,
+                           runs=None):
     """Kernel D's filterbank, where slot_ratio is not 1 kernel R's
     resampling of every channel after its history `tail` at the plan `plan`
-    (ops/resample.block_plan), and the demodulation of its S*K channels as
-    one program on `device`; the result has leading [S, K] axes, and the
-    state is then the pair (the channelizer's, the resampler's tail)."""
+    (ops/resample.block_plan; kernel R's register-blocked route where
+    `runs`, the plan's, ops/resample.runs_on), and the demodulation of its
+    S*K channels as one program on `device`; the result has leading [S, K]
+    axes, and the state is then the pair (the channelizer's, the
+    resampler's tail)."""
     wb = wb.to(device)
     if state is not None:
         state = state.to(device)
@@ -183,7 +188,7 @@ def _channelize_demod_step(wb: torch.Tensor, state, K: int, cfg: LoRaConfig,
         keep = rs.history(y.shape[-1], float(slot_ratio))
         new_state = (new_state, y[..., y.shape[-1] - keep:].clone())
         y = rs.weigh(y, plan.to(device), float(slot_ratio),
-                     plain=fused == "off")
+                     plain=fused == "off", runs=runs)
     S, _, M = y.shape
     dem = _demod_whole(y.reshape(S * K, M), cfg, False, max_frames,
                        fused != "off", spectra, device)

@@ -60,6 +60,8 @@ _ARGTYPES = {
     "lora_decode": [_P, _I, _L, _I, _L, _L, _I, _I, _I, _I, _I, _I, _I, _I,
                     _I, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P],
     "lora_resample": [_P, _L, _L, _L, _L, _P, _L, _I, _P, _I, _I, _P, _P],
+    "lora_resample_blocked": [_P, _L, _L, _L, _L, _P, _L, _I, _P, _I, _I, _I,
+                              _P, _L, _P, _P],
 }
 
 
@@ -134,19 +136,24 @@ _capture = threading.local()
 _COUNTS = threading.Lock()
 
 
-def launched(wrapper) -> None:
-    """Count one launch of a kernel wrapper (its `.launches`), where it
+def launched(wrapper, counter: str = "launches") -> None:
+    """Count one launch of a kernel wrapper on its `counter` (`.launches`,
+    or another count of the wrapper's such as `.blocked`), where it
     launches."""
+    key = wrapper if counter == "launches" else (wrapper, counter)
     tally = getattr(_capture, "tally", None)
     if tally is not None:
-        tally[wrapper] = tally.get(wrapper, 0) + 1
+        tally[key] = tally.get(key, 0) + 1
     else:
-        credit(wrapper, 1)
+        credit(key, 1)
 
 
-def credit(wrapper, n: int) -> None:
+def credit(key, n: int) -> None:
+    """Add n to a wrapper's `.launches` (key: the wrapper) or to its other
+    counter (key: (wrapper, counter))."""
+    wrapper, counter = key if isinstance(key, tuple) else (key, "launches")
     with _COUNTS:
-        wrapper.launches += n
+        setattr(wrapper, counter, getattr(wrapper, counter) + n)
 
 
 @contextlib.contextmanager

@@ -17,8 +17,10 @@ The weighted sum runs over the taps in a fixed order, one product and add
 per tap, so every output's arithmetic is the same whatever the number of
 outputs in a call: a chunked resample_stream is bit-identical to resample
 of the whole input on any device.  A CUDA tensor takes kernel R
-(ops/cuda_resample.py), which sums in that order; a CPU tensor the plain
-route `_apply`, one gather, product and add per tap over the whole tensor.
+(ops/cuda_resample.py), which sums in that order, on its register-blocked
+route where the host finds the plan it built periodic (`runs_on`,
+cuda_resample.runs); a CPU tensor the plain route `_apply`, one gather,
+product and add per tap over the whole tensor.
 """
 
 from __future__ import annotations
@@ -86,17 +88,30 @@ def table_on(m0: int, M: int, ratio: float, origin: int,
     return torch.from_numpy(_table(m0, M, ratio, origin)).to(device)
 
 
+@functools.lru_cache(maxsize=16)
+def runs_on(m0: int, M: int, ratio: float) -> cuda_resample.Runs | None:
+    """Kernel R's register-blocked route for the plan of outputs
+    m0..m0+M-1 (the table's first inputs relative to any origin: the route
+    does not depend on it), or None for its general route; found once for
+    a call's geometry."""
+    return cuda_resample.runs(_table(m0, M, ratio), _taps_eff(ratio))
+
+
 def _cutoff(ratio: float) -> tuple[int, int]:
     """The bank's cutoff num/den of the input Nyquist: 1/ratio when
     decimating, the whole band otherwise."""
     return (1000, int(round(1000 * ratio))) if ratio > 1 else (1, 1)
 
 
+def _weights(ratio: float) -> np.ndarray:
+    """The ratio's bank, float32 [NPHASE, taps] on the host (cached)."""
+    return _bank(*_cutoff(ratio), _taps_eff(ratio))
+
+
 @functools.lru_cache(maxsize=None)
 def weights_on(ratio: float, device: torch.device) -> torch.Tensor:
     """The ratio's bank, float32 [NPHASE, taps] on `device`."""
-    return torch.from_numpy(_bank(*_cutoff(ratio), _taps_eff(ratio))
-                            ).to(device)
+    return torch.from_numpy(_weights(ratio)).to(device)
 
 
 def _apply(x: torch.Tensor, table: torch.Tensor, ratio: float
@@ -119,13 +134,16 @@ def _apply(x: torch.Tensor, table: torch.Tensor, ratio: float
 
 
 def weigh(x: torch.Tensor, table: torch.Tensor, ratio: float,
-          plain: bool = False) -> torch.Tensor:
+          plain: bool = False, runs: cuda_resample.Runs | None = None
+          ) -> torch.Tensor:
     """complex64 [..., T] at the plan `table` (int32 [2, M] on x's device)
-    -> complex64 [..., M]: kernel R for a CUDA tensor, the plain route for
-    a CPU tensor or where `plain`.  Both sum alike, bit for bit."""
+    -> complex64 [..., M]: kernel R for a CUDA tensor, on its
+    register-blocked route with `runs` (the table's, `runs_on` or
+    cuda_resample.runs), on its general route without; the plain route for
+    a CPU tensor or where `plain`.  All sum alike, bit for bit."""
     if x.is_cuda and not plain:
         return cuda_resample.resample(x, table, weights_on(ratio, x.device),
-                                      ratio)
+                                      ratio, runs, _weights(ratio))
     return _apply(x, table, ratio)
 
 
@@ -143,7 +161,8 @@ def resample(x, ratio: float, out_len: int | None = None,
             # every output's (possibly ratio-widened) tap window inside the
             # input
             out_len = int((T - _taps_eff(ratio)) / ratio)
-        return weigh(x, table_on(0, out_len, ratio, 0, x.device), ratio)
+        return weigh(x, table_on(0, out_len, ratio, 0, x.device), ratio,
+                     runs=runs_on(0, out_len, ratio) if x.is_cuda else None)
 
 
 class ResampleState(NamedTuple):
@@ -192,7 +211,9 @@ def resample_stream(x, ratio: float, state: ResampleState | None = None,
         else:
             table = _table(state.m_next, M, ratio, state.origin)
             assert table[0].max() + taps <= L
-            out = weigh(local, torch.from_numpy(table).to(x.device), ratio)
+            runs = cuda_resample.runs(table, taps) if x.is_cuda else None
+            out = weigh(local, torch.from_numpy(table).to(x.device), ratio,
+                        runs=runs)
         keep = history(L, ratio)  # history for the next chunk
         new = ResampleState(state.m_next + M, end - keep,
                             local[..., L - keep:].clone())

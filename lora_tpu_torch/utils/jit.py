@@ -49,11 +49,12 @@ entry with buffers), `lora.program.launch` (the graph's replay) and
 captured function would run at its capture only.
 
 Launch counters: the `.launches` of each kernel wrapper (kernels A to G, R)
-count real launches, so a capture takes back what it added and every replay
-credits the launches counted at its capture: each call adds one launch a
-kernel, captured or not.  The capture's launches are tallied in its own
-thread (ops/_cuda.tally), so that a launch another thread counts meanwhile
-(a bank built in a thread) is neither credited to the graph nor lost.
+and kernel R's `.blocked` count real launches, so a capture takes back what
+it added and every replay credits the launches counted at its capture: each
+call adds one launch a kernel, captured or not.  The capture's launches
+are tallied in its own thread (ops/_cuda.tally), so that a launch another
+thread counts meanwhile (a bank built in a thread) is neither credited to
+the graph nor lost.
 """
 
 from __future__ import annotations
@@ -178,7 +179,7 @@ class _Entry:
     buffers: dict          # name -> the entry's own copy target (or None)
     outputs: list          # the graph's output tensors
     spec: object           # their structure
-    credit: tuple          # (wrapper, launches a replay adds)
+    credit: tuple          # (wrapper or (wrapper, counter), what a replay adds)
     dev: torch.device = None
     calls: int = 1
     base: tuple = ()       # the key without addresses

@@ -1624,31 +1624,57 @@ def _resample_input(rng, layout, T, dev):
 @pytest.mark.parametrize("ratio", [1.6, 0.625, 0.37, 1.7, 4.096])
 @pytest.mark.parametrize("layout", ["rows", "col_stride", "leading",
                                     "unmerged"])
-def test_resample_kernel_matches_plain(dev, ratio, layout):
+@pytest.mark.parametrize("start", ["head", "mid-period"])
+def test_resample_kernel_matches_plain(dev, ratio, layout, start):
     """Kernel R bit-equal to the plain route on the card and on the CPU, at
     ratios under and over 1, row counts and output lengths that are no
     multiple of a block's rows or tile, any strides, edge-clamped taps at
-    both ends (out_len past the input's end)."""
+    both ends (out_len past the input's end), at a stream's head and in a
+    block that starts mid-period (`block_plan` after a first block of 1,003
+    samples); the register-blocked route runs at 8/5 and 5/8, the general
+    route at the others (`resample.blocked`)."""
+    from fractions import Fraction
+
     from lora_tpu_torch.ops import cuda_resample
     from lora_tpu_torch.ops import resample as rs
 
     rng = np.random.default_rng(int(ratio * 1000))
     T = 10_007
     x = _resample_input(rng, layout, T, dev)
-    M = int(T / ratio) + 3
-    table = rs.table_on(0, M, ratio, 0, dev)
-    before = cuda_resample.resample.launches
-    got = rs.weigh(x, table, ratio)
-    assert cuda_resample.resample.launches == before + 1
+    taps = rs._taps_eff(ratio)
+    if start == "head":
+        M = int(T / ratio) + 3
+        table = rs.table_on(0, M, ratio, 0, dev)
+        runs = rs.runs_on(0, M, ratio)
+    else:
+        exact = Fraction(ratio).limit_denominator(10**6)
+        _, m_next, origin = rs.block_plan(None, 1003, exact, dev)
+        Lt = rs.history(1003, ratio)
+        state = rs.ResampleState(m_next, origin, x[..., :Lt])
+        table, _, _ = rs.block_plan(state, T - Lt, exact, dev)
+        M = table.shape[1]
+        runs = cuda_resample.runs(table.cpu().numpy(), taps)
+    blocked = ratio in (1.6, 0.625)
+    if start != "head" and blocked:
+        assert m_next % exact.denominator  # the block starts mid-period
+    assert (runs is not None) == blocked
+    before = (cuda_resample.resample.launches, cuda_resample.resample.blocked)
+    got = rs.weigh(x, table, ratio, runs=runs)
+    assert (cuda_resample.resample.launches,
+            cuda_resample.resample.blocked) == (before[0] + 1,
+                                                before[1] + blocked)
     assert got.shape == x.shape[:-1] + (M,) and got.is_contiguous()
     assert torch.equal(got, rs.weigh(x, table, ratio, plain=True))
     cpu = rs.weigh(x.cpu(), table.cpu(), ratio)
     assert torch.equal(got.cpu(), cpu)
+    if blocked:  # the general route gives the same
+        assert torch.equal(got, rs.weigh(x, table, ratio))
 
 
 def test_resample_kernel_at_the_cells_shape(dev):
     """8,192 rows of 65,536 samples -> 40,960 at 8/5 (the US902-928 cell's
-    channels), bit-equal to the plain route; one launch a call."""
+    channels) on the register-blocked route, bit-equal to the plain route;
+    one launch a call."""
     from lora_tpu_torch.ops import cuda_resample
     from lora_tpu_torch.ops import resample as rs
 
@@ -1656,9 +1682,12 @@ def test_resample_kernel_at_the_cells_shape(dev):
     x = torch.randn((8192, 65536), dtype=torch.complex64, device=dev,
                     generator=g)
     table = rs.table_on(0, 40960, 1.6, 0, dev)
-    before = cuda_resample.resample.launches
-    got = rs.weigh(x, table, 1.6)
-    assert cuda_resample.resample.launches == before + 1
+    runs = rs.runs_on(0, 40960, 1.6)
+    assert runs is not None  # the register-blocked route
+    before = (cuda_resample.resample.launches, cuda_resample.resample.blocked)
+    got = rs.weigh(x, table, 1.6, runs=runs)
+    assert (cuda_resample.resample.launches,
+            cuda_resample.resample.blocked) == (before[0] + 1, before[1] + 1)
     for lo in range(0, 8192, 2048):  # the plain route's temporaries, in parts
         assert torch.equal(got[lo : lo + 2048],
                            rs.weigh(x[lo : lo + 2048], table, 1.6,
@@ -1693,10 +1722,10 @@ def _spaced_case(dev, seed=43):
 
 def test_spaced_slots_on_card_match_the_plain_route(dev):
     """channelized_demodulate(slot_ratio=8/5) on the card: one captured
-    program running kernels D, R, A, B, C once each a call, equal to the
-    eager call bit for bit and to the plain route in its decisions, every
-    frame byte-exact; a replay makes no host sync; the state's halves give
-    the whole's resampled grid."""
+    program running kernels D, R (its register-blocked route), A, B, C once
+    each a call, equal to the eager call bit for bit and to the plain route
+    in its decisions, every frame byte-exact; a replay makes no host sync;
+    the state's halves give the whole's resampled grid."""
     from lora_tpu_torch.ops import cuda_resample
     from lora_tpu_torch.utils import jit
 
@@ -1710,9 +1739,11 @@ def test_spaced_slots_on_card_match_the_plain_route(dev):
         want, wstate = call()
     c0, before = api._channelize_demod_step.captures, [
         w.launches for w in wrappers]
+    b0 = cuda_resample.resample.blocked
     got = [call() for _ in range(3)]
     assert api._channelize_demod_step.captures == c0 + 1
     assert [w.launches - n for w, n in zip(wrappers, before)] == [3] * 5
+    assert cuda_resample.resample.blocked == b0 + 3  # kernel R's blocked route
     for g, st in got:
         assert _same(g, want) and torch.equal(st[0], wstate[0])
         assert torch.equal(st[1].tail, wstate[1].tail)

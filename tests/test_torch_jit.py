@@ -305,6 +305,31 @@ def test_launch_counts_from_threads_are_neither_lost_nor_tallied():
     assert counter.launches == 8 * n
 
 
+def test_a_wrappers_other_counter_is_tallied_and_credited_apart(card):
+    """A wrapper's second counter (kernel R's `.blocked`) is tallied under
+    (wrapper, name) beside its launches: a capture takes both back and
+    every replay credits each to its own counter."""
+    card.blocked = 0
+
+    @jit.program(static=("blocked",))
+    def prog(x, blocked, device):
+        _cuda.launched(card)
+        if blocked:
+            _cuda.launched(card, "blocked")
+        return x + 1
+
+    x = torch.ones(2)
+    for n in range(1, 4):
+        prog(x, True, CPU)
+        assert (card.launches, card.blocked) == (n, n)
+    prog(x, False, CPU)
+    prog(x, False, CPU)
+    assert (card.launches, card.blocked) == (5, 3)
+    credits = sorted(dict(e.credit).get((card, "blocked"), 0)
+                     for e in prog._cache.values())
+    assert credits == [0, 1]
+
+
 def test_threads_warm_up_and_capture_one_at_a_time(card):
     """Two threads calling two programs at new keys at once: their warm-ups
     and captures never overlap (on the card they may share a pooled

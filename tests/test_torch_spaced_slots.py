@@ -249,3 +249,60 @@ def test_kernel_r_tiles_span_at_most_their_bound(ratio):
                                 start.size - 1)]
         assert (last + taps - first).max() <= span
         assert np.all(np.diff(start) >= 0)
+
+
+def _second_block_plan(ratio: Fraction, first: int, second: int):
+    """The numpy plan of a stream's second block (`block_plan` after the
+    state of a first block of `first` samples) and the first's outputs."""
+    dev = torch.device("cpu")
+    _, m_next, origin = trs.block_plan(None, first, ratio, dev)
+    tail = torch.zeros((1, trs.history(first, float(ratio))),
+                       dtype=torch.complex64)
+    st = trs.ResampleState(m_next, origin, tail)
+    plan, _, _ = trs.block_plan(st, second, ratio, dev)
+    return plan.numpy(), m_next
+
+
+@pytest.mark.parametrize("case", ["8/5 head", "8/5 mid-period", "5/8 head",
+                                  "5/8 mid-period", "4.096", "0.37"])
+def test_kernel_r_route_from_the_plan(case):
+    """The host's choice of kernel R's route from the plan table it builds
+    (ops/cuda_resample.runs): the register-blocked route for 8/5 (the
+    US902-928 cell's 65,536 slot samples -> 40,960, and a stream's second
+    block that starts mid-period) and 5/8, aligned on the table's first
+    output of phase 0, every output of the table where the kernel puts it;
+    the general route for 4.096 and 0.37 (periods of 125 and 100 outputs);
+    every geometry's shared memory within a block's 227 KB."""
+    from lora_tpu_torch.ops import cuda_resample as cr
+
+    ratio = {"8/5": Fraction(8, 5), "5/8": Fraction(5, 8), "4.096":
+             Fraction(512, 125), "0.37": Fraction(37, 100)}[case.split()[0]]
+    taps = trs._taps_eff(float(ratio))
+    if case.endswith("mid-period"):
+        table, m0 = _second_block_plan(ratio, 1003, 65536)
+        assert m0 % ratio.denominator  # the block starts mid-period
+    else:
+        table, _, _ = trs.block_plan(None, 65536, ratio, torch.device("cpu"))
+        table, m0 = table.numpy(), 0
+    runs = cr.runs(table, taps)
+    tile, span = cr.geometry(float(ratio), taps)
+    assert cr.smem(tile, span) <= cr.SMEM_MAX
+    if case in ("4.096", "0.37"):
+        assert runs is None
+        assert trs.runs_on(0, table.shape[1], float(ratio)) is None
+        return
+    P, Q = ratio.denominator, ratio.numerator
+    assert (P, Q, taps) in cr.BLOCKED
+    assert runs == cr.Runs(P, Q, taps, (-m0) % P, runs.phases,
+                           cr.blocked_smem(P, Q, taps))
+    assert runs.smem <= cr.SMEM_MAX
+    assert runs == trs.runs_on(m0, table.shape[1], float(ratio))
+    # every output where the kernel puts it: the period's offsets and
+    # phases from the aligned output, the head and tail included
+    M = table.shape[1]
+    m = np.arange(M) - runs.align
+    k, i = np.divmod(m, P)
+    start = table[0, runs.align] + k * Q + np.asarray(cr.offsets(P, Q))[i]
+    np.testing.assert_array_equal(table[0], start)
+    np.testing.assert_array_equal(table[1], np.asarray(runs.phases)[i])
+    assert table[1, runs.align] == 0

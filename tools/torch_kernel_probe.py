@@ -1,20 +1,24 @@
 #!/usr/bin/env python3
 """Probe the port's kernels on one NVIDIA card: the window kernels (A
-detect, B track, C payload) and the filterbank (D channelize): their
-registers and spills, and their times, alone or in turns against another
-copy of the sources.  Every copy is first held against the plain versions:
-A, B, C at the flagship shape by chip_smoke.py's own step 3a
-(hold_window_kernels), D at the config-3 shape against the plain product.
+detect, B track, C payload), the filterbank (D channelize) and the
+resampler (R): their registers and spills, and their times, alone or in
+turns against another copy of the sources.  Every copy is first held
+against the plain versions: A, B, C at the flagship shape by
+chip_smoke.py's own step 3a (hold_window_kernels), D at the config-3 shape
+against the plain product, R bit-equal to the plain route at the
+US902-928 cell's shape (8/5) and at 4.096 on the same rows (both routes
+where the copy has the register-blocked one).
 
     python3 tools/torch_kernel_probe.py [--resources] [--sizes]
-                                        [--kernels abcd] [--against DIR ...]
+                                        [--kernels abcdr] [--against DIR ...]
                                         [--runs N] [--trace IDLE]
 
 --resources   compile every source of the tree and of every --against copy
               with `-Xptxas -v` and print every kernel's registers, spill
               bytes and static shared memory (no library is kept);
 --kernels     which kernels to hold and time: any of a, b, c (they share the
-              flagship bank) and d (the config-3 stream); default all;
+              flagship bank), d (the config-3 stream) and r (step 13's
+              rows); default a to d;
 --sizes       hold kernels A and C (with mag2) against their plain versions
               at every window size from 64 to 4096 and time kernel A there,
               and hold and time kernel D at every K from 8 to 1024 and at
@@ -282,6 +286,49 @@ def probe_d(torch, cs, _cuda, libs, order, use, args, card, dev, sync):
             del x
 
 
+def probe_r(torch, cs, _cuda, libs, order, use, card, dev, sync):
+    """Kernel R of every copy at the US902-928 cell's shape (8/5) and at
+    4.096 on the same rows, each held bit-equal to the plain route, then
+    timed in turns: the register-blocked route where the copy has it
+    (lora_resample_blocked), the general route beside it."""
+    from lora_tpu_torch.ops import resample as rs
+
+    g = torch.Generator(device=dev).manual_seed(cs.SEED + 130)
+    x = torch.randn((cs.R_ROWS, cs.R_T), dtype=torch.complex64, device=dev,
+                    generator=g)
+    for ratio in (cs.R_RATIO, 4.096):
+        taps = rs._taps_eff(ratio)
+        M = cs.R_M if ratio == cs.R_RATIO else int((cs.R_T - taps) / ratio)
+        table = rs.table_on(0, M, ratio, 0, dev)
+        runs = rs.runs_on(0, M, ratio)
+        want = rs.weigh(x, table, ratio, plain=True)
+
+        def run(route):
+            blocked = hasattr(_cuda.library(), "lora_resample_blocked")
+            return rs.weigh(x, table, ratio,
+                            runs=runs if route and blocked else None)
+
+        for which in libs:
+            use(which)
+            for route in (True, False):
+                if not torch.equal(run(route), want):
+                    raise AssertionError(f"kernel R of {which} at {ratio} "
+                                         f"(blocked {route}) differs from "
+                                         "the plain route")
+        use("tree")
+        del want
+        bnd = cs.bound(cs.R_ROWS * (cs.R_T + M) * 8,
+                       4 * taps * cs.R_ROWS * M)
+        for route in ((True, False) if runs else (False,)):
+            ms = in_turns(cs, order, use, lambda: run(route), sync)
+            print(f"time resample {ratio} ({cs.R_ROWS} x {cs.R_T} -> {M}, "
+                  f"{'blocked where the copy has it' if route else 'general'}"
+                  f" route, bit-equal): {show(ms)}, bound "
+                  f"{bnd['bound_ms']:.3f} ms by {bnd['bound_by']} [{card}]",
+                  flush=True)
+    del x
+
+
 def probe_trace(torch, cs, api, card, dev, sync, idle: float) -> None:
     """--trace: the device events torch.profiler keeps of one flagship call
     as the process ages, by how the session starts."""
@@ -440,6 +487,8 @@ def main() -> int:
 
     if "d" in args.kernels:
         probe_d(torch, cs, _cuda, libs, order, use, args, card, dev, sync)
+    if "r" in args.kernels:
+        probe_r(torch, cs, _cuda, libs, order, use, card, dev, sync)
     if not set("abc") & set(args.kernels):
         _cuda.library = cached
         return 0
