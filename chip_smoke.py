@@ -163,8 +163,9 @@
    a. lora_tpu_torch.benchmarks --validate at its full rungs (SF10 "off"
       at B = 512, "auto" at 2048 and 4096, SF12 "auto" at 1024): its
       record printed, value > 0, every rung present with its median, min
-      and max, the bf16 decision check ok; each rung's run counted from 0
-      (A, B, C on the "auto" rungs, no kernel on the "off" rung);
+      and max, the bf16 decision check ok; each rung's run counted (A, B,
+      C on the "auto" rungs, no kernel on the "off" rung), then run again
+      outside the profiler for the record's times;
    b. kernel D's bf16 route (route 3: the FIR output rounded to bfloat16,
       the IDFT by the rounded matrix on the tensor cores, float32 sums)
       against filterbank_fir_plain at the config-3 shape and at K = 16,
@@ -204,8 +205,9 @@
       over 10,240 channels in the planar int16 mode, then 2 slabs in the
       host-convert and interleaved modes and with --mixed-sf: every frame
       found and decoded ok in each; the record, the compute-only rate and
-      the measured host-to-device rate printed (the wire is built before
-      9a, outside every counted run);
+      the measured host-to-device rate printed, from a second run outside
+      the profiler (the wire is built before 9a, outside every counted
+      run);
    c. bench_soft and bench_decode at B = 2048, SF10, each path gated on
       every frame byte-exact before it is timed;
    d. bench_stream's bench_pump at its card defaults (every pass the same
@@ -256,7 +258,7 @@
 13. Kernel R (the fractional resampler) against its plain version at the
    US902-928 cell's shape (8,192 channels of 65,536 samples -> 40,960,
    ratio 8/5, 14 taps): its register-blocked route (the plan's period, the
-   route counter `resample.blocked`), bit-equal, one launch a call; its
+   profiler's blocked launches), bit-equal, one launch a call; its
    device time by torch.profiler and its share of its bound, the plain
    route's by CUDA events; the general route's device time on the same
    plan and on 4.096's (no short period, the same rows, bit-equal too).
@@ -272,11 +274,16 @@ both routes (decode follows no route): step 3's slice, 5d, the decode of
 step 6's streamed frames and both replays, 7a, 7d, 9a to 9d, step 10's
 soft path and step 12.
 
+A path's launches are counted from the device record of a torch.profiler
+session around one untimed run of it (`count_launches`; utils/trace.launches
+names each kernel family); a path whose run is also timed (6a, 6d, 8a, 9b)
+runs once more outside the profiler for its times.
+
 Prints the kernels' JSON line (kernels A to G and R: launches summed over the
 driven paths, step 6's StreamDemodulator.pump, demodulate_bank and both
 replays, step 7's paths (summed over their ranks), step 8's and step 9's
 among them, and, in launches_by_path, of each path's run alone, every
-kernel counted from 0 on every path; the error against the plain version,
+kernel counted on every path; the error against the plain version,
 the kernel's, the plain version's and, for kernel E, one PyTorch call's
 time, and the bound: the larger of the bytes each input and output must
 move over 3.35 TB/s and the float32 operations over 67 TFLOP/s; kernel D's
@@ -300,6 +307,11 @@ import sys
 import time
 
 import numpy as np
+
+# the card's published peaks and the bound by them, the flops of a window
+# and the banks' impairments are the benchmark's (phybench's)
+from phybench.device import HBM_RATE, bound_s, window_flops
+from phybench.inputs import awgn, impair
 
 SEED = 1234
 B_FLAGSHIP = 4096
@@ -332,12 +344,6 @@ SAME_DIFFER = 0.005
 EMPTY_DIFFER = 0.01
 # step 5: taps and spectra, as a share of each window's largest value
 TAP_RTOL = 1e-4
-# the card's published peaks (H100 SXM data sheet): device memory bytes/s,
-# float32 operations/s outside the tensor cores, and dense bfloat16
-# operations/s (tensor cores, float32 accumulation)
-HBM_RATE = 3.35e12
-F32_RATE = 67e12
-BF16_RATE = 989e12
 # step 6 (flagship config): streams of host blocks, a slab bank (the "10k+
 # channels" of BASELINE.json config 5), capture replay
 STREAM_CHANNELS = 4096
@@ -359,22 +365,14 @@ DECIDE = ("found", "found_pre", "payload_complete", "t_sync", "consumed",
           "count", "freq_error", "symbols", "t_candidate")
 
 
-def window_flops(N: int, rotate: bool) -> float:
-    """Float32 operations of one dechirp -> FFT -> peak window: 5 N log2 N
-    for the transform, 6 N for the dechirp product, 8 N more for the
-    derotation (angle, product), 4 N for |X|^2 and its sum."""
-    return N * (5 * math.log2(N) + 6 + (8 if rotate else 0) + 4)
-
-
 def bound(nbytes: float, flops: float, bf16_flops: float = 0.0) -> dict:
-    """The least time the card could take: each input read once and each
-    output written once at the memory rate, or the operations at their
-    type's rate (float32 `flops`, products of two bfloat16 values summed in
-    float32 `bf16_flops`), whichever is larger."""
-    by_bytes = nbytes / HBM_RATE * 1e3
-    by_ops = (flops / F32_RATE + bf16_flops / BF16_RATE) * 1e3
-    return {"bound_ms": max(by_bytes, by_ops),
-            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+    """phybench's bound_s in ms (each input read once and each output
+    written once at the memory rate, or the float32 `flops` and the
+    bfloat16 products `bf16_flops` at their rates, whichever is larger),
+    and which of the two bounds it."""
+    s = bound_s(nbytes, flops, bf16_flops)
+    return {"bound_ms": s * 1e3,
+            "bound_by": "bytes" if s == nbytes / HBM_RATE else "operations"}
 
 
 def flagship_cfg():
@@ -389,37 +387,6 @@ def config3_cfg():
 
     cfg = LoRaConfig(sf=7, cr="4/8", ampl=1.0)
     return cfg.replace(mtu=cfg.num_symbols(16) + 2)
-
-
-def impair(frames, T: int, N: int, g, max_delay: int, u_max: float):
-    """Frames [B, Lf] placed in buffers of T samples at a random delay in
-    [0, max_delay), with a CFO of k + u bins (k in -2..2, |u| < u_max) and
-    a random phase."""
-    import torch
-
-    B, Lf = frames.shape
-    dev = frames.device
-    delay = torch.randint(0, max_delay, (B, 1), generator=g, device=dev)
-    src = torch.arange(T, device=dev) - delay
-    valid = (src >= 0) & (src < Lf)
-    bank = torch.take_along_dim(frames, src.clamp(0, Lf - 1), dim=1)
-    bank = torch.where(valid, bank, 0)
-    del src, valid
-    cfo = (torch.randint(-2, 3, (B, 1), generator=g, device=dev)
-           + (torch.rand((B, 1), generator=g, device=dev) * 2 - 1) * u_max)
-    phase = torch.rand((B, 1), generator=g, device=dev) * 6.2831855
-    n = torch.arange(T, device=dev, dtype=torch.float32)
-    ang = cfo * (6.2831855 / N) * n + phase
-    return bank * torch.polar(torch.ones_like(ang), ang)
-
-
-def awgn(shape, sigma: float, g, dev):
-    import torch
-
-    return sigma * torch.complex(
-        torch.randn(shape, generator=g, device=dev),
-        torch.randn(shape, generator=g, device=dev),
-    )
 
 
 def make_bank(api, cfg, B: int, sigma: float, seed: int, dev,
@@ -438,7 +405,7 @@ def make_bank(api, cfg, B: int, sigma: float, seed: int, dev,
                             dtype=torch.int64).to(torch.uint8)
     iq = api.modulate(api.encode(payload, cfg), cfg)
     T = api.required_samples(cfg)
-    bank = impair(iq, T, cfg.N, g, 3 * cfg.N, u_max)
+    bank = impair(iq, T, cfg.N, g, 3 * cfg.N, 2, u_max)
     del iq
     bank = (bank + awgn(bank.shape, sigma, g, dev)).contiguous()
     return bank, payload
@@ -458,7 +425,7 @@ def make_wideband(api, chz, cfg, S: int, K: int, sigma: float, seed: int,
     payload = torch.randint(0, 256, (F, 16), generator=g, device=dev,
                             dtype=torch.int64).to(torch.uint8)
     frames = impair(api.modulate(api.encode(payload, cfg), cfg), M, cfg.N,
-                    g, cfg.N, 0.4)
+                    g, cfg.N, 2, 0.4)
     u = torch.zeros((S, K, M), dtype=torch.complex64, device=dev)
     u[:, 0::2] = frames.reshape(S, K // 2, M)
     del frames
@@ -642,44 +609,34 @@ def peak_above(fn, sync) -> float:
     return (torch.cuda.max_memory_allocated() - base) / 1e9
 
 
-def kernel_wrappers() -> dict:
-    """The wrapper of each kernel, A to G and R, by the name of its JSON
-    row."""
-    from lora_tpu_torch.ops import cuda_channelize, cuda_decode, cuda_demod
-    from lora_tpu_torch.ops import cuda_detect, cuda_modulate, cuda_resample
-    from lora_tpu_torch.ops import shift as shift_ops
-
-    return {
-        "detect": cuda_detect.dechirp_detect,
-        "track": cuda_demod.track,
-        "payload": cuda_demod.payload_detect,
-        "channelize": cuda_channelize.filterbank,
-        "shift": shift_ops.shift_windows,
-        "modulate": cuda_modulate.frame,
-        "decode": cuda_decode.decode,
-        "resample": cuda_resample.resample,
-    }
-
-
 def count_launches(what, fn, sync, expect, exactly=None):
-    """Drive one path: run fn with every wrapper's launch count set to 0
-    just before it and read the counts just after.  Every kernel of
-    `expect` must have been launched (`exactly` that many times, if given)
-    and no other kernel at all.  -> (fn's result, {kernel: launches})."""
-    wrappers = kernel_wrappers()
-    for w in wrappers.values():
-        w.launches = 0
-    out = fn()
-    sync()
-    launches = {k: w.launches for k, w in wrappers.items()}
+    """Drive one path, untimed, inside a profiler session
+    (utils/trace.session) and count its kernels from the session's device
+    record (utils/trace.launches); check them (`check_launches`).  ->
+    (fn's result, {kernel: launches})."""
+    from lora_tpu_torch.utils import trace
+
+    with trace.session() as prof:
+        out = fn()
+        sync()
+    launches = trace.launches(prof)
+    check_launches(what, launches, expect, exactly)
+    return out, launches
+
+
+def check_launches(what, launches, expect, exactly=None):
+    """Every kernel of `expect` must have been launched (`exactly` that
+    many times, if given) and no other kernel at all."""
+    from lora_tpu_torch.utils import trace
+
     print(f"launches in the {what} run: {launches}", flush=True)
-    for k, n in launches.items():
+    for k in trace.KERNELS:
+        n = launches[k]
         if k in expect and (n <= 0 or (exactly is not None and n != exactly)):
             raise AssertionError(f"{what}: kernel {k} launched {n} times")
         if k not in expect and n:
             raise AssertionError(f"{what}: kernel {k} is not on this path "
                                  f"and was launched {n} times")
-    return out, launches
 
 
 def both_routes(run, sync):
@@ -1689,16 +1646,25 @@ def streaming(torch, dev, card, sync, cfg, profile=False):
     sd = StreamDemodulator(cfg, B, device=dev, observer=observe)
     ring_gb = sd._ring.buf.numel() * 8 / 1e9
     t = time.perf_counter()
-    frames, launches = count_launches(
-        "StreamDemodulator.pump", lambda: drive(sd, True), sync,
-        ("detect", "track", "payload"))
+    frames = drive(sd, True)
+    sync()
     wall = time.perf_counter() - t
     peak = (torch.cuda.max_memory_allocated() - base_mem) / 1e9
     n_steps = len(steps)
-    for k in ("detect", "track", "payload"):
-        if launches[k] != n_steps:
-            raise AssertionError(f"streaming: kernel {k} launched "
-                                 f"{launches[k]} times in {n_steps} steps")
+    offsets = sd.offsets.copy()
+    del sd
+    fresh(torch)
+    # the same pump again on a new stream, untimed, its kernels counted
+    counted = []
+    _, launches = count_launches(
+        "StreamDemodulator.pump", lambda: drive(StreamDemodulator(
+            cfg, B, device=dev, observer=lambda *a: counted.append(1)),
+            True), sync, ("detect", "track", "payload"))
+    fresh(torch)
+    if len(counted) != n_steps or any(
+            launches[k] != n_steps for k in ("detect", "track", "payload")):
+        raise AssertionError(f"streaming: launches {launches} in "
+                             f"{len(counted)} steps ({n_steps} timed)")
     if n_steps < 2:
         raise AssertionError(f"streaming: {n_steps} device steps")
     frames, dec_launches = count_launches(
@@ -1715,12 +1681,10 @@ def streaming(torch, dev, card, sync, cfg, profile=False):
     key = lambda f: (f.channel, f.t_start, f.data_start, f.freq_error,
                      f.payload, f.status)
     want = [key(f) for f in frames]
-    offsets = sd.offsets.copy()
     if profile:
         profile_once("StreamDemodulator.pump",
                      lambda: drive(StreamDemodulator(cfg, B, device=dev),
                                    True), sync, wall * 1e3)
-    del sd
     fresh(torch)
 
     # the stream through feed and run, STREAM_RUN_PASSES times, each step
@@ -1805,12 +1769,11 @@ def stream_modes(torch, dev, card, sync, cfg) -> dict:
             for captured in (True, False):
                 what = (f"StreamDemodulator.pump({mode}, fused={route!r}, "
                         f"{'captured' if captured else 'disable_jit'})")
-                steps = []
-                sd = StreamDemodulator(cfg, B, device=dev, fused=route,
-                                       observer=lambda *a: steps.append(1),
-                                       **mode)
 
-                def drive():
+                def drive(steps):
+                    sd = StreamDemodulator(
+                        cfg, B, device=dev, fused=route,
+                        observer=lambda *a: steps.append(1), **mode)
                     with (contextlib.nullcontext() if captured
                           else jit.disable_jit()):
                         out = list(sd.pump(
@@ -1818,16 +1781,21 @@ def stream_modes(torch, dev, card, sync, cfg) -> dict:
                             for i in range(0, L, blk)))
                         return out + sd.flush()
 
+                steps, counted = [], []
                 t = time.perf_counter()
-                frames, by_path[what] = count_launches(
-                    what, drive, sync,
+                frames = drive(steps)
+                sync()
+                wall = time.perf_counter() - t
+                # again untimed, its kernels counted
+                _, by_path[what] = count_launches(
+                    what, lambda: drive(counted), sync,
                     ("detect", "track", "payload") if route == "auto"
                     else ())
-                wall = time.perf_counter() - t
-                if route == "auto" and by_path[what]["payload"] != len(steps):
+                if route == "auto" and not (by_path[what]["payload"]
+                                            == len(counted) == len(steps)):
                     raise AssertionError(f"{what}: kernel C launched "
                                          f"{by_path[what]['payload']} times "
-                                         f"in {len(steps)} steps")
+                                         f"in {len(counted)} steps")
                 frames, by_path[f"decode_frames ({what})"] = count_launches(
                     f"decode_frames ({what})",
                     lambda: decode_frames(frames, cfg, dev), sync,
@@ -1838,7 +1806,6 @@ def stream_modes(torch, dev, card, sync, cfg) -> dict:
                       f"{len(steps)} steps in {wall * 1e3:.3f} ms, "
                       f"{B * L / wall / 1e6:.1f} Msamples/s [{card}]",
                       flush=True)
-                del sd
         for route in ("auto", "off"):
             a, b = ([every(f) for f in runs[(route, c)]] for c in (True,
                                                                     False))
@@ -2683,9 +2650,10 @@ def bf16_close(torch, chk, what, got, want) -> tuple:
 
 def s8a_bench(torch, sync) -> dict:
     """8a: lora_tpu_torch.benchmarks --validate at its full rungs, each
-    rung's run (warm-up and timed calls) counted from 0: kernels A, B, C on
-    the "auto" rungs, none on the "off" rung.  Prints the record; the
-    check must be ok.  -> {rung path: launches}."""
+    rung's run (warm-up and calls) counted under the profiler, then run
+    again outside it for the record's times: kernels A, B, C on the "auto"
+    rungs, none on the "off" rung.  Prints the record; the check must be
+    ok.  -> {rung path: launches}."""
     import contextlib
     import io
 
@@ -2697,9 +2665,9 @@ def s8a_bench(torch, sync) -> dict:
     def counted(x, cfg, fused, calls):
         what = f"benchmarks sf{cfg.sf}-{fused}/B{x.shape[0]}"
         expect = () if fused == "off" else ("detect", "track", "payload")
-        rec, by_rung[what] = count_launches(
+        _, by_rung[what] = count_launches(
             what, lambda: run_rung(x, cfg, fused, calls), sync, expect)
-        return rec
+        return run_rung(x, cfg, fused, calls)
 
     out, err = io.StringIO(), io.StringIO()
     benchmarks.run_rung = counted
@@ -2860,14 +2828,9 @@ def s8c_trace(torch, dev, sync) -> dict:
     sync()
     what = "demodulate(fused='auto') under utils.trace.profile"
     with tempfile.TemporaryDirectory() as tmp:
-        def traced():
-            with trace.profile(tmp):
-                d = api.demodulate(bank, cfg, fused="auto")
-                sync()
-            return d
-
-        dem, launches = count_launches(
-            what, traced, sync, ("detect", "track", "payload"), exactly=1)
+        with trace.profile(tmp):
+            dem = api.demodulate(bank, cfg, fused="auto")
+            sync()
         files = [f for f in os.listdir(tmp) if f.endswith(".pt.trace.json")]
         if len(files) != 1:
             raise AssertionError(f"trace: {files} in the trace directory")
@@ -2877,12 +2840,11 @@ def s8c_trace(torch, dev, sync) -> dict:
         size = os.path.getsize(path)
     names = [str(e.get("name", "")) for e in events
              if e.get("cat") == "kernel"]
-    named = {k: sum(f"{k}_kernel" in n for n in names)
-             for k in ("detect", "track", "payload")}
+    # the written trace is the record the launches are counted from
+    launches = trace.kernel_launches(names)
+    check_launches(what, launches, ("detect", "track", "payload"), exactly=1)
+    named = {k: launches[k] for k in ("detect", "track", "payload")}
     absorbed = sum(trace.ABSORB_KERNEL in n for n in names)
-    if set(named.values()) != {1}:
-        raise AssertionError(f"trace: kernels named {named} of "
-                             f"{len(names)} device kernels")
     ev = trace.frame_events(dem, cfg)
     if [e["channel"] for e in ev] != list(range(B_FLAGSHIP)):
         raise AssertionError(f"frame_events: {len(ev)} events for "
@@ -2965,7 +2927,6 @@ def s9a_sensitivity(torch, dev, sync) -> dict:
     cfgs = {(s["sf"], s["cr"]): bs.point_cfg(s["sf"], s["cr"])
             for s in specs}
     cfg_of = lambda s: cfgs[(s["sf"], s["cr"])]
-    t = time.perf_counter()
     banks = []
 
     def route(s, bank, fused):
@@ -2987,7 +2948,6 @@ def s9a_sensitivity(torch, dev, sync) -> dict:
     what = f"9a sensitivity, {len(specs)} points hard and soft"
     auto, la = count_launches(f"{what}, fused='auto'", auto_route, sync,
                               (*S9_TX, "decode"))
-    t_auto = time.perf_counter() - t
     off, lo = count_launches(
         f"{what}, fused='off'",
         lambda: [route(s, b, "off") for s, b in zip(specs, banks)], sync,
@@ -3032,8 +2992,7 @@ def s9a_sensitivity(torch, dev, sync) -> dict:
           f"soft {tot['soft']}, plain hard {tot['off_hard']} soft "
           f"{tot['off_soft']}; lora_tpu hard {jax_h} soft {jax_s}; "
           f"reference {tot['ref']}; frames whose routes differ {differ} "
-          f"(bar {S9_DIFFER}); better/equal/worse {tally}; banks and the "
-          f"kernels' route {t_auto:.1f} s", flush=True)
+          f"(bar {S9_DIFFER}); better/equal/worse {tally}", flush=True)
     if differ > S9_DIFFER:
         raise AssertionError(f"9a: the routes differ on {differ} frames")
     if tot["hard"] < S9_REF_HARD or below:
@@ -3062,7 +3021,9 @@ def s9b_e2e(torch, dev, sync, wire) -> dict:
     """9b: tools.bench_e2e over E2E_CHANNELS channels in the default mode
     (planar int16), then 2 slabs in host-convert, interleaved and
     --mixed-sf, on the wire of s9b_wire (built before 9a); every frame
-    found and decoded ok in every run.  -> {path: launches}."""
+    found and decoded ok in every run; each run counted under the
+    profiler, then run again outside it for its rates.
+    -> {path: launches}."""
     from lora_tpu_torch.tools import bench_e2e as e2e
 
     g10, g8 = wire
@@ -3075,9 +3036,10 @@ def s9b_e2e(torch, dev, sync, wire) -> dict:
         what = (f"9b bench_e2e {mode}{' --mixed-sf' if len(groups) > 1 else ''}"
                 f" {channels} channels")
         t = time.perf_counter()
-        (rec, comp), by_path[what] = count_launches(
+        _, by_path[what] = count_launches(
             what, lambda: e2e.run(groups, mode, channels, dev), sync,
             (*S9_ABC, "decode"))
+        rec, comp = e2e.run(groups, mode, channels, dev)
         if not rec.get("of") or not (rec["frames_found"]
                                      == rec["frames_decoded_ok"]
                                      == rec["of"] == channels):
@@ -3457,7 +3419,7 @@ def step11(torch, dev, card, sync):
     for name in ("kernel F", "plain"):
         g2 = torch.Generator(device=dev).manual_seed(SEED + 111)
         frames = iq if name == "kernel F" else plain
-        bank = impair(frames, Tb, N, g2, 3 * N, 0.4)
+        bank = impair(frames, Tb, N, g2, 3 * N, 2, 0.4)
         bank = (bank + awgn(bank.shape, SIGMA, g2, dev)).contiguous()
         what = f"11 demodulate the {name}-built bank"
         dem, by_path[what] = count_launches(
@@ -3633,8 +3595,8 @@ R_RATIO = 1.6
 def step13(torch, dev, card, sync):
     """Step 13: kernel R against the plain route at the US902-928 cell's
     shape: its register-blocked route (the plan's period of 5 outputs over
-    8 inputs) bit-equal, one launch a call and counted in
-    `resample.blocked`; its device time by the profiler beside its bound,
+    8 inputs) bit-equal, one launch a call, named as the blocked route in
+    the profiler's record; its device time by the profiler beside its bound,
     a call and the plain route by CUDA events; the general route on the
     same plan and on a plan without a short period (4.096, a period of 125
     outputs) on the same rows, timed by the profiler in turns with it, the
@@ -3647,22 +3609,22 @@ def step13(torch, dev, card, sync):
     g = torch.Generator(device=dev).manual_seed(SEED + 130)
     x = torch.randn((R_ROWS, R_T), dtype=torch.complex64, device=dev,
                     generator=g)
-    table = rs.table_on(0, R_M, R_RATIO, 0, dev)
-    runs = rs.runs_on(0, R_M, R_RATIO)
+    plan = rs.plan_on(0, R_M, R_RATIO, 0, dev)
+    runs = plan.runs
     if runs is None:
         raise AssertionError("13: the cell's plan takes kernel R's general "
                              "route")
     taps = rs._taps_eff(R_RATIO)
     what = f"13 resample ({R_ROWS} x {R_T} -> {R_M}, {taps} taps)"
-    kern = lambda: rs.weigh(x, table, R_RATIO, runs=runs)
-    general = lambda: rs.weigh(x, table, R_RATIO)
-    plain = lambda: rs.weigh(x, table, R_RATIO, plain=True)
+    kern = lambda: rs.weigh(x, plan, R_RATIO)
+    general = lambda: rs.weigh(x, plan._replace(runs=None), R_RATIO)
+    plain = lambda: rs.weigh(x, plan, R_RATIO, plain=True)
     chk = Check("resample")
     by_path = {}
-    b0 = cuda_resample.resample.blocked
     got, by_path[what] = count_launches(what, kern, sync, ("resample",),
                                         exactly=1)
-    if cuda_resample.resample.blocked != b0 + 1:
+    blocked = by_path[what]["blocked"]
+    if blocked != 1:
         raise AssertionError(f"{what}: the call took kernel R's general "
                              "route")
     chk.close(what, torch.view_as_real(got), torch.view_as_real(plain()),
@@ -3672,13 +3634,13 @@ def step13(torch, dev, card, sync):
     # a plan without a short period on the same rows: the general route
     r2 = 4.096
     m2 = int((R_T - rs._taps_eff(r2)) / r2)
-    table2 = rs.table_on(0, m2, r2, 0, dev)
-    if rs.runs_on(0, m2, r2) is not None:
+    plan2 = rs.plan_on(0, m2, r2, 0, dev)
+    if plan2.runs is not None:
         raise AssertionError("13: 4.096's plan takes the blocked route")
-    general2 = lambda: rs.weigh(x, table2, r2)
+    general2 = lambda: rs.weigh(x, plan2, r2)
     chk.close(f"13 resample at {r2} ({R_ROWS} x {R_T} -> {m2})",
               torch.view_as_real(general2()),
-              torch.view_as_real(rs.weigh(x, table2, r2, plain=True)), tol=0)
+              torch.view_as_real(rs.weigh(x, plan2, r2, plain=True)), tol=0)
     sync()
     dev_ms = {}
     for name, fn in (("blocked", kern), ("general", general),
@@ -3688,11 +3650,14 @@ def step13(torch, dev, card, sync):
             for _ in range(RUNS):
                 fn()
             sync()
+        n = trace.launches(prof)
+        want = RUNS if name == "blocked" else 0
+        if n["resample"] != RUNS or n["blocked"] != want:
+            raise AssertionError(f"{what}: the trace holds {n['resample']} "
+                                 f"launches of kernel R, {n['blocked']} "
+                                 f"blocked, not {RUNS} and {want} ({name})")
+        blocked += n["blocked"]
         ev = [e for e in prof.key_averages() if "resample_kernel" in e.key]
-        if sum(e.count for e in ev) != RUNS:
-            raise AssertionError(f"{what}: the trace holds "
-                                 f"{sum(e.count for e in ev)} launches of "
-                                 f"kernel R, not {RUNS}")
         ms = sum(e.self_device_time_total for e in ev) / 1e3 / RUNS
         dev_ms[name] = min(dev_ms.get(name, ms), ms)
     bnd = bound(R_ROWS * (R_T + R_M) * 8, 4 * taps * R_ROWS * R_M)
@@ -3700,9 +3665,9 @@ def step13(torch, dev, card, sync):
     share = lambda ms, b: f"{100 * b['bound_ms'] / ms:.1f}%"
     print(f"{what}: kernel R, register-blocked route (period {runs.period} "
           f"outputs over {runs.advance} inputs, runs of "
-          f"{cuda_resample.RUN} periods, align "
-          f"{runs.align}; resample.blocked {cuda_resample.resample.blocked}, "
-          f"resample.launches {cuda_resample.resample.launches}) "
+          f"{cuda_resample.RUN} periods, align {runs.align}; "
+          f"{blocked} register-blocked launches in the profiler's "
+          f"records: the counted call and two sessions) "
           f"{dev_ms['blocked']:.3f} ms on the card "
           f"({share(dev_ms['blocked'], bnd)} of its bound "
           f"{bnd['bound_ms']:.3f} ms by {bnd['bound_by']}); the general "

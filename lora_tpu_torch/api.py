@@ -132,7 +132,7 @@ def channelized_demodulate(wide, K: int, cfg: LoRaConfig,
         armed = debugcheck.armed()
         wide, dev = cplx.stage_iq(wide, device)
         ratio = Fraction(slot_ratio).limit_denominator(10**6)
-        rstate = tail = plan = runs = None
+        rstate = tail = table = runs = None
         if ratio != 1 and state is not None:
             state, rstate = state
             if rstate is not None:
@@ -142,13 +142,12 @@ def channelized_demodulate(wide, K: int, cfg: LoRaConfig,
         squeeze = wide.dim() == 1
         M = wide.shape[-1] // K
         if ratio != 1:
-            m0 = 0 if rstate is None else rstate.m_next
-            plan, m_next, origin = rs.block_plan(rstate, M, ratio, dev)
-            M = plan.shape[-1]
-            runs = rs.runs_on(m0, M, float(ratio))
+            (table, runs), m_next, origin = rs.block_plan(rstate, M, ratio,
+                                                          dev)
+            M = table.shape[-1]
         dem, new_state = _channelize_demod_step(
             wide[None] if squeeze else wide, state, K, cfg, taps_per_phase,
-            max_frames, fused, spectra or armed, dev, ratio, tail, plan, runs)
+            max_frames, fused, spectra or armed, dev, ratio, tail, table, runs)
         if ratio != 1:
             new_state, tail = new_state
             new_state = (new_state, rs.ResampleState(m_next, origin, tail))
@@ -167,12 +166,11 @@ def channelized_demodulate(wide, K: int, cfg: LoRaConfig,
 def _channelize_demod_step(wb: torch.Tensor, state, K: int, cfg: LoRaConfig,
                            taps_per_phase: int, max_frames: int, fused: str,
                            spectra: bool, device: torch.device,
-                           slot_ratio: Fraction = 1, tail=None, plan=None,
+                           slot_ratio: Fraction = 1, tail=None, table=None,
                            runs=None):
     """Kernel D's filterbank, where slot_ratio is not 1 kernel R's
-    resampling of every channel after its history `tail` at the plan `plan`
-    (ops/resample.block_plan; kernel R's register-blocked route where
-    `runs`, the plan's, ops/resample.runs_on), and the demodulation of its
+    resampling of every channel after its history `tail` at the plan
+    (`table`, `runs`) of ops/resample.block_plan, and the demodulation of its
     S*K channels as one program on `device`; the result has leading [S, K]
     axes, and the state is then the pair (the channelizer's, the
     resampler's tail)."""
@@ -187,8 +185,8 @@ def _channelize_demod_step(wb: torch.Tensor, state, K: int, cfg: LoRaConfig,
             y = torch.cat([tail.to(device), y], -1)
         keep = rs.history(y.shape[-1], float(slot_ratio))
         new_state = (new_state, y[..., y.shape[-1] - keep:].clone())
-        y = rs.weigh(y, plan.to(device), float(slot_ratio),
-                     plain=fused == "off", runs=runs)
+        y = rs.weigh(y, rs.Plan(table.to(device), runs), float(slot_ratio),
+                     plain=fused == "off")
     S, _, M = y.shape
     dem = _demod_whole(y.reshape(S * K, M), cfg, False, max_frames,
                        fused != "off", spectra, device)

@@ -10,7 +10,6 @@ runs at import time: the CPU tests import every module of the port.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 import hashlib
@@ -20,7 +19,6 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
-import threading
 
 import numpy as np
 import torch
@@ -126,46 +124,6 @@ def library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
-
-
-# A captured program's launches (utils/jit.py) are tallied in the thread
-# that captures, not counted: the capture keeps them as the graph's credit
-# and each replay adds them.  A launch in another thread meanwhile (a bank
-# built in a thread) counts as usual.
-_capture = threading.local()
-_COUNTS = threading.Lock()
-
-
-def launched(wrapper, counter: str = "launches") -> None:
-    """Count one launch of a kernel wrapper on its `counter` (`.launches`,
-    or another count of the wrapper's such as `.blocked`), where it
-    launches."""
-    key = wrapper if counter == "launches" else (wrapper, counter)
-    tally = getattr(_capture, "tally", None)
-    if tally is not None:
-        tally[key] = tally.get(key, 0) + 1
-    else:
-        credit(key, 1)
-
-
-def credit(key, n: int) -> None:
-    """Add n to a wrapper's `.launches` (key: the wrapper) or to its other
-    counter (key: (wrapper, counter))."""
-    wrapper, counter = key if isinstance(key, tuple) else (key, "launches")
-    with _COUNTS:
-        setattr(wrapper, counter, getattr(wrapper, counter) + n)
-
-
-@contextlib.contextmanager
-def tally():
-    """Tally this thread's launches in the dict it yields instead of
-    counting them (a graph's capture)."""
-    prev = getattr(_capture, "tally", None)
-    _capture.tally = counted = {}
-    try:
-        yield counted
-    finally:
-        _capture.tally = prev
 
 
 def check(err: int, name: str) -> None:

@@ -211,8 +211,4 @@ def filterbank(x: torch.Tensor, K: int, taps_per_phase: int,
             err = lib.lora_channelize(*args, wk.data_ptr(), y.data_ptr(),
                                       _cuda.stream(dev), 0)
             _cuda.check(err, "lora_channelize")
-        _cuda.launched(filterbank)
     return y.reshape(*lead, K, M)
-
-
-filterbank.launches = 0

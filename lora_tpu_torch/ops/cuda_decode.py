@@ -109,7 +109,6 @@ def decode(sym: torch.Tensor, cfg: LoRaConfig, num_symbols: int):
                                   out.data_ptr(), None, None,
                                   _cuda.stream(dev))
             _cuda.check(err, "lora_decode")
-            _cuda.launched(decode)
         return out
     g = geometry(cfg, S, num_symbols)
     data = torch.empty((*lead, g.M), dtype=torch.uint8, device=dev)
@@ -125,8 +124,4 @@ def decode(sym: torch.Tensor, cfg: LoRaConfig, num_symbols: int):
             data.data_ptr(), ints.data_ptr(), crc_present.data_ptr(),
             _cuda.stream(dev))
         _cuda.check(err, "lora_decode")
-        _cuda.launched(decode)
     return data, ints, crc_present
-
-
-decode.launches = 0

@@ -141,7 +141,6 @@ def track(x: torch.Tensor, t0: torch.Tensor, sync: int, thresh: float,
         power.data_ptr(), snr.data_ptr(), _cuda.stream(dev),
     )
     _cuda.check(err, "lora_track")
-    _cuda.launched(track)
     return {
         "synced": state == 1,
         "k_sync": k_sync,
@@ -150,9 +149,6 @@ def track(x: torch.Tensor, t0: torch.Tensor, sync: int, thresh: float,
         "power": power,
         "snr": snr,
     }
-
-
-track.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -211,10 +207,6 @@ def payload_detect(x: torch.Tensor, data_start: torch.Tensor,
         mag2.data_ptr() if want_mag2 else None, _cuda.stream(dev),
     )
     _cuda.check(err, "lora_payload")
-    _cuda.launched(payload_detect)
     if want_mag2:
         return value, power, noise, mag2
     return value, power, noise
-
-
-payload_detect.launches = 0

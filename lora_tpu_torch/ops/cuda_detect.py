@@ -57,10 +57,6 @@ def dechirp_detect(x: torch.Tensor, down: bool = False, ferr=None,
         _cuda.stream(dev),
     )
     _cuda.check(err, "lora_detect")
-    _cuda.launched(dechirp_detect)
     shp = lambda a: a.reshape(lead)
     return DetectResult(value=shp(value), power=shp(power), noise=shp(noise),
                         f_index=shp(findex))
-
-
-dechirp_detect.launches = 0

@@ -23,9 +23,10 @@ so each staged sample is read about once and the bytes are left to bound
 it.
 
 `resample` launches it on a CUDA tensor or raises; ops/resample.py takes
-the plain route for a tensor that lies on the CPU.  `resample.launches`
-counts its launches, `resample.blocked` those of the register-blocked
-route.
+the plain route for a tensor that lies on the CPU.  The profiler names the
+register-blocked route's launches by their template arguments
+(`lora::resample_kernel<5, 8, 14>`), the general route's without
+(utils/trace.kernel_launches).
 """
 
 from __future__ import annotations
@@ -189,11 +190,4 @@ def resample(x: torch.Tensor, table: torch.Tensor, weights: torch.Tensor,
             runs.advance, runs.align, wts.ctypes.data, runs.smem,
             out.data_ptr(), _cuda.stream(x.device))
     _cuda.check(err, "lora_resample")
-    _cuda.launched(resample)
-    if runs is not None:
-        _cuda.launched(resample, "blocked")
     return out
-
-
-resample.launches = 0
-resample.blocked = 0

@@ -18,9 +18,9 @@ per tap, so every output's arithmetic is the same whatever the number of
 outputs in a call: a chunked resample_stream is bit-identical to resample
 of the whole input on any device.  A CUDA tensor takes kernel R
 (ops/cuda_resample.py), which sums in that order, on its register-blocked
-route where the host finds the plan it built periodic (`runs_on`,
-cuda_resample.runs); a CPU tensor the plain route `_apply`, one gather,
-product and add per tap over the whole tensor.
+route where the host finds the plan it built periodic (`Plan.runs`); a CPU
+tensor the plain route `_apply`, one gather, product and add per tap over
+the whole tensor.
 """
 
 from __future__ import annotations
@@ -81,20 +81,26 @@ def _table(m0: int, M: int, ratio: float, origin: int = 0) -> np.ndarray:
     return table.astype(np.int32)
 
 
-@functools.lru_cache(maxsize=16)
-def table_on(m0: int, M: int, ratio: float, origin: int,
-             device: torch.device) -> torch.Tensor:
-    """_table on `device`, made once for a call's geometry."""
-    return torch.from_numpy(_table(m0, M, ratio, origin)).to(device)
+class Plan(NamedTuple):
+    """A call's plan on a device: `table`, int32 [2, M] (`_table`), and
+    `runs`, kernel R's register-blocked route for it
+    (cuda_resample.runs), or None for its general route."""
+
+    table: torch.Tensor
+    runs: cuda_resample.Runs | None
+
+
+def _on(table: np.ndarray, ratio: float, device) -> Plan:
+    return Plan(torch.from_numpy(table).to(device),
+                cuda_resample.runs(table, _taps_eff(ratio)))
 
 
 @functools.lru_cache(maxsize=16)
-def runs_on(m0: int, M: int, ratio: float) -> cuda_resample.Runs | None:
-    """Kernel R's register-blocked route for the plan of outputs
-    m0..m0+M-1 (the table's first inputs relative to any origin: the route
-    does not depend on it), or None for its general route; found once for
-    a call's geometry."""
-    return cuda_resample.runs(_table(m0, M, ratio), _taps_eff(ratio))
+def plan_on(m0: int, M: int, ratio: float, origin: int,
+            device: torch.device) -> Plan:
+    """The Plan of outputs m0..m0+M-1 (`_table`) on `device`, made once
+    for a call's geometry."""
+    return _on(_table(m0, M, ratio, origin), ratio, device)
 
 
 def _cutoff(ratio: float) -> tuple[int, int]:
@@ -133,18 +139,17 @@ def _apply(x: torch.Tensor, table: torch.Tensor, ratio: float
     return torch.view_as_complex(acc.contiguous())
 
 
-def weigh(x: torch.Tensor, table: torch.Tensor, ratio: float,
-          plain: bool = False, runs: cuda_resample.Runs | None = None
-          ) -> torch.Tensor:
-    """complex64 [..., T] at the plan `table` (int32 [2, M] on x's device)
-    -> complex64 [..., M]: kernel R for a CUDA tensor, on its
-    register-blocked route with `runs` (the table's, `runs_on` or
-    cuda_resample.runs), on its general route without; the plain route for
-    a CPU tensor or where `plain`.  All sum alike, bit for bit."""
+def weigh(x: torch.Tensor, plan: Plan, ratio: float,
+          plain: bool = False) -> torch.Tensor:
+    """complex64 [..., T] at `plan` (its table on x's device) -> complex64
+    [..., M]: kernel R for a CUDA tensor, on the plan's route; the plain
+    route for a CPU tensor or where `plain`.  All sum alike, bit for
+    bit."""
     if x.is_cuda and not plain:
-        return cuda_resample.resample(x, table, weights_on(ratio, x.device),
-                                      ratio, runs, _weights(ratio))
-    return _apply(x, table, ratio)
+        return cuda_resample.resample(x, plan.table,
+                                      weights_on(ratio, x.device), ratio,
+                                      plan.runs, _weights(ratio))
+    return _apply(x, plan.table, ratio)
 
 
 def resample(x, ratio: float, out_len: int | None = None,
@@ -161,8 +166,7 @@ def resample(x, ratio: float, out_len: int | None = None,
             # every output's (possibly ratio-widened) tap window inside the
             # input
             out_len = int((T - _taps_eff(ratio)) / ratio)
-        return weigh(x, table_on(0, out_len, ratio, 0, x.device), ratio,
-                     runs=runs_on(0, out_len, ratio) if x.is_cuda else None)
+        return weigh(x, plan_on(0, out_len, ratio, 0, x.device), ratio)
 
 
 class ResampleState(NamedTuple):
@@ -211,9 +215,7 @@ def resample_stream(x, ratio: float, state: ResampleState | None = None,
         else:
             table = _table(state.m_next, M, ratio, state.origin)
             assert table[0].max() + taps <= L
-            runs = cuda_resample.runs(table, taps) if x.is_cuda else None
-            out = weigh(local, torch.from_numpy(table).to(x.device), ratio,
-                        runs=runs)
+            out = weigh(local, _on(table, ratio, x.device), ratio)
         keep = history(L, ratio)  # history for the next chunk
         new = ResampleState(state.m_next + M, end - keep,
                             local[..., L - keep:].clone())
@@ -227,7 +229,7 @@ def block_plan(state: ResampleState | None, M: int, ratio: Fraction,
     samples delivered so far, the taps past the last one clamped to it as
     `resample(out_len=...)` clamps them; the next block continues the
     output grid and reads the carried tail as its history.  `ratio` is
-    exact (a Fraction) so that the count is.  -> (the plan on `device`,
+    exact (a Fraction) so that the count is.  -> (the Plan on `device`,
     the next state's m_next and origin).  The block's input is the tail
     then the M samples; the next state's tail is its last
     history(Lt + M, ratio) samples."""
@@ -237,5 +239,5 @@ def block_plan(state: ResampleState | None, M: int, ratio: Fraction,
     end = origin + L
     n = max(0, math.floor(Fraction(end) / ratio) - m_next)
     keep = history(L, float(ratio))
-    return (table_on(m_next, n, float(ratio), origin, device), m_next + n,
+    return (plan_on(m_next, n, float(ratio), origin, device), m_next + n,
             end - keep)

@@ -107,8 +107,4 @@ def shift_windows(g: torch.Tensor, r: torch.Tensor, mtu: int) -> torch.Tensor:
         gf.data_ptr(), gf.stride(0), BF, N, mtu, rf.data_ptr(),
         out.data_ptr(), _cuda.stream(g.device))
     _cuda.check(err, "lora_shift")
-    _cuda.launched(shift_windows)
     return out.reshape(*lead, mtu, N)
-
-
-shift_windows.launches = 0

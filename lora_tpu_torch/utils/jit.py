@@ -47,14 +47,6 @@ records): a call on the card is `lora.program:<fn name>`, holding
 entry with buffers), `lora.program.launch` (the graph's replay) and
 `lora.program.clone_out`.  A call run eagerly has none: a span inside a
 captured function would run at its capture only.
-
-Launch counters: the `.launches` of each kernel wrapper (kernels A to G, R)
-and kernel R's `.blocked` count real launches, so a capture takes back what
-it added and every replay credits the launches counted at its capture: each
-call adds one launch a kernel, captured or not.  The capture's launches
-are tallied in its own thread (ops/_cuda.tally), so that a launch another
-thread counts meanwhile (a bank built in a thread) is neither credited to
-the graph nor lost.
 """
 
 from __future__ import annotations
@@ -93,12 +85,6 @@ def disable_jit():
         yield
     finally:
         _local.eager -= 1
-
-
-def _cuda():
-    from ..ops import _cuda
-
-    return _cuda
 
 
 # ---------------------------------------------------------------------------
@@ -179,7 +165,6 @@ class _Entry:
     buffers: dict          # name -> the entry's own copy target (or None)
     outputs: list          # the graph's output tensors
     spec: object           # their structure
-    credit: tuple          # (wrapper or (wrapper, counter), what a replay adds)
     dev: torch.device = None
     calls: int = 1
     base: tuple = ()       # the key without addresses
@@ -287,10 +272,8 @@ class Program:
                     for t in warm:
                         if t.device == dev:  # made on the side stream
                             _card.record_stream(t, main)
-                    with _cuda().tally() as counted:
-                        graph, captured = _card.capture(self.fn, args,
-                                                        self._pool(dev))
-                    credit = tuple(counted.items())
+                    graph, captured = _card.capture(self.fn, args,
+                                                    self._pool(dev))
             finally:
                 _local.eager -= 1
             outputs: list = []
@@ -302,7 +285,7 @@ class Program:
                     raise RuntimeError(f"{self.fn.__name__}: a captured "
                                        f"program returned a tensor on "
                                        f"{t.device}")
-        entry = _Entry(graph, buffers, outputs, spec, credit, dev, base=base)
+        entry = _Entry(graph, buffers, outputs, spec, dev, base=base)
         for n in homes:
             entry.watch.append(weakref.ref(tensors[n].untyped_storage(),
                                            functools.partial(self._gone, key)))
@@ -345,8 +328,6 @@ class Program:
             with trace.span("lora.program.clone_out"):
                 outs = [t.clone() for t in entry.outputs]
             self._last_stream = stream
-        for w, n in entry.credit:
-            _cuda().credit(w, n)
         entry.calls += 1
         self.replays += 1
         return _build(entry.spec, iter(outs))

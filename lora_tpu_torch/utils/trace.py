@@ -4,7 +4,8 @@
     the card's kernels when there is a card) and writes a Chrome trace into
     `dir` (open it in Perfetto, chrome://tracing or TensorBoard);
     `session()` is that recording, which keeps every kernel of the region
-    where torch.profiler alone drops a session's first ones.
+    where torch.profiler alone drops a session's first ones, and
+    `launches(prof)` counts the port's kernels in it.
   - `span(name)` marks a stretch of the program's host code in whatever
     torch.profiler session records in the process (`session`, `profile`,
     or a caller's own), on its clock beside the card's kernels; with no
@@ -17,6 +18,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import re
 import socket
 import time
 from typing import Iterator
@@ -29,13 +31,17 @@ from torch.profiler import record_function
 # torch.profiler on the card drops the first device records of a session,
 # more the longer the process has run: none in its first minute, 5 at 80 s,
 # 15 at 200 s (NVIDIA H100 80GB HBM3, torch 2.11, CUDA 12.8;
-# tools/torch_kernel_probe.py --trace).  A sleep or a spin on the card
-# before the region does not help; launches before it take the drop in the
-# region's place.  So a session on the card starts with ABSORB launches of
-# a kernel of its own and a sync, and one of them at least must be left
-# in the record: else the region's first kernels may be gone too, and the
-# session raises.
-ABSORB = 1024
+# tools/torch_kernel_probe.py --trace).  Sessions opened one after another
+# drop more, now and then: 2% to 3% of them lost 8 to 755 of their first
+# records (1,200 sessions of 1,024 launches and 630 of 4,096, each with one
+# kernel after them, which was never lost), and one session of a card test
+# run lost more than 1,024.  A sleep or a spin on the card before the
+# region does not help; launches before it take the drop in the region's
+# place.  So a session on the card starts with ABSORB launches of a kernel
+# of its own and a sync, and one of them at least must be left in the
+# record: else the region's first kernels may be gone too, and the session
+# raises.
+ABSORB = 4096
 ABSORB_KERNEL = "spin_kernel"  # torch.cuda._sleep's kernel
 ABSORB_RANGE = "absorb profiler drop"
 
@@ -90,6 +96,42 @@ def session() -> Iterator["torch.profiler.profile"]:
         raise RuntimeError(
             f"torch.profiler dropped all {ABSORB} launches that open the "
             f"session, and maybe the region's first kernels after them")
+
+
+# the port's kernel families: the profiler names their kernels
+# lora::<family>_kernel, or lora::<family>_<route>_kernel for kernel D's
+# routes, with template arguments where the kernel has them
+KERNELS = ("detect", "track", "payload", "channelize", "shift", "modulate",
+           "decode", "resample")
+_KERNEL = re.compile(r"(?:void )?lora::([a-z]+)_(?:[a-z]+_)?kernel"
+                     r"(<[^(]*>)?(?:\(|$)")
+
+
+def kernel_launches(names) -> dict:
+    """Launches of the port's kernels among device kernel names as
+    torch.profiler records them: {family: launches} for every family of
+    KERNELS, and "blocked": kernel R's register-blocked launches, the
+    templated `lora::resample_kernel<P, Q, TAPS>` (its general route is
+    the untemplated one), which "resample" counts too.  A session's absorb
+    launches and every kernel outside lora:: count for none."""
+    out = dict.fromkeys(KERNELS + ("blocked",), 0)
+    for name in names:
+        m = _KERNEL.match(name)
+        if m is None or m[1] not in KERNELS:
+            continue
+        out[m[1]] += 1
+        if m[1] == "resample" and m[2]:
+            out["blocked"] += 1
+    return out
+
+
+def launches(prof) -> dict:
+    """kernel_launches over the device kernels a finished `session`
+    recorded: zeros for each family where there is no card."""
+    from torch.autograd import DeviceType
+
+    return kernel_launches(e.name for e in prof.events()
+                           if e.device_type == DeviceType.CUDA)
 
 
 @contextlib.contextmanager

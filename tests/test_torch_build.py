@@ -3,6 +3,7 @@ CPU: the library is named by its sources, a missing nvcc is reported, the
 argument checks refuse what the kernels do not take, and the constants
 the kernels receive are the plain version's."""
 
+import dataclasses
 import math
 import sys
 
@@ -13,6 +14,7 @@ import torch
 from lora_tpu_torch.ops import _cuda, chirp, tables
 
 torch.set_num_threads(1)
+CPU = torch.device("cpu")
 
 
 def test_library_named_by_sources_and_flags(monkeypatch):
@@ -149,3 +151,86 @@ def test_argtypes_match_the_c_declarations(entry):
     sigs = _c_signatures()
     assert sorted(sigs) == sorted(_cuda._ARGTYPES)
     assert sigs[entry] == _cuda._ARGTYPES[entry], entry
+
+
+def _leaves(obj) -> list:
+    """The tensors of a result: a tensor, a dict, a dataclass, a tuple."""
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if isinstance(obj, dict):
+        return [t for v in obj.values() for t in _leaves(v)]
+    if dataclasses.is_dataclass(obj):
+        return [t for f in dataclasses.fields(obj)
+                for t in _leaves(getattr(obj, f.name))]
+    if isinstance(obj, (tuple, list)):
+        return [t for v in obj for t in _leaves(v)]
+    assert obj is None, type(obj)
+    return []
+
+
+def _cpu_route(kernel: str):
+    """(the entry point's result on CPU tensors, its plain version's)."""
+    from lora_tpu_torch import LoRaConfig, api
+    from lora_tpu_torch.models import decoder
+    from lora_tpu_torch.ops import channelizer, cuda_channelize, cuda_demod
+    from lora_tpu_torch.ops import cuda_detect, cuda_modulate, detect
+    from lora_tpu_torch.ops import resample, shift
+
+    g = torch.Generator().manual_seed(7)
+    iq = lambda *shape: torch.randn(shape, dtype=torch.complex64, generator=g)
+    ints = lambda hi, *shape: torch.randint(0, hi, shape, generator=g)
+    N, mtu = 64, 4
+    if kernel == "detect":
+        x, fe = iq(2, 3, N), torch.rand((2, 3), generator=g)
+        return (cuda_detect.dechirp_detect(x, True, fe),
+                detect.dechirp_detect(x, True, fe, want_f_index=True))
+    if kernel in ("track", "payload"):
+        x = iq(2, 16 * N)
+        t0, fine = ints(2 * N, 2), torch.rand(2, generator=g)
+        if kernel == "track":
+            return (cuda_demod.track(x, t0, 0x12, 3.0, N),
+                    cuda_demod.track_plain(x, t0, 0x12, 3.0, N))
+        return (cuda_demod.payload_detect(x, t0, fine, mtu, N, True),
+                cuda_demod.payload_detect_plain(x, t0, fine, mtu, N, True))
+    if kernel == "channelize":
+        K, L, M = 16, 8, 48
+        x, state = iq(2, K * M), iq(2, L * K - 1)
+        return (cuda_channelize.filterbank(x, K, L, state),
+                cuda_channelize.filterbank_plain(
+                    channelizer.prepended(x, state, L * K - 1), K, L, M))
+    if kernel == "shift":
+        rows, r = iq(2, mtu + 1, N), ints(N, 2)
+        return (shift.shift_windows(rows, r, mtu),
+                shift.shift_windows_plain(rows, r, mtu))
+    if kernel == "modulate":
+        args = (ints(N, 3, 17), iq(100), 5, N, 2, 1, 0.5)
+        return (cuda_modulate.frame(*args), cuda_modulate.frame_plain(*args))
+    if kernel == "decode":
+        cfg = LoRaConfig(sf=7, cr="4/6")
+        sym = api.encode(ints(256, 3, 12).to(torch.uint8), cfg, device="cpu")
+        return (decoder.decode(sym, cfg),
+                decoder.decode_plain(sym, cfg, sym.shape[-1]))
+    x = iq(3, 4000)
+    M = int((4000 - resample._taps_eff(1.6)) / 1.6)
+    return (resample.resample(x, 1.6),
+            resample._apply(x, resample.plan_on(0, M, 1.6, 0, CPU).table, 1.6))
+
+
+@pytest.mark.parametrize("kernel", ["detect", "track", "payload",
+                                    "channelize", "shift", "modulate",
+                                    "decode", "resample"])
+def test_the_cpu_route_is_the_plain_version_and_loads_no_kernel(
+        kernel, monkeypatch):
+    """A CPU tensor takes each kernel's plain version at its wrapper (kernels
+    A to F) or at the entry point that picks the route (decode for kernel G,
+    resample for kernel R, whose wrappers take only CUDA tensors), and never
+    loads the kernels' library."""
+    def refuse():
+        raise AssertionError("the CPU route loaded the kernels' library")
+
+    monkeypatch.setattr(_cuda, "library", refuse)
+    got, want = _cpu_route(kernel)
+    got, want = _leaves(got), _leaves(want)
+    assert got and len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.device == CPU and torch.equal(a, b)

@@ -7,7 +7,8 @@ blocker, slabs) against the same code on the CPU, the multi-device
 paths on ranks that share the card against one process, and the captured
 programs (utils/jit.py) against their calls under disable_jit().  Marked `cuda`: each
 test asks the `dev` fixture for the card and skips without one (the
-kernels have no CPU mode).
+kernels have no CPU mode).  The `launches` fixture counts the kernels a
+block launches from torch.profiler's record (utils/trace.launches).
 The machine with the card has no jax, and tests/conftest.py imports it, so
 run them there without the conftest:
 
@@ -24,6 +25,8 @@ Kernel E is a copy: bit-equal.  Kernel C's mag2 agrees within 1e-4 of each
 window's peak.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -38,6 +41,7 @@ from lora_tpu_torch.ops import cuda_channelize, cuda_decode, cuda_demod
 from lora_tpu_torch.ops import cuda_detect, tables
 from lora_tpu_torch.ops import detect as det_ops
 from lora_tpu_torch.ops import shift as shift_ops
+from lora_tpu_torch.utils import trace
 from test_torch_decode_model import CODES, FIELDS, FLAGS, decode_cases, flagged
 
 pytestmark = pytest.mark.cuda
@@ -53,6 +57,27 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the port's kernels have no CPU mode")
     return torch.device("cuda", 0)
+
+
+@contextlib.contextmanager
+def _counted():
+    n = {}
+    with trace.session() as prof:
+        yield n
+        torch.cuda.synchronize()
+    n.update(trace.launches(prof))
+
+
+@pytest.fixture
+def launches(dev):
+    """`with launches() as n:` fills n with the launches of each kernel
+    family in the block (utils/trace.launches) when the block ends."""
+    return _counted
+
+
+def only(**counts) -> dict:
+    """A launches record: these counts, and 0 for every other kernel."""
+    return {**dict.fromkeys(trace.KERNELS + ("blocked",), 0), **counts}
 
 
 def tone_windows(rng, M, N, down):
@@ -75,7 +100,7 @@ def assert_detect_close(got, want, findex):
 
 @pytest.mark.parametrize("N", [64, 128, 256, 512, 1024, 2048, 4096])
 @pytest.mark.parametrize("mode", ["up", "up_fe", "down_fe"])
-def test_detect_kernel_matches_plain(dev, N, mode):
+def test_detect_kernel_matches_plain(dev, launches, N, mode):
     rng = np.random.default_rng(N)
     down = mode == "down_fe"
     M = 37  # a ragged last block at every team size
@@ -83,10 +108,9 @@ def test_detect_kernel_matches_plain(dev, N, mode):
     fe = (torch.as_tensor(rng.uniform(-1.5, 1.5, M).astype(np.float32),
                           device=dev) if mode != "up" else None)
     findex = mode != "down_fe"
-    before = cuda_detect.dechirp_detect.launches
-    got = cuda_detect.dechirp_detect(x, down, fe, want_f_index=findex)
-    torch.cuda.synchronize()
-    assert cuda_detect.dechirp_detect.launches == before + 1
+    with launches() as n:
+        got = cuda_detect.dechirp_detect(x, down, fe, want_f_index=findex)
+    assert n == only(detect=1)
     want = det_ops.dechirp_detect(x, down, fe, want_f_index=findex)
     assert_detect_close(got, want, findex)
 
@@ -127,7 +151,7 @@ def _bank(cfg, rng, B, noise):
 
 @pytest.mark.parametrize("n_cand", [1, 2])
 @pytest.mark.parametrize("sf", [6, 7, 8, 9, 10, 11, 12])
-def test_track_kernel_matches_plain(dev, sf, n_cand):
+def test_track_kernel_matches_plain(dev, launches, sf, n_cand):
     """Kernel B (one team a candidate, the lookahead only where the sync test
     reads it, the scan ended at the sync) against the plain scan of all 13
     window pairs, at every window size, with one and two candidates a
@@ -147,10 +171,9 @@ def test_track_kernel_matches_plain(dev, sf, n_cand):
         later = torch.as_tensor(rng.integers(0, hi + 1, B), device=dev,
                                 dtype=t0.dtype)
         t0 = torch.stack([t0, later], 1)
-    before = cuda_demod.track.launches
-    got = cuda_demod.track(x, t0, cfg.sync, cfg.thresh, cfg.N)
-    torch.cuda.synchronize()
-    assert cuda_demod.track.launches == before + 1
+    with launches() as n:
+        got = cuda_demod.track(x, t0, cfg.sync, cfg.thresh, cfg.N)
+    assert n == only(track=1)
     want = cuda_demod.track_plain(x, t0, cfg.sync, cfg.thresh, cfg.N)
     assert bool(want["synced"].reshape(B, -1)[:5, 0].all())
     assert not bool(want["synced"].reshape(B, -1)[-1, 0])  # noise only
@@ -189,7 +212,7 @@ def test_payload_kernel_matches_plain(dev, N, mtu):
 
 
 @pytest.mark.parametrize("sf,cr", [(7, "4/8"), (8, "4/5")])
-def test_demodulate_routes_agree_on_card(dev, sf, cr):
+def test_demodulate_routes_agree_on_card(dev, launches, sf, cr):
     """fused='auto' (kernels A, B, C, one launch each) against fused='off'
     on the card: frame fields equal, payloads byte-exact."""
     cfg = lora_tpu_torch.LoRaConfig(sf=sf, cr=cr, ampl=1.0)
@@ -205,11 +228,9 @@ def test_demodulate_routes_agree_on_card(dev, sf, cr):
         x[b, d : d + frames.shape[1]] = frames[b, : T - d]
     x += 0.3 * (rng.standard_normal((B, T)) + 1j * rng.standard_normal((B, T)))
     xd = torch.as_tensor(x.astype(np.complex64), device=dev)
-    wrappers = (cuda_detect.dechirp_detect, cuda_demod.track,
-                cuda_demod.payload_detect)
-    before = [w.launches for w in wrappers]
-    auto = api.demodulate(xd, cfg, fused="auto")
-    assert [w.launches - n for w, n in zip(wrappers, before)] == [1, 1, 1]
+    with launches() as n:
+        auto = api.demodulate(xd, cfg, fused="auto")
+    assert n == only(detect=1, track=1, payload=1)
     off = api.demodulate(xd, cfg, fused="off")
     for f in ("found", "symbols", "count", "t_sync", "consumed", "freq_error",
               "payload_complete"):
@@ -257,7 +278,7 @@ def fenced(t, offset):
 @pytest.mark.parametrize("with_state", [True, False])
 @pytest.mark.parametrize("K", [8, 16, 24, 32, 64, 128, 192, 256, 512, 1024])
 @pytest.mark.parametrize("L", [4, 8, 12])
-def test_channelize_kernel_matches_plain(dev, K, L, with_state):
+def test_channelize_kernel_matches_plain(dev, launches, K, L, with_state):
     """Kernel D against the plain product, with a random state and with none
     (a null history pointer), over tile seams and a ragged last tile, for one
     and three streams.  History and block are strided views into NaN-filled
@@ -268,10 +289,9 @@ def test_channelize_kernel_matches_plain(dev, K, L, with_state):
     for S in (1, 3):
         x = fenced(crandn(rng, (S, K * M), dev), S)
         st = fenced(crandn(rng, (S, L * K - 1), dev), 1) if with_state else None
-        before = cuda_channelize.filterbank.launches
-        y, s = chz.channelize(x, K, L, state=st)
-        torch.cuda.synchronize()
-        assert cuda_channelize.filterbank.launches == before + 1
+        with launches() as n:
+            y, s = chz.channelize(x, K, L, state=st)
+        assert n == only(channelize=1)
         yp, sp = chz.channelize(x.contiguous(), K, L,
                                 state=None if st is None else st.contiguous(),
                                 impl="xla")
@@ -331,7 +351,7 @@ BF16_KERNEL_ATOL = 3e-2
 
 @pytest.mark.parametrize("with_state", [True, False])
 @pytest.mark.parametrize("K", [8, 12, 16, 24, 40, 64, 128, 192, 1024, 2048])
-def test_channelize_bf16_kernel_matches_plain(dev, K, with_state):
+def test_channelize_bf16_kernel_matches_plain(dev, launches, K, with_state):
     """Kernel D's bf16 route (route 3, the IDFT on the tensor cores, at
     every K: padded at 8, 12, 24, 40) against its plain version on fenced
     views, one launch; and against the float32 kernel."""
@@ -339,10 +359,9 @@ def test_channelize_bf16_kernel_matches_plain(dev, K, with_state):
     L, M, S = 8, 517, 2
     x = fenced(crandn(rng, (S, K * M), dev), S)
     st = fenced(crandn(rng, (S, L * K - 1), dev), 1) if with_state else None
-    before = cuda_channelize.filterbank.launches
-    y, s = chz.channelize(x, K, L, state=st, bf16=True)
-    torch.cuda.synchronize()
-    assert cuda_channelize.filterbank.launches == before + 1
+    with launches() as n:
+        y, s = chz.channelize(x, K, L, state=st, bf16=True)
+    assert n == only(channelize=1)
     xp = chz.prepended(x.contiguous(),
                        None if st is None else st.contiguous(), L * K - 1)
     want = cuda_channelize.filterbank_fir_plain(xp, K, L, M)
@@ -388,7 +407,7 @@ def test_channelize_kernel_streaming_continuity(dev):
     assert torch.equal(s2, s_full)
 
 
-def test_channelized_demodulate_routes_agree_on_card(dev):
+def test_channelized_demodulate_routes_agree_on_card(dev, launches):
     """fused='auto' (kernels D, A, B, C, one launch each) against
     fused='off' on a 16-channel grid with a frame on every even channel:
     frame fields equal, payloads byte-exact."""
@@ -411,11 +430,9 @@ def test_channelized_demodulate_routes_agree_on_card(dev):
     u *= np.exp(2j * np.pi * cfo * np.arange(M) / N)
     wide, _ = chz.synthesize(torch.as_tensor(u, device=dev))
     wide = wide + 0.01 * crandn(rng, wide.shape, dev)
-    wrappers = (cuda_channelize.filterbank, cuda_detect.dechirp_detect,
-                cuda_demod.track, cuda_demod.payload_detect)
-    before = [w.launches for w in wrappers]
-    auto, _ = api.channelized_demodulate(wide, K, cfg, fused="auto")
-    assert [w.launches - n for w, n in zip(wrappers, before)] == [1] * 4
+    with launches() as n:
+        auto, _ = api.channelized_demodulate(wide, K, cfg, fused="auto")
+    assert n == only(channelize=1, detect=1, track=1, payload=1)
     off, _ = api.channelized_demodulate(wide, K, cfg, fused="off")
     assert auto.found.shape == (S, K)
     assert bool(auto.found[:, 0::2].all())
@@ -434,7 +451,7 @@ def test_channelized_demodulate_routes_agree_on_card(dev):
             assert got[s * K + 2 * i] == bytes(payload[s, i]), (s, i)
 
 
-def test_out_of_slice_options_raise_on_card(dev):
+def test_out_of_slice_options_raise_on_card(dev, launches):
     """The interpret routes raise; the channelizer's bf16 contraction runs
     kernel D's bf16 route (one launch), under channelized_demodulate too."""
     cfg = lora_tpu_torch.LoRaConfig(sf=7, mtu=8)
@@ -446,18 +463,17 @@ def test_out_of_slice_options_raise_on_card(dev):
     for impl in ("fir-interpret", "pallas-interpret"):
         with pytest.raises(NotImplementedError, match="no CUDA counterpart"):
             chz.channelize(wide, 16, impl=impl)
-    before = cuda_channelize.filterbank.launches
-    y, _ = chz.channelize(wide, 16, bf16=True)
-    dem, _ = api.channelized_demodulate(wide, 16, cfg, fused="bf16")
-    torch.cuda.synchronize()
-    assert cuda_channelize.filterbank.launches == before + 2
+    with launches() as n:
+        y, _ = chz.channelize(wide, 16, bf16=True)
+        dem, _ = api.channelized_demodulate(wide, 16, cfg, fused="bf16")
+    assert n["channelize"] == 2
     assert not bool(y.any()) and not bool(dem.found.any())
     # fused="bf16" is "auto": the kernels run
-    before = cuda_detect.dechirp_detect.launches
-    dec, _ = api.loopback(np.arange(4, dtype=np.uint8),
-                          cfg.replace(mtu=cfg.num_symbols(4)), fused="bf16",
-                          device=dev)
-    assert cuda_detect.dechirp_detect.launches == before + 1
+    with launches() as n:
+        dec, _ = api.loopback(np.arange(4, dtype=np.uint8),
+                              cfg.replace(mtu=cfg.num_symbols(4)),
+                              fused="bf16", device=dev)
+    assert n["detect"] == 1
     assert api.extract_payloads(dec) == [bytes(range(4))]
     # a width kernel D does not take raises; it never takes the plain route
     with pytest.raises(ValueError, match="no tile fits"):
@@ -476,16 +492,15 @@ def test_out_of_slice_options_raise_on_card(dev):
 @pytest.mark.parametrize("lead", [(9,), (4, 3)])
 @pytest.mark.parametrize("N,R,mtu", [(128, 9, 8), (1024, 18, 17),
                                      (4096, 6, 5), (1024, 70, 68)])
-def test_shift_kernel_bit_equal(dev, N, R, mtu, lead):
+def test_shift_kernel_bit_equal(dev, launches, N, R, mtu, lead):
     rng = np.random.default_rng(N + R)
     g = crandn(rng, (*lead, R, N), dev)
     r = rng.integers(0, N, lead)
     r.reshape(-1)[:4] = (0, 1, N - 2, N - 1)  # even and odd, both ends
     r = torch.as_tensor(r, device=dev)
-    before = shift_ops.shift_windows.launches
-    got = shift_ops.shift_windows(g, r, mtu)
-    torch.cuda.synchronize()
-    assert shift_ops.shift_windows.launches == before + 1
+    with launches() as n:
+        got = shift_ops.shift_windows(g, r, mtu)
+    assert n == only(shift=1)
     assert got.shape == (*lead, mtu, N)
     assert torch.equal(got, shift_ops.shift_windows_plain(g, r, mtu))
     # rows of a larger buffer: a channel stride above R * N
@@ -555,7 +570,7 @@ def test_payload_kernel_mag2(dev, N):
 
 @pytest.mark.parametrize("N", [128, 1024, 2048])
 @pytest.mark.parametrize("offset", [0, 1, 2, 3])
-def test_windows_abut_the_end_of_the_buffer(dev, N, offset):
+def test_windows_abut_the_end_of_the_buffer(dev, launches, N, offset):
     """Kernels A and C over buffers that start `offset` samples into an
     allocation (odd: 8-byte aligned only) and whose last window ends with
     it: every sample around the buffers is NaN, so a read outside them shows
@@ -567,9 +582,9 @@ def test_windows_abut_the_end_of_the_buffer(dev, N, offset):
                       dtype=torch.complex64, device=dev)
     base[offset:] = x.reshape(-1)
     view = base[offset:].reshape(B, W, N)
-    before = cuda_detect.dechirp_detect.launches
-    got = cuda_detect.dechirp_detect(view)
-    assert cuda_detect.dechirp_detect.launches == before + 1
+    with launches() as n:
+        got = cuda_detect.dechirp_detect(view)
+    assert n == only(detect=1)
     assert_detect_close(got, det_ops.dechirp_detect(x.reshape(B, W, N)), True)
 
     # kernel C: rows of T samples, the last channel's windows at the row's
@@ -616,16 +631,16 @@ def test_payload_mag2_over_many_windows_of_large_teams(dev, N):
 
 
 @pytest.mark.parametrize("want_mag2", [False, True])
-def test_kernels_take_k_candidates(dev, want_mag2):
+def test_kernels_take_k_candidates(dev, launches, want_mag2):
     """Kernels B and C over [B, K] offsets equal K launches over [B]
     offsets: candidate (b, k) reads channel b of the same buffers."""
     rng = np.random.default_rng(3)
     B, K, N, mtu = 4, 3, 256, 10
     args = _payload_args(rng, dev, N, mtu, (B, K))
     x, ds, fe = args[:3]
-    before = cuda_demod.payload_detect.launches
-    got = cuda_demod.payload_detect(*args, want_mag2=want_mag2)
-    assert cuda_demod.payload_detect.launches == before + 1
+    with launches() as n:
+        got = cuda_demod.payload_detect(*args, want_mag2=want_mag2)
+    assert n == only(payload=1)
     want = cuda_demod.payload_detect_plain(*args, want_mag2=want_mag2)
     assert got[0].shape == (B, K, mtu)
     assert torch.equal(got[0], want[0])
@@ -644,9 +659,9 @@ def test_kernels_take_k_candidates(dev, want_mag2):
         rng.integers(0, T - tables.TRACK_ROWS * cfg.N, (B, K)), device=dev)
     v, snr0, pwr = dm._coarse_detect(xb, cfg, False)
     t0[:, 0] = dm._align_frame(v, snr0, pwr, cfg, T)[1]
-    before = cuda_demod.track.launches
-    got = cuda_demod.track(xb, t0, cfg.sync, cfg.thresh, cfg.N)
-    assert cuda_demod.track.launches == before + 1
+    with launches() as n:
+        got = cuda_demod.track(xb, t0, cfg.sync, cfg.thresh, cfg.N)
+    assert n == only(track=1)
     want = cuda_demod.track_plain(xb, t0, cfg.sync, cfg.thresh, cfg.N)
     assert bool(got["synced"][: B - 1, 0].all())
     for k in range(K):
@@ -677,7 +692,7 @@ def _two_frames(cfg, rng, B, L):
 
 
 @pytest.mark.parametrize("option", ["plain", "debug", "spectra"])
-def test_receive_options_routes_agree_on_card(dev, option):
+def test_receive_options_routes_agree_on_card(dev, launches, option):
     """max_frames=2 with and without the taps: fused='auto' against 'off'
     on the card, one launch of each kernel on the route's path."""
     cfg = lora_tpu_torch.LoRaConfig(sf=7, cr="4/8", ampl=1.0, crc_check=True)
@@ -686,13 +701,12 @@ def test_receive_options_routes_agree_on_card(dev, option):
     B = 6
     x, payload = _two_frames(cfg, rng, B, 6)
     kw = {} if option == "plain" else {option: True}
-    wrappers = (cuda_detect.dechirp_detect, cuda_demod.track,
-                cuda_demod.payload_detect, shift_ops.shift_windows)
-    before = [w.launches for w in wrappers]
-    auto = api.demodulate(x, cfg, max_frames=2, fused="auto", device=dev, **kw)
+    with launches() as n:
+        auto = api.demodulate(x, cfg, max_frames=2, fused="auto", device=dev,
+                              **kw)
     assert auto.found.device.type == dev.type  # host data went to `dev`
-    assert [w.launches - n for w, n in zip(wrappers, before)] == (
-        [1, 1, 0, 1] if option == "debug" else [1, 1, 1, 0])
+    assert n == (only(detect=1, track=1, shift=1) if option == "debug"
+                 else only(detect=1, track=1, payload=1))
     off = api.demodulate(torch.as_tensor(x, device=dev), cfg, max_frames=2,
                          fused="off", **kw)
     for f in ("found", "symbols", "count", "t_sync", "consumed", "freq_error"):
@@ -721,8 +735,6 @@ def test_trace_profile_keeps_every_kernel_of_one_call(dev, tmp_path):
     session's first device records (some of them left)."""
     import json
 
-    from lora_tpu_torch.utils import trace
-
     cfg = lora_tpu_torch.LoRaConfig(sf=7, cr="4/8", ampl=1.0, crc_check=True)
     cfg = cfg.replace(mtu=cfg.num_symbols(6))
     x, _ = _two_frames(cfg, np.random.default_rng(6), 6, 6)
@@ -747,11 +759,10 @@ def test_program_spans_hold_the_decode_graphs_launch(dev, tmp_path):
     lora.program:_decode span), and inside lora.decode lies exactly one
     launch of kernel G, whose kernel carries that launch's correlation id;
     device_ms.decode's rule (phybench/metrics) on that trace reads that
-    kernel's device time; the wrapper counts one launch a call."""
+    kernel's device time; the record holds the replayed graph's kernels A,
+    B, C and kernel G, one launch each."""
     import json
 
-    from lora_tpu_torch.ops import cuda_decode
-    from lora_tpu_torch.utils import trace
     from phybench import harness
     from phybench.trace import Trace
 
@@ -762,11 +773,11 @@ def test_program_spans_hold_the_decode_graphs_launch(dev, tmp_path):
     for _ in range(2):  # the demodulator captured, then replayed
         api.decode(api.demodulate(x, cfg).symbols, cfg)
     torch.cuda.synchronize()
-    n0 = cuda_decode.decode.launches
     with trace.session() as prof:
         api.decode(api.demodulate(x, cfg).symbols, cfg)
         torch.cuda.synchronize()
-    assert cuda_decode.decode.launches == n0 + 1
+    assert trace.launches(prof) == only(detect=1, track=1, payload=1,
+                                        decode=1)
     path = tmp_path / "trace.json"
     prof.export_chrome_trace(str(path))
     events = [e for e in json.loads(path.read_text())["traceEvents"]
@@ -883,7 +894,7 @@ def test_staging_buffer_reuse_never_changes_a_copied_block(dev):
         assert torch.equal(out.cpu(), torch.as_tensor(blk))
 
 
-def test_stream_on_card_matches_cpu(dev):
+def test_stream_on_card_matches_cpu(dev, launches):
     """StreamDemodulator on the card, fed host blocks (through the pinned
     staging) and through pump: the frames and pointers of the same stream
     on the CPU; kernels A, B, C launched once a step."""
@@ -919,23 +930,20 @@ def test_stream_on_card_matches_cpu(dev):
 
     want, offs, _ = drive("cpu", False)
     assert [f.payload for f in want] == [bytes(p) for p in payload]
-    wrappers = (cuda_detect.dechirp_detect, cuda_demod.track,
-                cuda_demod.payload_detect)
     for pump in (False, True):
-        before = [w.launches for w in wrappers]
-        got, goffs, steps = drive(dev, pump)
-        assert [w.launches - n for w, n in zip(wrappers, before)] == [steps] * 3
+        with launches() as n:
+            got, goffs, steps = drive(dev, pump)
+        assert [n["detect"], n["track"], n["payload"]] == [steps] * 3
         assert [key(f) for f in got] == [key(f) for f in want]
         np.testing.assert_array_equal(goffs, offs)
 
 
-def test_resample_stream_bit_equal_on_card(dev):
+def test_resample_stream_bit_equal_on_card(dev, launches):
     """Chunked resample_stream equals the one-shot resample bit for bit on
     the card (the taps summed in one fixed order), at ratios that decimate
     (8/5 among them, the US902-928 cell's) and interpolate, and stays
     within 2e-6 of the CPU's result; each call with outputs is one launch
     of kernel R."""
-    from lora_tpu_torch.ops import cuda_resample
     from lora_tpu_torch.ops import resample as rs
 
     rng = np.random.default_rng(13)
@@ -943,15 +951,15 @@ def test_resample_stream_bit_equal_on_card(dev):
     x = crandn(rng, (2, T), dev)
     cuts = [0, 7, 1037, 1038, 65536, 65537, 150001, T]
     for ratio in (4.096, 1.7, 1.6, 0.37):
-        before = cuda_resample.resample.launches
-        full = rs.resample(x, ratio)
-        assert full.is_cuda
-        state, parts = None, []
-        for a, b in zip(cuts[:-1], cuts[1:]):
-            y, state = rs.resample_stream(x[:, a:b], ratio, state)
-            parts.append(y)
+        with launches() as n:
+            full = rs.resample(x, ratio)
+            assert full.is_cuda
+            state, parts = None, []
+            for a, b in zip(cuts[:-1], cuts[1:]):
+                y, state = rs.resample_stream(x[:, a:b], ratio, state)
+                parts.append(y)
         calls = 1 + sum(y.shape[-1] > 0 for y in parts)
-        assert cuda_resample.resample.launches == before + calls
+        assert n["resample"] == calls
         got = torch.cat(parts, -1)
         n = min(got.shape[-1], full.shape[-1])
         assert n >= full.shape[-1] - 8
@@ -960,7 +968,7 @@ def test_resample_stream_bit_equal_on_card(dev):
         assert (full.cpu() - cpu).abs().max().item() <= 2e-6
 
 
-def test_dcblock_and_slab_on_card_match_cpu(dev):
+def test_dcblock_and_slab_on_card_match_cpu(dev, launches):
     """The DC blocker on the card within 1e-5 of the CPU's (its block matrix
     product in full float32), and demodulate_bank through pinned slabs
     equal to the CPU's, field by field."""
@@ -980,9 +988,9 @@ def test_dcblock_and_slab_on_card_match_cpu(dev):
     bank = np.zeros((B, T), np.complex64)
     bank[:, : fr.shape[1]] = fr[:, :T]
     bank += 0.03 * (rng.standard_normal((B, T)) + 1j * rng.standard_normal((B, T)))
-    before = cuda_demod.payload_detect.launches
-    got = demodulate_bank(bank.real, bank.imag, cfg, slab=4, device=dev)
-    assert cuda_demod.payload_detect.launches == before + 3
+    with launches() as n:
+        got = demodulate_bank(bank.real, bank.imag, cfg, slab=4, device=dev)
+    assert n["payload"] == 3
     want = demodulate_bank(bank.real, bank.imag, cfg, slab=4, device="cpu")
     for f in ("found", "symbols", "count", "t_sync", "consumed", "freq_error"):
         assert torch.equal(getattr(got, f), getattr(want, f)), f
@@ -1029,8 +1037,7 @@ def test_parallel_ranks_on_card_match_single_process(dev, world, backend):
             else:
                 np.testing.assert_array_equal(a, b, err_msg=f)
         assert r["metrics"]["decoded_ok"] == B
-        assert r["launches"] == {"detect": 1, "track": 1, "payload": 1,
-                                 "channelize": 0}
+        assert r["launches"] == only(detect=1, track=1, payload=1, decode=1)
     wide = crandn(rng, (2, 16 * 1024), "cpu")
     y = run(functools.partial(ranks.channelize, wide.numpy(), 16, world,
                               device="cuda"))
@@ -1040,7 +1047,7 @@ def test_parallel_ranks_on_card_match_single_process(dev, world, backend):
         assert np.abs(r["y"] - whole).max() <= D_RTOL * np.abs(whole).max()
 
 
-def test_sensitivity_point_routes_agree_on_card(dev):
+def test_sensitivity_point_routes_agree_on_card(dev, launches):
     """tools.bench_sensitivity at the committed SF7 CR 4/8 noise 2.0 point
     (128 frames): one bank to fused="auto" (kernels A, B, C; C with mag2)
     and to fused="off"; found, symbols and hard/soft recovered flags equal
@@ -1051,13 +1058,10 @@ def test_sensitivity_point_routes_agree_on_card(dev):
     bank = bs.make_bank(cfg, 2.0, 128, device=dev)
     out = {}
     for fused in ("auto", "off"):
-        for k in (cuda_detect.dechirp_detect, cuda_demod.track,
-                  cuda_demod.payload_detect):
-            k.launches = 0
-        out[fused] = bs.point(cfg, 2.0, 128, soft=True, fused=fused,
-                              device=dev, bank=bank)
-        n = cuda_demod.payload_detect.launches
-        assert (n > 0) == (fused == "auto")
+        with launches() as n:
+            out[fused] = bs.point(cfg, 2.0, 128, soft=True, fused=fused,
+                                  device=dev, bank=bank)
+        assert (n["payload"] > 0) == (fused == "auto")
     (row, pf), (orow, opf) = out["auto"], out["off"]
     for k in ("found", "symbols", "hard", "soft"):
         np.testing.assert_array_equal(pf[k], opf[k], err_msg=k)
@@ -1106,7 +1110,7 @@ def _same(a, b):
 
 
 def _program_case(name, sf, dev):
-    """(program object, call(x), x resident on the card, kernels per call)
+    """(program object, call(x), x resident on the card, launches a call)
     for one entry point at a small SF7/SF8 bank: a captured program, or
     (decode) kernel G's one launch, whose program is None."""
     from lora_tpu_torch.models import softdec as tsoft
@@ -1118,47 +1122,43 @@ def _program_case(name, sf, dev):
     bank = torch.as_tensor(bank, device=dev)
     if name == "demodulate":
         return (dm._demod_whole, lambda x: api.demodulate(x, cfg), bank,
-                (1, 1, 1, 0, 0, 0))
+                only(detect=1, track=1, payload=1))
     dem = api.demodulate(bank, cfg, spectra=True)
     if name == "decode":
         return (None, lambda x: api.decode(x, cfg), dem.symbols.clone(),
-                (0, 0, 0, 0, 0, 1))
+                only(decode=1))
     if name == "soft_symbols":
         return (tsoft._soft_symbols, lambda x: api.soft_symbols(x, cfg),
-                dem.fft_mag2.clone(), (0,) * 6)
+                dem.fft_mag2.clone(), only())
     K = 16
     wide = crandn(rng, (2, K * api.required_samples(cfg)), dev)
     return (api._channelize_demod_step,
             lambda x: api.channelized_demodulate(x, K, cfg), wide,
-            (1, 1, 1, 0, 1, 0))
+            only(detect=1, track=1, payload=1, channelize=1))
 
 
 @pytest.mark.parametrize("sf", [7, 8])
 @pytest.mark.parametrize("name", ["demodulate", "decode", "soft_symbols",
                                   "channelized_demodulate"])
-def test_captured_program_replays_as_the_eager_call(dev, name, sf):
+def test_captured_program_replays_as_the_eager_call(dev, launches, name, sf):
     """One capture a key (none for decode, which is kernel G's one launch);
     each call bit-equal to the call under disable_jit(); new data written
     into the input in place gives the new answer; a result already returned
     does not change on the next call; the kernels' launches counted once a
     call, captured or not."""
-    from lora_tpu_torch.ops import cuda_decode
     from lora_tpu_torch.utils import jit
 
     prog, call, x, per_call = _program_case(name, sf, dev)
-    wrappers = (cuda_detect.dechirp_detect, cuda_demod.track,
-                cuda_demod.payload_detect, shift_ops.shift_windows,
-                cuda_channelize.filterbank, cuda_decode.decode)
     captures = (lambda: prog.captures) if prog else jit.captures
     jit.clear()
     with jit.disable_jit():
         want = call(x)
-    c0, before = captures(), [w.launches for w in wrappers]
-    got = [call(x) for _ in range(3)]
+    c0 = captures()
+    with launches() as n:
+        got = [call(x) for _ in range(3)]
     assert captures() == c0 + (1 if prog else 0)
     assert prog is None or prog.replays >= 2
-    assert [w.launches - n for w, n in zip(wrappers, before)] == [
-        3 * k for k in per_call]
+    assert n == {k: 3 * v for k, v in per_call.items()}
     assert all(_same(g, want) for g in got)
     # new data in place: the next call reads it (soft_symbols copies its
     # input into the program's buffer, the banks are read in place, decode
@@ -1282,12 +1282,10 @@ def test_slabs_and_stream_steps_replay_one_graph_on_card(dev):
 @pytest.mark.parametrize("pre", [8, 12])
 @pytest.mark.parametrize("ovs", [1, 2])
 @pytest.mark.parametrize("sf", range(7, 13))
-def test_modulate_kernel_bit_equal_to_plain(dev, sf, ovs, pre):
+def test_modulate_kernel_bit_equal_to_plain(dev, launches, sf, ovs, pre):
     """Kernel F against modulate_plain on the card, two sync words, the
     wrap's edge symbols among random ones: bit-equal (the same float32
     sequence and the same cosf/sinf), one launch a call."""
-    from lora_tpu_torch.ops import cuda_modulate
-
     rng = np.random.default_rng(200 * sf + 10 * ovs + pre)
     for sync in (0x12, 0x3C):
         cfg = lora_tpu_torch.LoRaConfig(sf=sf, cr="4/8", ovs=ovs, sync=sync,
@@ -1295,34 +1293,32 @@ def test_modulate_kernel_bit_equal_to_plain(dev, sf, ovs, pre):
         syms = rng.integers(0, cfg.N, (5, int(rng.integers(9, 40))))
         syms[0, :3] = [0, 1, cfg.N - 1]
         x = torch.as_tensor(syms, device=dev)
-        n0 = cuda_modulate.frame.launches
-        got = tmod.modulate(x, cfg)
-        assert cuda_modulate.frame.launches == n0 + 1
+        with launches() as n:
+            got = tmod.modulate(x, cfg)
+        assert n == only(modulate=1)
         want = tmod.modulate_plain(x, cfg)
         assert got.shape == (5, cfg.frame_samples(x.shape[1]))
         assert torch.equal(got, want), (sync, (got - want).abs().max().item())
 
 
-def test_modulate_kernel_takes_any_integer_layout(dev):
+def test_modulate_kernel_takes_any_integer_layout(dev, launches):
     """int64, a strided view and a 255-byte payload's symbols (a scan over
     more symbols than threads) go through one cast and one launch."""
-    from lora_tpu_torch.ops import cuda_modulate
-
     cfg = lora_tpu_torch.LoRaConfig(sf=7, cr="4/8", ampl=1.0)
     rng = np.random.default_rng(255)
     pay = rng.integers(0, 256, (4, 255)).astype(np.uint8)
     sym = api.encode(pay, cfg, device=dev)
     assert sym.dtype == torch.int32 and sym.shape[1] > 256
     for x in (sym, sym.long(), sym.t().contiguous().t(), sym[0]):
-        n0 = cuda_modulate.frame.launches
-        got = api.modulate(x, cfg)
-        assert cuda_modulate.frame.launches == n0 + 1
+        with launches() as n:
+            got = api.modulate(x, cfg)
+        assert n == only(modulate=1)
         assert torch.equal(got, tmod.modulate_plain(x, cfg))
     cpu = api.modulate(sym.cpu(), cfg)
     assert (api.modulate(sym, cfg).cpu() - cpu).abs().max().item() <= 1e-6
 
 
-def test_modulate_kernel_failure_raises(dev, monkeypatch):
+def test_modulate_kernel_failure_raises(dev, launches, monkeypatch):
     """A failed build or launch of kernel F raises; modulate never falls back
     to the plain route on the card."""
     from lora_tpu_torch.ops import _cuda, cuda_modulate
@@ -1341,14 +1337,14 @@ def test_modulate_kernel_failure_raises(dev, monkeypatch):
         def lora_modulate(*args):
             return 9  # cudaErrorInvalidConfiguration
 
-    n0 = cuda_modulate.frame.launches
-    monkeypatch.setattr(_cuda, "library", no_build)
-    with pytest.raises(RuntimeError, match="nvcc failed"):
-        api.modulate(x, cfg)
-    monkeypatch.setattr(_cuda, "library", lambda: Refused)
-    with pytest.raises(RuntimeError, match="CUDA error 9"):
-        api.modulate(x, cfg)
-    assert cuda_modulate.frame.launches == n0
+    with launches() as n:
+        monkeypatch.setattr(_cuda, "library", no_build)
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            api.modulate(x, cfg)
+        monkeypatch.setattr(_cuda, "library", lambda: Refused)
+        with pytest.raises(RuntimeError, match="CUDA error 9"):
+            api.modulate(x, cfg)
+    assert n == only()
 
 
 # --------------------------------------------------------------------------
@@ -1356,12 +1352,10 @@ def test_modulate_kernel_failure_raises(dev, monkeypatch):
 # --------------------------------------------------------------------------
 
 def _decode_equal(x, cfg, n=None, what=""):
-    """api.decode of x on the card (kernel G, one launch) against
-    decode_plain of the same symbols on the CPU, every field bit-equal.
-    -> the card's result."""
-    n0 = cuda_decode.decode.launches
+    """api.decode of x on the card (kernel G) against decode_plain of the
+    same symbols on the CPU, every field bit-equal.  -> the card's
+    result."""
     got = api.decode(x, cfg, n)
-    assert cuda_decode.decode.launches == n0 + 1, what
     sym = torch.atleast_2d(x.cpu())
     want = tdec.decode_plain(sym, cfg, n or sym.shape[-1])
     if x.dim() == 1:
@@ -1376,35 +1370,41 @@ def _decode_equal(x, cfg, n=None, what=""):
 
 @pytest.mark.parametrize("explicit", [True, False])
 @pytest.mark.parametrize("sf, cr, ppm", CODES)
-def test_decode_kernel_bit_equal_to_plain(dev, sf, cr, ppm, explicit):
+def test_decode_kernel_bit_equal_to_plain(dev, launches, sf, cr, ppm,
+                                         explicit):
     """Kernel G against decode_plain on every decoder flag of a header
     mode: encoded, damaged and random frames, in int16, int32 and int64
     symbols by turns; every field bit-equal, one launch a call."""
     cfg0, sym = decode_cases(sf, cr, ppm, explicit,
                              1000 * sf + 7 * ppm + int(cr[-1]) + 3 * explicit)
     dtypes = (torch.int16, torch.int32, torch.int64)
-    for i, flags in enumerate(f for f in FLAGS if f[0] == explicit):
-        cfg = flagged(cfg0, flags)
-        x = torch.as_tensor(sym, device=dev).to(dtypes[i % 3])
-        _decode_equal(x, cfg, what=f"{cfg} {x.dtype}")
+    cases = [f for f in FLAGS if f[0] == explicit]
+    with launches() as n:
+        for i, flags in enumerate(cases):
+            cfg = flagged(cfg0, flags)
+            x = torch.as_tensor(sym, device=dev).to(dtypes[i % 3])
+            _decode_equal(x, cfg, what=f"{cfg} {x.dtype}")
+    assert n == only(decode=len(cases))
 
 
-def test_decode_kernel_reaches_every_status(dev):
+def test_decode_kernel_reaches_every_status(dev, launches):
     """Over the grid's explicit cases on the card: every status and every
-    rate a header can announce (5 to 7 among them)."""
+    rate a header can announce (5 to 7 among them); one launch a call."""
     statuses, rates = set(), set()
-    for sf, cr, ppm in CODES:
-        cfg0, sym = decode_cases(sf, cr, ppm, True, 77 + sf)
-        x = torch.as_tensor(sym, device=dev).to(torch.int16)
-        for flags in FLAGS[:8]:
-            got = _decode_equal(x, flagged(cfg0, flags))
-            statuses |= set(got.status.cpu().tolist())
-            rates |= set(got.rdd.cpu().tolist())
+    with launches() as n:
+        for sf, cr, ppm in CODES:
+            cfg0, sym = decode_cases(sf, cr, ppm, True, 77 + sf)
+            x = torch.as_tensor(sym, device=dev).to(torch.int16)
+            for flags in FLAGS[:8]:
+                got = _decode_equal(x, flagged(cfg0, flags))
+                statuses |= set(got.status.cpu().tolist())
+                rates |= set(got.rdd.cpu().tolist())
+    assert n == only(decode=len(CODES) * 8)
     assert statuses == set(range(6))
     assert rates == set(range(8))
 
 
-def test_decode_kernel_takes_any_layout(dev):
+def test_decode_kernel_takes_any_layout(dev, launches):
     """uint8, int8, a strided view, leading axes [2, 10, S], a single frame
     [S], num_symbols below the width, the Gray passthrough (interleaving
     off, any integer, negative ones too): one launch each, bit-equal."""
@@ -1412,24 +1412,29 @@ def test_decode_kernel_takes_any_layout(dev):
     cfg = cfg.replace(crc_check=True)
     x = torch.as_tensor(sym, device=dev)
     S = x.shape[1]
-    for t in (x.to(torch.uint8), x.to(torch.int8), x.t().contiguous().t(),
-              x.to(torch.int16)[:, :],
-              torch.cat([x, x]).reshape(2, 20, S), x[4]):
-        _decode_equal(t, cfg, what=f"{t.dtype} {tuple(t.shape)}")
-    for n in range(S - 8, S):
+    layouts = (x.to(torch.uint8), x.to(torch.int8), x.t().contiguous().t(),
+               x.to(torch.int16)[:, :], torch.cat([x, x]).reshape(2, 20, S),
+               x[4])
+    with launches() as n:
+        for t in layouts:
+            _decode_equal(t, cfg, what=f"{t.dtype} {tuple(t.shape)}")
+    assert n == only(decode=len(layouts))
+    for k in range(S - 8, S):
         try:
-            cuda_decode.geometry(cfg, S, n)
+            cuda_decode.geometry(cfg, S, k)
         except ValueError:
             continue
-        _decode_equal(x, cfg, n, what=f"num_symbols {n}")
+        with launches() as n:
+            _decode_equal(x, cfg, k, what=f"num_symbols {k}")
+        assert n == only(decode=1)
     gray = cfg.replace(interleaving=False)
     rng = np.random.default_rng(42)
     wide = torch.as_tensor(rng.integers(-(1 << 40), 1 << 40, (70, 33)),
                            device=dev)
     for t in (x, x.to(torch.int16), wide):
-        n0 = cuda_decode.decode.launches
-        got = api.decode(t, gray)
-        assert cuda_decode.decode.launches == n0 + 1
+        with launches() as n:
+            got = api.decode(t, gray)
+        assert n == only(decode=1)
         assert got.dtype == torch.int32
         assert torch.equal(got.cpu(), tdec.decode_plain(
             t.cpu(), gray, t.shape[-1]))
@@ -1441,7 +1446,7 @@ def test_decode_kernel_takes_any_layout(dev):
     ((96,), 7, "4/8", 255),       # the longest payload
     ((40,), 7, "4/5", None),      # the longest row: fewer frames a block
 ])
-def test_decode_kernel_at_full_width(dev, shape, sf, cr, payload):
+def test_decode_kernel_at_full_width(dev, launches, shape, sf, cr, payload):
     """The cells' shapes, the longest payload and the longest row that
     geometry() accepts (1,465 symbols at SF7 CR 4/5, 2,046 payload
     codewords; its tiles take 32 frames a block, above 48 KB of shared
@@ -1457,7 +1462,9 @@ def test_decode_kernel_at_full_width(dev, shape, sf, cr, payload):
         sym = np.concatenate([sym, rng.integers(0, cfg.N, (B, 4))], 1)
         sym[B // 2 :] = rng.integers(0, cfg.N, sym[B // 2 :].shape)
     x = torch.as_tensor(sym, device=dev).to(torch.int16)
-    got = _decode_equal(x.reshape(*shape, -1), cfg, what=str(shape))
+    with launches() as n:
+        got = _decode_equal(x.reshape(*shape, -1), cfg, what=str(shape))
+    assert n == only(decode=1)
     if payload is not None:
         ok = got.status.reshape(-1)[: B // 2].cpu()
         assert bool((ok == 0).all())
@@ -1475,21 +1482,23 @@ def _longest_row(cfg) -> int:
     return longest
 
 
-def test_decode_kernel_failure_raises(dev, monkeypatch):
+def test_decode_kernel_failure_raises(dev, launches, monkeypatch):
     """What kernel G does not take raises; a failed build or launch raises;
     decode never falls back to the plain route on the card."""
     from lora_tpu_torch.ops import _cuda
 
     cfg = lora_tpu_torch.LoRaConfig(sf=7)
     x = torch.zeros((2, 20), dtype=torch.int32, device=dev)
-    n0 = cuda_decode.decode.launches
-    with pytest.raises(ValueError, match="outside"):
-        api.decode(torch.zeros((1, _longest_row(cfg) + 8),
-                               dtype=torch.int32, device=dev), cfg)
-    with pytest.raises(TypeError, match="integer"):
-        api.decode(x.float(), cfg)
-    with pytest.raises(ValueError, match="codewords"):
-        api.decode(x, cfg, 40)
+    long = torch.zeros((1, _longest_row(cfg) + 8), dtype=torch.int32,
+                       device=dev)
+    with launches() as n:
+        with pytest.raises(ValueError, match="outside"):
+            api.decode(long, cfg)
+        with pytest.raises(TypeError, match="integer"):
+            api.decode(x.float(), cfg)
+        with pytest.raises(ValueError, match="codewords"):
+            api.decode(x, cfg, 40)
+    assert n == only()
 
     def no_build():
         raise RuntimeError("nvcc failed (1): decode.cu")
@@ -1499,13 +1508,14 @@ def test_decode_kernel_failure_raises(dev, monkeypatch):
         def lora_decode(*args):
             return 9  # cudaErrorInvalidConfiguration
 
-    monkeypatch.setattr(_cuda, "library", no_build)
-    with pytest.raises(RuntimeError, match="nvcc failed"):
-        api.decode(x, cfg)
-    monkeypatch.setattr(_cuda, "library", lambda: Refused)
-    with pytest.raises(RuntimeError, match="CUDA error 9"):
-        api.decode(x, cfg)
-    assert cuda_decode.decode.launches == n0
+    with launches() as n:
+        monkeypatch.setattr(_cuda, "library", no_build)
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            api.decode(x, cfg)
+        monkeypatch.setattr(_cuda, "library", lambda: Refused)
+        with pytest.raises(RuntimeError, match="CUDA error 9"):
+            api.decode(x, cfg)
+    assert n == only()
 
 
 def test_encode_and_dcblock_captured_equal_eager(dev):
@@ -1625,72 +1635,63 @@ def _resample_input(rng, layout, T, dev):
 @pytest.mark.parametrize("layout", ["rows", "col_stride", "leading",
                                     "unmerged"])
 @pytest.mark.parametrize("start", ["head", "mid-period"])
-def test_resample_kernel_matches_plain(dev, ratio, layout, start):
+def test_resample_kernel_matches_plain(dev, launches, ratio, layout, start):
     """Kernel R bit-equal to the plain route on the card and on the CPU, at
     ratios under and over 1, row counts and output lengths that are no
     multiple of a block's rows or tile, any strides, edge-clamped taps at
     both ends (out_len past the input's end), at a stream's head and in a
     block that starts mid-period (`block_plan` after a first block of 1,003
     samples); the register-blocked route runs at 8/5 and 5/8, the general
-    route at the others (`resample.blocked`)."""
+    route at the others (the profiler's "blocked" launches)."""
     from fractions import Fraction
 
-    from lora_tpu_torch.ops import cuda_resample
     from lora_tpu_torch.ops import resample as rs
 
     rng = np.random.default_rng(int(ratio * 1000))
     T = 10_007
     x = _resample_input(rng, layout, T, dev)
-    taps = rs._taps_eff(ratio)
     if start == "head":
         M = int(T / ratio) + 3
-        table = rs.table_on(0, M, ratio, 0, dev)
-        runs = rs.runs_on(0, M, ratio)
+        plan = rs.plan_on(0, M, ratio, 0, dev)
     else:
         exact = Fraction(ratio).limit_denominator(10**6)
         _, m_next, origin = rs.block_plan(None, 1003, exact, dev)
         Lt = rs.history(1003, ratio)
         state = rs.ResampleState(m_next, origin, x[..., :Lt])
-        table, _, _ = rs.block_plan(state, T - Lt, exact, dev)
-        M = table.shape[1]
-        runs = cuda_resample.runs(table.cpu().numpy(), taps)
+        plan, _, _ = rs.block_plan(state, T - Lt, exact, dev)
+        M = plan.table.shape[1]
     blocked = ratio in (1.6, 0.625)
     if start != "head" and blocked:
         assert m_next % exact.denominator  # the block starts mid-period
-    assert (runs is not None) == blocked
-    before = (cuda_resample.resample.launches, cuda_resample.resample.blocked)
-    got = rs.weigh(x, table, ratio, runs=runs)
-    assert (cuda_resample.resample.launches,
-            cuda_resample.resample.blocked) == (before[0] + 1,
-                                                before[1] + blocked)
+    assert (plan.runs is not None) == blocked
+    with launches() as n:
+        got = rs.weigh(x, plan, ratio)
+    assert n == only(resample=1, blocked=int(blocked))
     assert got.shape == x.shape[:-1] + (M,) and got.is_contiguous()
-    assert torch.equal(got, rs.weigh(x, table, ratio, plain=True))
-    cpu = rs.weigh(x.cpu(), table.cpu(), ratio)
+    assert torch.equal(got, rs.weigh(x, plan, ratio, plain=True))
+    cpu = rs.weigh(x.cpu(), plan._replace(table=plan.table.cpu()), ratio)
     assert torch.equal(got.cpu(), cpu)
     if blocked:  # the general route gives the same
-        assert torch.equal(got, rs.weigh(x, table, ratio))
+        assert torch.equal(got, rs.weigh(x, plan._replace(runs=None), ratio))
 
 
-def test_resample_kernel_at_the_cells_shape(dev):
+def test_resample_kernel_at_the_cells_shape(dev, launches):
     """8,192 rows of 65,536 samples -> 40,960 at 8/5 (the US902-928 cell's
     channels) on the register-blocked route, bit-equal to the plain route;
     one launch a call."""
-    from lora_tpu_torch.ops import cuda_resample
     from lora_tpu_torch.ops import resample as rs
 
     g = torch.Generator(device=dev).manual_seed(41)
     x = torch.randn((8192, 65536), dtype=torch.complex64, device=dev,
                     generator=g)
-    table = rs.table_on(0, 40960, 1.6, 0, dev)
-    runs = rs.runs_on(0, 40960, 1.6)
-    assert runs is not None  # the register-blocked route
-    before = (cuda_resample.resample.launches, cuda_resample.resample.blocked)
-    got = rs.weigh(x, table, 1.6, runs=runs)
-    assert (cuda_resample.resample.launches,
-            cuda_resample.resample.blocked) == (before[0] + 1, before[1] + 1)
+    plan = rs.plan_on(0, 40960, 1.6, 0, dev)
+    assert plan.runs is not None  # the register-blocked route
+    with launches() as n:
+        got = rs.weigh(x, plan, 1.6)
+    assert n == only(resample=1, blocked=1)
     for lo in range(0, 8192, 2048):  # the plain route's temporaries, in parts
         assert torch.equal(got[lo : lo + 2048],
-                           rs.weigh(x[lo : lo + 2048], table, 1.6,
+                           rs.weigh(x[lo : lo + 2048], plan, 1.6,
                                     plain=True)), lo
 
 
@@ -1720,30 +1721,26 @@ def _spaced_case(dev, seed=43):
     return cfg, K, Fraction(8, 5), wide.to(dev), payload
 
 
-def test_spaced_slots_on_card_match_the_plain_route(dev):
+def test_spaced_slots_on_card_match_the_plain_route(dev, launches):
     """channelized_demodulate(slot_ratio=8/5) on the card: one captured
     program running kernels D, R (its register-blocked route), A, B, C once
     each a call, equal to the eager call bit for bit and to the plain route
     in its decisions, every frame byte-exact; a replay makes no host sync;
     the state's halves give the whole's resampled grid."""
-    from lora_tpu_torch.ops import cuda_resample
     from lora_tpu_torch.utils import jit
 
     cfg, K, r, wide, payload = _spaced_case(dev)
     call = lambda: api.channelized_demodulate(wide, K, cfg, slot_ratio=r)
-    wrappers = (cuda_channelize.filterbank, cuda_resample.resample,
-                cuda_detect.dechirp_detect, cuda_demod.track,
-                cuda_demod.payload_detect)
     jit.clear()
     with jit.disable_jit():
         want, wstate = call()
-    c0, before = api._channelize_demod_step.captures, [
-        w.launches for w in wrappers]
-    b0 = cuda_resample.resample.blocked
-    got = [call() for _ in range(3)]
+    c0 = api._channelize_demod_step.captures
+    with launches() as n:
+        got = [call() for _ in range(3)]
     assert api._channelize_demod_step.captures == c0 + 1
-    assert [w.launches - n for w, n in zip(wrappers, before)] == [3] * 5
-    assert cuda_resample.resample.blocked == b0 + 3  # kernel R's blocked route
+    # kernel R on its register-blocked route
+    assert n == only(channelize=3, resample=3, blocked=3, detect=3, track=3,
+                     payload=3)
     for g, st in got:
         assert _same(g, want) and torch.equal(st[0], wstate[0])
         assert torch.equal(st[1].tail, wstate[1].tail)

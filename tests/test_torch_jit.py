@@ -2,8 +2,8 @@
 that keep host syncs and uploads out of them, held against lora_tpu.
 
 The cache logic (keys, in-place and copied arguments, the LRU bound, the
-weak hold on resident storage, disable_jit, nested programs, launch
-credits, failures) runs with a stub in place of the card: its "graph"
+weak hold on resident storage, disable_jit, nested programs, failures)
+runs with a stub in place of the card: its "graph"
 replays by running the function again into the captured output tensors,
 as a CUDA graph writes into fixed addresses.  The port's own programs run
 through the same stub and must give what they give eagerly.  The card
@@ -29,7 +29,7 @@ from lora_tpu.ops import detect as jdet
 import lora_tpu_torch
 from lora_tpu_torch import api
 from lora_tpu_torch.models import decoder as tdec
-from lora_tpu_torch.ops import _bitref, _cuda, codes, tables
+from lora_tpu_torch.ops import _bitref, codes, tables
 from lora_tpu_torch.ops import cuda_demod
 from lora_tpu_torch.ops import detect as det_ops
 from lora_tpu_torch.utils import jit
@@ -65,7 +65,7 @@ class StubGraph:
 
     def replay(self):
         fresh = []
-        with jit.disable_jit(), _cuda.tally():  # no wrapper runs
+        with jit.disable_jit():
             jit._flatten(self.fn(**{k: a() for k, a in self.args.items()}),
                          fresh)
         for o, f in zip(self.outputs, fresh):
@@ -112,26 +112,19 @@ class StubCard(jit._Card):
         return graph, out
 
 
-class Counter:
-    launches = 0
-
-
 @pytest.fixture
 def card(monkeypatch):
-    counter = Counter()
     monkeypatch.setattr(jit, "_card", StubCard)
     StubCard.fail = False
-    yield counter
+    yield
     jit.clear()
 
 
-def make(counter=None):
+def make():
     """A program of a resident bank x and a small argument w."""
 
     @jit.program(static=("k",), inplace=("x",))
     def prog(x, w, k, device):
-        if counter is not None:
-            _cuda.launched(counter)
         return {"y": x.sum(-1) * w + k, "n": x.shape[0]}
 
     return prog
@@ -253,83 +246,6 @@ def test_nested_program_is_part_of_the_outer(card):
     assert (outer.captures, inner.captures) == (1, 0)
 
 
-def test_launches_count_once_a_call(card):
-    prog = make(counter=card)
-    x = torch.ones(2, 2)
-    for n in range(1, 5):
-        prog(x, torch.ones(2), 0, CPU)
-        assert card.launches == n   # warm-up, then a credit a replay
-    entry, = prog._cache.values()
-    assert entry.credit == ((card, 1),)
-
-
-def test_launch_counts_from_threads_are_neither_lost_nor_tallied():
-    """Threads count launches while others tally theirs (a capture): every
-    counted launch lands on the counter, every tallied one in its own
-    thread's tally only."""
-    import sys
-    import threading
-
-    counter = Counter()
-    workers, n = 12, 20000
-    tallies = []
-    start, done = threading.Barrier(workers), threading.Barrier(workers)
-
-    def count():
-        start.wait(timeout=30)
-        for _ in range(n):
-            _cuda.launched(counter)
-        done.wait(timeout=30)
-
-    def work(i):
-        if i % 3 == 0:  # its tally open while every other thread counts
-            with _cuda.tally() as counted:
-                count()
-            tallies.append(counted[counter])
-        else:
-            count()
-
-    old = sys.getswitchinterval()
-    sys.setswitchinterval(1e-6)
-    try:
-        threads = [threading.Thread(target=work, args=(i,))
-                   for i in range(workers)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=60)
-    finally:
-        sys.setswitchinterval(old)
-    assert not any(t.is_alive() for t in threads)
-    assert tallies == [n] * 4
-    assert counter.launches == 8 * n
-
-
-def test_a_wrappers_other_counter_is_tallied_and_credited_apart(card):
-    """A wrapper's second counter (kernel R's `.blocked`) is tallied under
-    (wrapper, name) beside its launches: a capture takes both back and
-    every replay credits each to its own counter."""
-    card.blocked = 0
-
-    @jit.program(static=("blocked",))
-    def prog(x, blocked, device):
-        _cuda.launched(card)
-        if blocked:
-            _cuda.launched(card, "blocked")
-        return x + 1
-
-    x = torch.ones(2)
-    for n in range(1, 4):
-        prog(x, True, CPU)
-        assert (card.launches, card.blocked) == (n, n)
-    prog(x, False, CPU)
-    prog(x, False, CPU)
-    assert (card.launches, card.blocked) == (5, 3)
-    credits = sorted(dict(e.credit).get((card, "blocked"), 0)
-                     for e in prog._cache.values())
-    assert credits == [0, 1]
-
-
 def test_threads_warm_up_and_capture_one_at_a_time(card):
     """Two threads calling two programs at new keys at once: their warm-ups
     and captures never overlap (on the card they may share a pooled
@@ -409,12 +325,11 @@ def test_an_entry_goes_when_its_storage_dies_under_another_capture(card):
 
 
 def test_failed_capture_raises_and_restores(card):
-    prog = make(counter=card)
+    prog = make()
     x = torch.ones(2, 2)
     StubCard.fail = True
     with pytest.raises(RuntimeError, match="capturing"):
         prog(x, torch.ones(2), 0, CPU)
-    assert card.launches == 1       # the warm-up's, not the capture's
     assert len(prog) == 0 and prog.captures == 0
     StubCard.fail = False
     prog(x, torch.ones(2), 0, CPU)

@@ -218,16 +218,16 @@ def test_block_plan_counts_and_carries_the_grid():
     to the carried tail, and a float ratio is read as the fraction."""
     dev = torch.device("cpu")
     plan, m_next, origin = trs.block_plan(None, 65536, RATIO, dev)
-    assert plan.shape == (2, 40960) and plan.dtype == torch.int32
+    assert plan.table.shape == (2, 40960) and plan.table.dtype == torch.int32
     assert (m_next, origin) == (40960, 65536 - trs.history(65536, 1.6))
     tail = torch.zeros((1, trs.history(65536, 1.6)), dtype=torch.complex64)
     st = trs.ResampleState(m_next, origin, tail)
-    plan2, m2, o2 = trs.block_plan(st, 1001, RATIO, dev)
-    assert m2 == (65536 + 1001) * 5 // 8 and plan2.shape[1] == m2 - m_next
-    assert int(plan2[0].min()) >= 0  # inside the tail, never before it
+    (table2, _), m2, o2 = trs.block_plan(st, 1001, RATIO, dev)
+    assert m2 == (65536 + 1001) * 5 // 8 and table2.shape[1] == m2 - m_next
+    assert int(table2[0].min()) >= 0  # inside the tail, never before it
     idx, phase = trs._plan(m_next, m2 - m_next, 1.6, trs._taps_eff(1.6))
-    np.testing.assert_array_equal(plan2[0].numpy(), idx[:, 0] - origin)
-    np.testing.assert_array_equal(plan2[1].numpy(), phase)
+    np.testing.assert_array_equal(table2[0].numpy(), idx[:, 0] - origin)
+    np.testing.assert_array_equal(table2[1].numpy(), phase)
     assert Fraction(1.6).limit_denominator(10**6) == RATIO
 
 
@@ -252,22 +252,23 @@ def test_kernel_r_tiles_span_at_most_their_bound(ratio):
 
 
 def _second_block_plan(ratio: Fraction, first: int, second: int):
-    """The numpy plan of a stream's second block (`block_plan` after the
-    state of a first block of `first` samples) and the first's outputs."""
+    """The Plan of a stream's second block (`block_plan` after the state
+    of a first block of `first` samples) and the first's outputs."""
     dev = torch.device("cpu")
     _, m_next, origin = trs.block_plan(None, first, ratio, dev)
     tail = torch.zeros((1, trs.history(first, float(ratio))),
                        dtype=torch.complex64)
     st = trs.ResampleState(m_next, origin, tail)
     plan, _, _ = trs.block_plan(st, second, ratio, dev)
-    return plan.numpy(), m_next
+    return plan, m_next
 
 
 @pytest.mark.parametrize("case", ["8/5 head", "8/5 mid-period", "5/8 head",
                                   "5/8 mid-period", "4.096", "0.37"])
 def test_kernel_r_route_from_the_plan(case):
     """The host's choice of kernel R's route from the plan table it builds
-    (ops/cuda_resample.runs): the register-blocked route for 8/5 (the
+    (ops/cuda_resample.runs), the one a Plan carries: the register-blocked
+    route for 8/5 (the
     US902-928 cell's 65,536 slot samples -> 40,960, and a stream's second
     block that starts mid-period) and 5/8, aligned on the table's first
     output of phase 0, every output of the table where the kernel puts it;
@@ -279,24 +280,22 @@ def test_kernel_r_route_from_the_plan(case):
              Fraction(512, 125), "0.37": Fraction(37, 100)}[case.split()[0]]
     taps = trs._taps_eff(float(ratio))
     if case.endswith("mid-period"):
-        table, m0 = _second_block_plan(ratio, 1003, 65536)
+        plan, m0 = _second_block_plan(ratio, 1003, 65536)
         assert m0 % ratio.denominator  # the block starts mid-period
     else:
-        table, _, _ = trs.block_plan(None, 65536, ratio, torch.device("cpu"))
-        table, m0 = table.numpy(), 0
-    runs = cr.runs(table, taps)
+        plan, _, _ = trs.block_plan(None, 65536, ratio, torch.device("cpu"))
+        m0 = 0
+    table, runs = plan.table.numpy(), plan.runs
     tile, span = cr.geometry(float(ratio), taps)
     assert cr.smem(tile, span) <= cr.SMEM_MAX
     if case in ("4.096", "0.37"):
         assert runs is None
-        assert trs.runs_on(0, table.shape[1], float(ratio)) is None
         return
     P, Q = ratio.denominator, ratio.numerator
     assert (P, Q, taps) in cr.BLOCKED
     assert runs == cr.Runs(P, Q, taps, (-m0) % P, runs.phases,
                            cr.blocked_smem(P, Q, taps))
     assert runs.smem <= cr.SMEM_MAX
-    assert runs == trs.runs_on(m0, table.shape[1], float(ratio))
     # every output where the kernel puts it: the period's offsets and
     # phases from the aligned output, the head and tail included
     M = table.shape[1]

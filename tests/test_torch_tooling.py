@@ -186,6 +186,52 @@ def test_profile_does_not_hide_a_failure(tmp_path):
     assert runs == [1]
 
 
+# device kernel names as torch.profiler records them on the card (demangled:
+# a template's return type and arguments, an untemplated kernel's neither)
+# -> the launches kernel_launches counts for each
+_F2 = "(float2 const*, long long, long long, long long, float const*)"
+PROFILED = [
+    (f"void lora::detect_kernel<10, false>{_F2}", {"detect": 1}),
+    (f"void lora::track_kernel<7>{_F2}", {"track": 1}),
+    (f"void lora::payload_kernel<9, true>{_F2}", {"payload": 1}),
+    (f"void lora::channelize_fft_kernel<6, 8>{_F2}", {"channelize": 1}),
+    (f"lora::channelize_kernel{_F2}", {"channelize": 1}),
+    (f"void lora::channelize_mma_kernel<4, 8>{_F2}", {"channelize": 1}),
+    ("lora::shift_kernel(float2 const*, long long, long long, int const*, "
+     "float2*)", {"shift": 1}),
+    ("lora::modulate_kernel(int const*, long long, int, float2 const*, int, "
+     "unsigned int)", {"modulate": 1}),
+    ("void lora::decode_kernel<short>(short const*, lora::DecodeGeo, "
+     "long long const*)", {"decode": 1}),
+    ("lora::resample_kernel(float2 const*, long long, long long, long long, "
+     "long long, int const*, long long, int, float const*, int, float2*)",
+     {"resample": 1}),
+    ("void lora::resample_kernel<5, 8, 14>(float2 const*, long long, "
+     "long long, long long, long long, int const*, long long, float const*, "
+     "int, lora::Weights<70>, float2*)", {"resample": 1, "blocked": 1}),
+    ("at::cuda::(anonymous namespace)::spin_kernel(long)", {}),
+    ("void at::native::vectorized_elementwise_kernel<4, "
+     "at::native::FillFunctor<float>, std::array<char*, 1ul> >(int, "
+     "at::native::FillFunctor<float>, std::array<char*, 1ul>)", {}),
+]
+
+
+@pytest.mark.parametrize("name,want", PROFILED, ids=[
+    "detect", "track", "payload", "channelize_fft", "channelize_direct",
+    "channelize_mma", "shift", "modulate", "decode", "resample_general",
+    "resample_blocked", "absorb", "foreign"])
+def test_kernel_launches_read_from_profiled_names(name, want):
+    """kernel_launches counts a launch of each family by its lora:: name,
+    kernel R's register-blocked launches apart by their template arguments,
+    and neither the session's absorb kernel nor a kernel outside lora::;
+    each family is counted whatever else the record holds."""
+    assert trace.absorbing(name) == ("spin_kernel" in name)
+    zero = dict.fromkeys(trace.KERNELS + ("blocked",), 0)
+    assert trace.kernel_launches([name]) == {**zero, **want}
+    twice = trace.kernel_launches([name, PROFILED[-1][0], name])
+    assert twice == {k: 2 * n for k, n in {**zero, **want}.items()}
+
+
 @pytest.mark.parametrize("ask", ["flag", "env"])
 def test_bench_cpu_record(ask, capsys, monkeypatch):
     """The CPU record, asked for by --device cpu or LORA_BENCH_FORCE=cpu:

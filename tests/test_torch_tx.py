@@ -35,7 +35,7 @@ import lora_tpu_torch
 from lora_tpu_torch import api as tapi
 from lora_tpu_torch.models import encoder as tenc
 from lora_tpu_torch.models import modulator as tmod
-from lora_tpu_torch.ops import chirp, cuda_modulate
+from lora_tpu_torch.ops import _cuda, chirp, cuda_modulate
 from lora_tpu_torch.ops import dcblock as tdc
 
 torch.set_num_threads(1)
@@ -271,15 +271,18 @@ def test_preamble_table_once_a_device_and_bit_equal_to_the_old(sf, ovs, pre,
     assert head.shape == (cfg.frame_samples(0) - cfg.padding * cfg.NN,)
 
 
-def test_modulate_is_its_plain_route_on_the_cpu():
+def no_kernel():
+    raise AssertionError("the CPU route loaded the kernels' library")
+
+
+def test_modulate_is_its_plain_route_on_the_cpu(monkeypatch):
     cfg = lora_tpu_torch.LoRaConfig(sf=8, cr="4/6", ampl=0.3, ovs=2)
     syms = torch.from_numpy(np.random.default_rng(8).integers(0, 256, (3, 17)))
-    n0 = cuda_modulate.frame.launches
+    monkeypatch.setattr(_cuda, "library", no_kernel)  # no kernel on the CPU
     got = tmod.modulate(syms, cfg)
     assert torch.equal(got, tmod.modulate_plain(syms, cfg))
     assert torch.equal(tmod.modulate(syms[1], cfg), got[1])
     assert got.dtype == torch.complex64 and got.device.type == "cpu"
-    assert cuda_modulate.frame.launches == n0  # no kernel on the CPU
 
 
 def test_frame_wrapper_refuses_what_the_kernel_does_not_take():

@@ -26,6 +26,7 @@ from lora_tpu_torch.parallel import (ChannelDispatcher, aggregate_metrics,
                                      shard_demodulate)
 from lora_tpu_torch.parallel import multihost
 from lora_tpu_torch.parallel.mesh import gather
+from lora_tpu_torch.utils import trace
 
 
 def fields(res) -> dict:
@@ -39,32 +40,23 @@ def metrics(m: dict) -> dict:
     return {k: v.item() for k, v in m.items()}
 
 
-def kernel_wrappers() -> dict:
-    from lora_tpu_torch.ops import cuda_channelize, cuda_demod, cuda_detect
-
-    return {"detect": cuda_detect.dechirp_detect, "track": cuda_demod.track,
-            "payload": cuda_demod.payload_detect,
-            "channelize": cuda_channelize.filterbank}
-
-
 def bank_demod(x, cfg, time_ax, device="cpu", spectra=False):
     """shard_demodulate of this rank's channel_sharding rows of x [B, T],
     decode and aggregate_metrics under the sharding, then the gathered
-    demod and decode results and the kernels' launches (counted from 0;
-    the wrappers count only launches on the card)."""
+    demod and decode results and the kernels' launches in this rank
+    (utils/trace.launches of a session around it all: zeros without a
+    card)."""
     mesh = make_mesh(time=time_ax, device=device)
-    for w in kernel_wrappers().values():
-        w.launches = 0
-    dem = shard_demodulate(x[channel_sharding(mesh, x.shape[0])], cfg, mesh,
-                           spectra=spectra)
-    dec = api.decode(dem.symbols, cfg)
-    m = aggregate_metrics(dem, dec.status, mesh)
-    return {"dem": fields(gather_result(dem, mesh)),
-            "dec": fields(gather_result(dec, mesh)),
-            "metrics": metrics(m), "shape": dict(mesh.shape),
-            "local_rows": int(dem.found.shape[0]),
-            "launches": {k: w.launches
-                         for k, w in kernel_wrappers().items()}}
+    with trace.session() as prof:
+        dem = shard_demodulate(x[channel_sharding(mesh, x.shape[0])], cfg,
+                               mesh, spectra=spectra)
+        dec = api.decode(dem.symbols, cfg)
+        m = aggregate_metrics(dem, dec.status, mesh)
+        out = {"dem": fields(gather_result(dem, mesh)),
+               "dec": fields(gather_result(dec, mesh)),
+               "metrics": metrics(m), "shape": dict(mesh.shape),
+               "local_rows": int(dem.found.shape[0])}
+    return {**out, "launches": trace.launches(prof)}
 
 
 def stream_demod(bank, cfg, time_ax, max_frames=1, device="cpu"):

@@ -299,14 +299,14 @@ def probe_r(torch, cs, _cuda, libs, order, use, card, dev, sync):
     for ratio in (cs.R_RATIO, 4.096):
         taps = rs._taps_eff(ratio)
         M = cs.R_M if ratio == cs.R_RATIO else int((cs.R_T - taps) / ratio)
-        table = rs.table_on(0, M, ratio, 0, dev)
-        runs = rs.runs_on(0, M, ratio)
-        want = rs.weigh(x, table, ratio, plain=True)
+        plan = rs.plan_on(0, M, ratio, 0, dev)
+        runs = plan.runs
+        want = rs.weigh(x, plan, ratio, plain=True)
 
         def run(route):
             blocked = hasattr(_cuda.library(), "lora_resample_blocked")
-            return rs.weigh(x, table, ratio,
-                            runs=runs if route and blocked else None)
+            return rs.weigh(x, plan if route and blocked
+                            else plan._replace(runs=None), ratio)
 
         for which in libs:
             use(which)
