@@ -35,34 +35,46 @@
 // channels x 10,240 samples) and costs 4L flop for the FIR and about
 // 5 log2 K for a fast transform (62 at K = 64, L = 8: 0.16 ms at the float32
 // rate), so device memory is the floor.  Next above it is the data path of
-// shared memory and L1, 128 bytes a clock on each SM: the FIR reads L
-// staged samples (8L bytes) and L taps for each output sample.
+// shared memory and L1, 128 bytes a clock on each SM.  A FIR that reads L
+// staged samples and L taps for each output sample (route 1 before the FIR
+// by runs) takes about 2,300 of its wavefronts for a tile of 32 samples at
+// K = 64, L = 8, about as many clocks as the tile's 32 KB take at an SM's
+// share of 3.35 TB/s; route 1's FIR by runs reads 1.9 staged samples an
+// output and its taps from registers.
 //
 // Three routes, chosen by K and the bf16 flag alone (lora_channelize_route):
 //
-// 1. float32, K a power of two from 8 to 1024: channelize_fft_kernel<log2 K, LT>.  A
-//    block owns one stream's tile of TM output samples.  It stages the
-//    TM + L - 1 rows of K samples it needs in shared memory, once, by
-//    cp.async, so that every load of the tile is in flight at once and none
-//    waits in a register (row stride K + 1, so that lanes on consecutive
-//    rows hit different banks; rows past the stream's end are stored as
-//    zero).  The lanes of a warp run
-//    along m: thread (m, c) computes the R0 values u'[c + (K/R0) j] of its
-//    sample by the FIR straight into registers, transforms them (fft.cuh:
-//    radix-2 in registers, every index a literal), multiplies output m' by
-//    the pass twiddle W_K^(c m') from a table in shared memory and writes
-//    position c + (K/R0) m' of the exchange buffer [position][TM]; after one
-//    barrier thread (m, f) reads the R1 consecutive positions of run f,
-//    transforms them and stores channel f + R0 m'' of its sample.  K = 8,
-//    16, 32 take one pass (no exchange); 64 = 8 x 8, 128 = 16 x 8, 256 =
-//    16 x 16, 512 = 32 x 16, 1024 = 32 x 32 take two.  With the lanes along
-//    m every store of a channel row is TM consecutive samples and every
-//    access of the exchange buffer is a run of consecutive 8-byte words: no
-//    bank conflict at TM >= 16.  At K = 1024 only TM = 8 fits; there a
-//    half-warp holds two columns, the staged rows have stride K + 2 and the
-//    exchange buffer one padding row per run, which keeps both conflict-free.
-//    The exchange buffer lies over the staged rows (a barrier between the
-//    FIR and the exchange), so shared memory is what the rows take.
+// 1. float32, K a power of two from 8 to 1024: channelize_fft_kernel<log2 K,
+//    LT>.  A block owns one stream's tile of TM output samples, with TM * R1
+//    threads (BankPlan).
+//    - Staging.  The tile's TM + L - 1 rows of K samples go to shared memory
+//      once, by 8-byte cp.async, as [row][K] (zeros past the stream).
+//    - FIR by runs.  An item is one position p of the rotated phases and
+//      kRun = 8 consecutive samples.  It reads the column of phase
+//      (p - 1) mod K in the kRun + L - 1 rows it needs once, lanes along p
+//      so that a warp reads consecutive words, and slides its taps, held in
+//      registers, over them: each output is the fmaf chain over d = 0 .. L -
+//      1 from zero that filterbank_plain's reference emulates.  After a
+//      barrier the sums go to u'[m][p] (row stride KP) over the staged rows.
+//    - Transform.  Thread (m, c) reads the R0 values u'[m, c + (K/R0) j],
+//      lanes along m (no bank conflict at the odd stride KP), transforms
+//      them (fft.cuh: radix-2 in registers, every index a literal),
+//      multiplies output m' by the pass twiddle W_K^(c m') from a table in
+//      shared memory and writes position c + (K/R0) m' of the exchange
+//      buffer [position][TM] over u'; after one barrier thread (m, f) reads
+//      the R1 consecutive positions of run f, transforms them and stores
+//      channel f + R0 m'' of its sample.  K = 8, 16, 32 take one pass (no
+//      exchange); 64 = 8 x 8, 128 = 16 x 8, 256 = 16 x 16, 512 = 32 x 16,
+//      1024 = 32 x 32 take two.  Every store of a channel row is TM
+//      consecutive samples and every access of the exchange buffer a run of
+//      consecutive 8-byte words.  At K = 1024 only TM = 8 fits; there a
+//      half-warp holds two columns, u' has stride K + 2 and the exchange
+//      buffer one padding row per run, which keeps both conflict-free.  Only
+//      the FIR's reads at K = 8 meet a two-way conflict (a half-warp holds
+//      two runs, 8 rows apart).
+//    The arithmetic and its order are those of route 1 before the FIR by
+//    runs, so y is bit-equal to it (max abs difference 0 at both wideband
+//    cells' shapes, tools/torch_kernel_probe.py).
 // 2. float32, every other K (24, 192, ...): channelize_kernel, the direct
 //    sum over q, 8K flop a sample, bound by its float32 arithmetic (4.6 ms
 //    for the bank above when it was the only route).  Each thread keeps a register tile
@@ -164,6 +176,47 @@
 // K = 24 0.66 (24 of 32 lanes busy): not kept.
 // Tried and not kept: TM = 64 at K = 64 (512 threads, a ninth of the rows
 // re-read by the next tile instead of a fifth), 1.28 against 1.21 ms.
+//
+// Route 1 with the FIR by runs (tools/torch_kernel_probe.py on the H100
+// above, no history, in turns against the kernel before it, one call; the
+// bound by bytes at 3.35 TB/s): K = 64, L = 8, 256 x 786,432 samples 1.103
+// against 1.386 ms (87.2% against 69.4% of 0.962 ms), 128 x 4,194,304 2.952
+// against 3.669 (86.9% against 69.9% of 2.564 ms); 2^25 samples, L = 8, the
+// kernel before / this: K = 8 0.248 / 0.236 ms, 16 0.240 / 0.217, 32 0.275
+// / 0.241, 64 0.284 / 0.251, 128 0.281 / 0.250, 256 0.285 / 0.232, 512
+// 0.374 / 0.273, 1024 0.425 / 0.349.  Tried and not kept (each in turns
+// with the rest of its call; shares at the two cells' shapes):
+// - A walk: a block takes a run of tiles of one stream, keeps each tile's
+//   last L - 1 rows in a ring for the next, copies the next tile's rows
+//   while it filters the current one (a ring of 2 TM + L - 1 rows) or
+//   while it transforms it, builds the twiddles once; runs cut from S, M
+//   and the SM count so that the waves waste least: 79.4% / 81.8% against
+//   86.2% / 85.7% for the same kernel at runs of one tile.  Fixed runs: one
+//   tile 85.0 / 86.9%, two 84.9 / 86.4%, four 82.0 / 84.5%, eight 81.9 /
+//   85.8%, sixteen 81.0 / 85.3%; one wave of equal runs 80.3 / 80.6%; at
+//   2^25 samples runs of one tile were the fastest at every width, and the
+//   rule's long runs slower than the kernel before at K = 8 and 1024.
+//   Long runs put the blocks that run at once far apart in the stream,
+//   each writing its own 256-byte pieces of 64 channel rows, and fix the
+//   work of each block; tiles side by side write the same rows side by
+//   side and the hardware balances them (not separated: no ncu).
+// - In the walk: without the tile ahead 78.5 / 82.0%, streaming stores
+//   (__stcs) 78.3 / 82.1%, 8-byte copies 80.1 / 81.9%, against 79.4 /
+//   81.8%.
+// - The rows staged from one sample earlier, so that x comes in 16-byte
+//   copies, with u' beside them where both fit: 87.6 / 87.7% against 87.0
+//   / 86.2% in one call, 85.8 / 87.3% against 85.2 / 86.4% in another,
+//   within the 1 to 5 points that the rounds of one call part by; at 2^25
+//   samples within 0.016 ms of this kernel either way at every width but
+//   K = 256 (0.272 ms at TM = 16).  Not worth the shifted indexing and the
+//   second layout.
+// - u' beside the rows where both fit, 8-byte copies (or u' over the rows
+//   with the shared memory of both, which leaves fewer blocks an SM): 83.3
+//   / 82.1% and 83.3 / 82.3%, against 87.0 / 86.2%; faster at K = 128
+//   (0.227 and 0.229 against 0.252 ms), not at the cells' width.
+// - K = 256 at TM = 16, the tile of the kernel before (128-byte pieces of
+//   each channel row): 0.311 ms against 0.232 at TM = 32.  TM = 32 leaves
+//   filters of L = 82 to 97 at K = 256 to route 2.
 
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
@@ -195,7 +248,7 @@ __device__ __forceinline__ void stage_async(float2* dst, const Stream& st,
 }
 
 // ---------------------------------------------------------------------------
-// route 1: K a power of two, FIR into registers and a register FFT
+// route 1: K a power of two, the FIR by runs, a register FFT
 // ---------------------------------------------------------------------------
 
 // The passes of each width K = 2^LK: radices R0 (first pass) and R1 (second
@@ -207,9 +260,13 @@ template <> struct BankPlan<4>  { enum { R0 = 16, R1 = 1,  TM = 256 }; };
 template <> struct BankPlan<5>  { enum { R0 = 32, R1 = 1,  TM = 128 }; };
 template <> struct BankPlan<6>  { enum { R0 = 8,  R1 = 8,  TM = 32 }; };
 template <> struct BankPlan<7>  { enum { R0 = 16, R1 = 8,  TM = 32 }; };
-template <> struct BankPlan<8>  { enum { R0 = 16, R1 = 16, TM = 16 }; };
+template <> struct BankPlan<8>  { enum { R0 = 16, R1 = 16, TM = 32 }; };
 template <> struct BankPlan<9>  { enum { R0 = 32, R1 = 16, TM = 16 }; };
 template <> struct BankPlan<10> { enum { R0 = 32, R1 = 32, TM = 8 }; };
+
+// Consecutive output samples of one position that a FIR item of route 1
+// forms from one column of the staged rows.
+constexpr int kRun = 8;
 
 template <int LK> struct BankGeo {
   using Pl = BankPlan<LK>;
@@ -217,43 +274,33 @@ template <int LK> struct BankGeo {
   static constexpr int R0 = Pl::R0, R1 = Pl::R1, TM = Pl::TM;
   static constexpr bool kTwoPass = R1 > 1;
   static constexpr int kThreads = TM * R1;
-  // row stride of the staged input: lanes on consecutive rows, and the two
-  // columns of a half-warp at TM = 8, fall into different 8-byte banks
+  // FIR items a thread: K * TM / kRun items over kThreads threads
+  static constexpr int kItems = R0 / kRun;
+  // row stride of the FIR output u'[m][p]: lanes on consecutive samples, and
+  // the two columns of a half-warp at TM = 8, fall into different 8-byte banks
   static constexpr int KP = K + (TM >= 16 ? 1 : 2);
   static constexpr int kPadShift = ilog2(R1);
   // float2 elements of the exchange buffer [position][TM]; at TM < 16 one
   // padding position per run of R1
   static constexpr int kEx = kTwoPass ? (K + (TM < 16 ? K / R1 : 0)) * TM : 0;
+  // the FIR output, over which the exchange buffer lies
+  static constexpr int kUb = TM * KP > kEx ? TM * KP : kEx;
   static constexpr int kTw = kTwoPass ? K : 0;  // W_K^(c m') as [m'][c]
   static_assert(R0 * R1 == K, "plan");
   static_assert(!kTwoPass || R0 % R1 == 0, "plan");
   static_assert((TM & (TM - 1)) == 0 && kThreads <= 1024, "plan");
+  static_assert(TM % kRun == 0 && R0 % kRun == 0, "plan");
 
   __host__ __device__ static constexpr int pad(int p) {
     return TM < 16 ? p + (p >> kPadShift) : p;
   }
-  // shared memory of a block: the pass twiddles, then the staged rows, over
-  // which the exchange buffer lies
+  // shared memory of a block: the pass twiddles, then the staged rows
+  // [TM + L - 1][K], over which u' and then the exchange buffer lie
   static size_t smem_bytes(int L) {
-    const size_t rows = (size_t)(TM + L - 1) * KP;
-    return sizeof(float2) * (kTw + (rows > (size_t)kEx ? rows : (size_t)kEx));
+    const size_t rows = (size_t)(TM + L - 1) * K;
+    return sizeof(float2) * (kTw + (rows > (size_t)kUb ? rows : (size_t)kUb));
   }
 };
-
-// One row of the FIR: v[j] += hrow[q_j] * xr[q_j] for the thread's R0 phases
-// q_0 = q0 and q_j = c - 1 + R1 j.
-template <int R0, int R1>
-__device__ __forceinline__ void fir_row(float2* v, const float* hrow,
-                                        const float2* xr, int c, int q0) {
-#pragma unroll
-  for (int j = 0; j < R0; ++j) {
-    const int q = j == 0 ? q0 : c - 1 + R1 * j;
-    const float h = __ldg(hrow + q);
-    const float2 a = xr[q];
-    v[j].x = fmaf(h, a.x, v[j].x);
-    v[j].y = fmaf(h, a.y, v[j].y);
-  }
-}
 
 // The filter length whose FIR loop is unrolled in full (LT = kTapsUnrolled:
 // the default of ops/channelizer.channelize); any other L runs the same loop
@@ -269,10 +316,12 @@ channelize_fft_kernel(const float2* __restrict__ hist, long long sH,
                       const float2* __restrict__ wk, float2* __restrict__ y) {
   using G = BankGeo<LK>;
   constexpr int K = G::K, R0 = G::R0, R1 = G::R1, TM = G::TM, KP = G::KP;
+  constexpr int NT = G::kThreads;
   extern __shared__ float2 smem[];
   float2* tw = smem;           // [K] pass twiddles (two passes only)
-  float2* xs = smem + G::kTw;  // [TM + L - 1][KP] staged input rows
-  float2* ex = xs;             // [K (+ padding)][TM] exchange, after the FIR
+  float2* xs = smem + G::kTw;  // [TM + L - 1][K] staged input rows
+  float2* ub = xs;             // [TM][KP] FIR output u'[m][p], after the FIR
+  float2* ex = xs;             // [K (+ padding)][TM] exchange, after the pass
   const int L = LT > 0 ? LT : taps;  // a literal where the loop is unrolled
   const int tid = threadIdx.x;
   const long long s = blockIdx.x / tiles;
@@ -292,36 +341,81 @@ channelize_fft_kernel(const float2* __restrict__ hist, long long sH,
     }
   }
   const long long g0 = m0 * K;  // the tile's first sample of the stream
-  for (int i = tid; i < rows * K; i += G::kThreads) {
-    const int r = i >> LK;
-    const int q = i & (K - 1);
-    if (r < valid)
-      stage_async(xs + r * KP + q, st, g0 + i);
+  for (int i = tid; i < rows * K; i += NT) {
+    if ((i >> LK) < valid)
+      stage_async(xs + i, st, g0 + i);
     else
-      xs[r * KP + q] = make_float2(0.f, 0.f);
+      xs[i] = make_float2(0.f, 0.f);
+  }
+  // this thread's FIR items: position p = j mod K of run j / K (kRun
+  // consecutive samples), j = tid + it * NT; with LT > 0 their taps
+  // h[d] = hp[L-1-d, (p - 1) mod K] go to registers while the rows land
+  float h[G::kItems][LT > 0 ? LT : 1];
+  if constexpr (LT > 0) {
+#pragma unroll
+    for (int it = 0; it < G::kItems; ++it) {
+      const int q = (((tid + it * NT) & (K - 1)) - 1) & (K - 1);
+#pragma unroll
+      for (int d = 0; d < LT; ++d) h[it][d] = __ldg(hp + (LT - 1 - d) * K + q);
+    }
   }
   __pipeline_commit();
   __pipeline_wait_prior(0);
   __syncthreads();
 
-  // FIR: u'[p] = u[m, (p - 1) mod K] = sum_{d < L} hp[L-1-d, q] * x2[m + d, q]
-  // for the R0 positions p = c + R1 j of this thread, lanes along m
+  // FIR: u'[m, p] = u[m, q] = sum_{d < L} hp[L-1-d, q] * x2[m + d, q] with
+  // q = (p - 1) mod K: item (p, run) reads column q of staged rows m + d
+  // once each, lanes along p, and slides the taps over them
+  float2 acc[G::kItems][kRun];
+#pragma unroll
+  for (int it = 0; it < G::kItems; ++it) {
+    const int j = tid + it * NT;
+    const int q = ((j & (K - 1)) - 1) & (K - 1);
+    const float2* col = xs + (j >> LK) * kRun * K + q;
+#pragma unroll
+    for (int r = 0; r < kRun; ++r) acc[it][r] = make_float2(0.f, 0.f);
+    if constexpr (LT > 0) {
+      // row r of the column feeds sample i at tap d = r - i
+#pragma unroll
+      for (int r = 0; r < kRun + LT - 1; ++r) {
+        const float2 a = col[r * K];
+#pragma unroll
+        for (int i = 0; i < kRun; ++i) {
+          if (r - i >= 0 && r - i < LT) {
+            acc[it][i].x = fmaf(h[it][r - i], a.x, acc[it][i].x);
+            acc[it][i].y = fmaf(h[it][r - i], a.y, acc[it][i].y);
+          }
+        }
+      }
+    } else {
+      for (int d = 0; d < L; ++d) {
+        const float hd = __ldg(hp + (L - 1 - d) * K + q);
+#pragma unroll
+        for (int i = 0; i < kRun; ++i) {
+          const float2 a = col[(i + d) * K];
+          acc[it][i].x = fmaf(hd, a.x, acc[it][i].x);
+          acc[it][i].y = fmaf(hd, a.y, acc[it][i].y);
+        }
+      }
+    }
+  }
+  __syncthreads();  // every row is read: u' goes over them
+#pragma unroll
+  for (int it = 0; it < G::kItems; ++it) {
+    const int j = tid + it * NT;
+    float2* out = ub + (j >> LK) * kRun * KP + (j & (K - 1));
+#pragma unroll
+    for (int i = 0; i < kRun; ++i) out[i * KP] = acc[it][i];
+  }
+  __syncthreads();
+
+  // first pass: thread (m, c) takes u'[m, c + R1 j], j < R0, lanes along m
   const int m = tid & (TM - 1);
   const int c = tid / TM;
-  const int q0 = (c - 1) & (K - 1);  // j = 0; for j > 0 no wrap: c - 1 + R1 j
   float2 v[R0];
+  const float2* um = ub + m * KP + c;
 #pragma unroll
-  for (int j = 0; j < R0; ++j) v[j] = make_float2(0.f, 0.f);
-  const float2* xm = xs + m * KP;
-  if constexpr (LT > 0) {
-#pragma unroll
-    for (int d = 0; d < LT; ++d)
-      fir_row<R0, R1>(v, hp + (L - 1 - d) * K, xm + d * KP, c, q0);
-  } else {
-#pragma unroll 4
-    for (int d = 0; d < L; ++d)
-      fir_row<R0, R1>(v, hp + (L - 1 - d) * K, xm + d * KP, c, q0);
-  }
+  for (int j = 0; j < R0; ++j) v[j] = um[R1 * j];
   fft_reg<R0>(v);
 
   const bool live = m0 + m < M;
@@ -333,7 +427,7 @@ channelize_fft_kernel(const float2* __restrict__ hist, long long sH,
       for (int k = 0; k < R0; ++k) out[k * M] = v[brev<ilog2(R0)>(k)];
     }
   } else {
-    __syncthreads();  // every thread has read its rows: they become `ex`
+    __syncthreads();  // every thread has read u': it becomes `ex`
 #pragma unroll
     for (int mp = 0; mp < R0; ++mp) {
       float2 a = v[brev<ilog2(R0)>(mp)];

@@ -111,15 +111,61 @@ MAX_SMEM = int(re.search(r"kMaxSmem = (\d+);", CHANNELIZE_CU).group(1))
 W32 = np.exp(-2j * np.pi * np.arange(16) / 32)
 
 
+KRUN = int(re.search(r"constexpr int kRun = (\d+);", CHANNELIZE_CU).group(1))
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """Route 1's geometry of one width K (channelize.cu BankPlan and
+    BankGeo): radices R0, R1, tile TM; threads, FIR items a thread, the FIR
+    output's row stride KP, the exchange buffer, and shared memory at filter
+    length L."""
+    K: int
+    R0: int
+    R1: int
+    TM: int
+
+    @property
+    def threads(self):
+        return self.TM * self.R1
+
+    @property
+    def items(self):
+        return self.R0 // KRUN
+
+    @property
+    def KP(self):
+        return self.K + (1 if self.TM >= 16 else 2)
+
+    @property
+    def n_ex(self):
+        if self.R1 == 1:
+            return 0
+        return (self.K + (self.K // self.R1 if self.TM < 16 else 0)) * self.TM
+
+    @property
+    def n_ub(self):
+        return max(self.TM * self.KP, self.n_ex)
+
+    @property
+    def n_tw(self):
+        return self.K if self.R1 > 1 else 0
+
+    def smem(self, L):
+        """The twiddles, then the staged rows [TM + L - 1][K], over which
+        u' and the exchange buffer lie."""
+        return 8 * (self.n_tw + max((self.TM + L - 1) * self.K, self.n_ub))
+
+
 def bank_plan(K):
-    """(R0, R1, TM) of width K from channelize.cu's BankPlan table, or None
-    where K takes the direct-sum route."""
+    """Route 1's Plan of width K from channelize.cu's BankPlan table, or
+    None where K takes the direct-sum route."""
     lk = K.bit_length() - 1
     m = re.search(r"struct BankPlan<%d>\s*\{ enum \{ R0 = (\d+),\s*R1 = (\d+)"
                   r",\s*TM = (\d+) \}" % lk, CHANNELIZE_CU)
     if K != 1 << lk or m is None:
         return None
-    return tuple(int(g) for g in m.groups())
+    return Plan(K, *(int(g) for g in m.groups()))
 
 
 def brev(p, bits):
@@ -152,6 +198,16 @@ def stream_at(x, state, hist, i):
     return out
 
 
+def lanes_conflict_free(addr):
+    """Shared-memory addresses (8-byte words) by thread: every 16
+    consecutive threads read or write 16 different banks (threads on one
+    word share it)."""
+    addr = np.asarray(addr).reshape(-1)
+    return all(len({int(a) % 16 for a in set(addr[lo : lo + 16].tolist())})
+               == len(set(addr[lo : lo + 16].tolist()))
+               for lo in range(0, addr.size, 16))
+
+
 def conflict_free(addr, TM, R1):
     """Shared-memory addresses (8-byte words) by (m, c): every 16 consecutive
     threads (tid = c * TM + m) hit 16 different banks."""
@@ -161,54 +217,72 @@ def conflict_free(addr, TM, R1):
 
 
 def fft_route_model(x, state, K, L, M, hp, wk):
-    """channelize_fft_kernel<log2 K> on one stream: tiles of TM output
-    samples, the staged rows (stride KP, zero past M + L - 1), the FIR into
-    registers at the rotated phases, the first pass, the pass twiddles, the
-    exchange buffer over the staged rows, the second pass and the channel
-    each register holds."""
-    R0, R1, TM = bank_plan(K)
+    """channelize_fft_kernel<log2 K> on one stream, tile by tile: the
+    tile's TM + L - 1 rows staged as [row][K] (zero past M + L - 1); the
+    FIR by runs of KRUN samples of one position p, lanes along p, at the
+    rotated phase q = (p - 1) mod K; u'[m][p] over the staged rows once all
+    are read; the first pass, the pass twiddles, the exchange buffer over
+    u', the second pass and the channel each register holds."""
+    P = bank_plan(K)
+    R0, R1, TM, KP, NT = P.R0, P.R1, P.TM, P.KP, P.threads
     lk = K.bit_length() - 1
     hist = L * K - 1
     assert R0 * R1 == K and (R1 == 1 or R0 % R1 == 0)
-    KP = K + (1 if TM >= 16 else 2)
-    ps = R1.bit_length() - 1
-    pad = (lambda p: p + (p >> ps)) if TM < 16 else (lambda p: p)
-    n_ex = (K + (K // R1 if TM < 16 else 0)) * TM if R1 > 1 else 0
-    rows = TM + L - 1
-    smem = 8 * ((K if R1 > 1 else 0) + max(rows * KP, n_ex))
-    assert smem <= MAX_SMEM and TM * R1 <= 1024
+    assert TM % KRUN == 0 and R0 % KRUN == 0 and NT <= 1024
+    assert P.smem(L) <= MAX_SMEM
     # tw[m' * R1 + c] = conj(wk[(c m') mod K])
     i = np.arange(K)
     tw = np.conj(wk[((i // R1) * (i % R1)) & (K - 1)])
+    ps = R1.bit_length() - 1
+    pad = (lambda p: p + (p >> ps)) if TM < 16 else (lambda p: p)
     m = np.arange(TM)[:, None]
     c = np.arange(R1)[None, :]
     y = np.full((K, M), np.nan, np.complex128)
+    stored = np.zeros((K, M), int)
+    rows = TM + L - 1
     for m0 in range(0, M, TM):
         valid = min(rows, M + L - 1 - m0)
-        xs = np.full(max(rows * KP, n_ex), np.nan, np.complex128)
+        xs = np.full(P.smem(L) // 8 - P.n_tw, np.nan, np.complex128)
         i = np.arange(rows * K)
-        r, q = i >> lk, i & (K - 1)
-        xs[r * KP + q] = np.where(r < valid, stream_at(
+        xs[i] = np.where(i >> lk < valid, stream_at(
             x, state, hist, np.minimum(m0 * K + i, hist + x.size - 1)), 0)
-        q0 = (c - 1) & (K - 1)
-        v = np.zeros((TM, R1, R0), np.complex128)
-        for d in range(L):
-            for j in range(R0):
-                q = q0 if j == 0 else c - 1 + R1 * j
-                assert conflict_free((m + d) * KP + q, TM, R1)
-                v[:, :, j] += hp[L - 1 - d][q] * xs[(m + d) * KP + q]
-        assert not np.isnan(v).any()
-        fft_reg(v)
+        v = np.zeros((P.items, NT, KRUN), np.complex128)
+        for it in range(P.items):
+            j = np.arange(NT) + it * NT
+            q = ((j & (K - 1)) - 1) & (K - 1)
+            k0 = (j >> lk) * KRUN
+            for r in range(KRUN + L - 1):
+                addr = (k0 + r) * K + q  # phase q of row m0 + k0 + r
+                assert K < 16 or lanes_conflict_free(addr)
+                for i in range(KRUN):
+                    if 0 <= r - i < L:
+                        v[it, :, i] += hp[L - 1 - (r - i)][q] * xs[addr]
+        ub = xs  # u' lies over the staged rows
+        ub[:] = np.nan
+        for it in range(P.items):
+            j = np.arange(NT) + it * NT
+            for i in range(KRUN):
+                addr = ((j >> lk) * KRUN + i) * KP + (j & (K - 1))
+                assert lanes_conflict_free(addr)
+                ub[addr] = v[it, :, i]
+        w = np.zeros((TM, R1, R0), np.complex128)
+        for j in range(R0):
+            addr = m * KP + c + R1 * j
+            assert conflict_free(addr, TM, R1)
+            w[:, :, j] = ub[addr]
+        assert not np.isnan(w).any()  # every u' read was written
+        fft_reg(w)
         live = m0 + m[:, 0] < M
         mm = m0 + m[live, 0]
         if R1 == 1:
             for k in range(R0):
-                y[k, mm] = v[live, 0, brev(k, lk)]
+                y[k, mm] = w[live, 0, brev(k, lk)]
+                stored[k, mm] += 1
             continue
-        ex = xs  # the exchange buffer lies over the staged rows
+        ex = ub  # the exchange buffer lies over u'
         ex[:] = np.nan
         for mp in range(R0):
-            a = v[:, :, brev(mp, R0.bit_length() - 1)]
+            a = w[:, :, brev(mp, R0.bit_length() - 1)]
             if mp:
                 a = a * tw[mp * R1 + c]
             addr = pad(c + R1 * mp) * TM + m
@@ -216,17 +290,18 @@ def fft_route_model(x, state, K, L, M, hp, wk):
             ex[addr] = a
         for b in range(R0 // R1):
             f = c + R1 * b
-            w = np.zeros((TM, R1, R1), np.complex128)
+            z = np.zeros((TM, R1, R1), np.complex128)
             for j in range(R1):
                 addr = pad(f * R1 + j) * TM + m
                 assert conflict_free(addr, TM, R1)
-                w[:, :, j] = ex[addr]
-            assert not np.isnan(w).any()  # every position read was written
-            fft_reg(w)
+                z[:, :, j] = ex[addr]
+            assert not np.isnan(z).any()  # every position read was written
+            fft_reg(z)
             for mq in range(R1):
                 k = (f + R0 * mq)[0]
-                y[k[:, None], mm[None, :]] = w[live, :, brev(mq, ps)].T
-    assert not np.isnan(y).any()  # every channel of every sample stored once
+                y[k[:, None], mm[None, :]] = z[live, :, brev(mq, ps)].T
+                stored[k[:, None], mm[None, :]] += 1
+    assert (stored == 1).all()  # every channel of every sample stored once
     return y
 
 
@@ -270,13 +345,23 @@ def kernel_d_model(x, state, K, L, M):
 
 def test_bank_plan_covers_the_powers_of_two():
     """One pass for K = 8, 16, 32, two for 64 to 1024, radices the register
-    FFT has, whole warps along m where shared memory allows; every other K
-    takes the direct sum."""
+    FFT has, whole warps along m where shared memory allows, tiles of whole
+    FIR runs and whole items a thread; route 1 takes any filter up to L = 399
+    at K <= 64, and up to 195 at K = 128, 81 at 256, 40 at 512, 20 at 1024
+    (a tile of 32 samples at K = 256 leaves L = 82 to 97 to the direct sum);
+    every other K takes the direct sum."""
     for K in (8, 16, 32, 64, 128, 256, 512, 1024):
-        R0, R1, TM = bank_plan(K)
+        P = bank_plan(K)
+        R0, R1, TM = P.R0, P.R1, P.TM
         assert R0 * R1 == K and R0 in (8, 16, 32) and R1 in (1, 8, 16, 32)
         assert (R1 == 1) == (K <= 32)
         assert TM & (TM - 1) == 0 and 128 <= TM * R1 <= 512
+        assert TM % KRUN == 0 and K * TM // KRUN == P.items * P.threads
+    longest = {K: max(L for L in range(1, 400)
+                      if bank_plan(K).smem(L) <= MAX_SMEM)
+               for K in (8, 16, 32, 64, 128, 256, 512, 1024)}
+    assert longest == {8: 399, 16: 399, 32: 399, 64: 399, 128: 195, 256: 81,
+                       512: 40, 1024: 20}
     assert [bank_plan(K) for K in (4, 24, 192, 2048)] == [None] * 4
 
 
@@ -295,6 +380,27 @@ def test_kernel_d_arithmetic_matches_plain(K, L, M, with_state):
     rng = np.random.default_rng(K + L)
     x = crandn(rng, (2, M * K))
     state = crandn(rng, (2, L * K - 1)) if with_state else None
+    xp = chz.prepended(torch.as_tensor(x),
+                       None if state is None else torch.as_tensor(state),
+                       L * K - 1)
+    want = cc.filterbank_plain(xp, K, L, M).numpy()
+    got = kernel_d_model(x, state, K, L, M)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("with_state", [True, False])
+@pytest.mark.parametrize("K,L,M", [(64, 8, 1), (64, 8, 31), (64, 8, 33),
+                                   (8, 8, 255), (8, 8, 257), (1024, 16, 9),
+                                   (512, 32, 17)])
+def test_kernel_d_staged_seams_match_plain(K, L, M, with_state):
+    """Route 1's staged rows and FIR runs at the seams of a tile: a stream
+    shorter than a tile, one sample short of and past a tile edge, the
+    stream's end (zero rows after it), history and block within one tile
+    and one run; and long filters at the widest banks (K = 1024, L = 16 and
+    K = 512, L = 32), whose staged rows fill most of shared memory."""
+    rng = np.random.default_rng(K * 7 + M)
+    x = crandn(rng, (1, M * K))
+    state = crandn(rng, (1, L * K - 1)) if with_state else None
     xp = chz.prepended(torch.as_tensor(x),
                        None if state is None else torch.as_tensor(state),
                        L * K - 1)

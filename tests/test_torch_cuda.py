@@ -302,6 +302,57 @@ def test_channelize_kernel_matches_plain(dev, launches, K, L, with_state):
         assert err <= D_RTOL * yp.abs().max().item(), (S, err)
 
 
+@pytest.mark.parametrize("with_state", [True, False])
+@pytest.mark.parametrize("S,M", [(2, 12288), (2, 65536), (1, 3229), (3, 3229)])
+def test_channelize_kernel_at_the_cells_widths_matches_plain(dev, launches, S,
+                                                            M, with_state):
+    """Kernel D's route 1 at the wideband cells' K = 64, L = 8 against the
+    plain product: two streams of each cell's M (12,288 and 65,536), and
+    101 tiles with a ragged last one over one and three streams; with a
+    state and with none, on fenced NaN-filled strided views.  The same block
+    contiguous gives the same bits."""
+    rng = np.random.default_rng(M + 10 * S + with_state)
+    K, L = 64, 8
+    x = fenced(crandn(rng, (S, K * M), dev), S)
+    st = fenced(crandn(rng, (S, L * K - 1), dev), 1) if with_state else None
+    with launches() as n:
+        y, s = chz.channelize(x, K, L, state=st)
+    assert n == only(channelize=1)
+    assert torch.equal(y, chz.channelize(x.contiguous(), K, L, state=st)[0])
+    yp, sp = chz.channelize(x.contiguous(), K, L,
+                            state=None if st is None else st.contiguous(),
+                            impl="xla")
+    assert y.shape == (S, K, M) and y.is_contiguous()
+    assert torch.equal(s, sp)
+    assert bool(torch.isfinite(torch.view_as_real(y)).all())
+    err = (y - yp).abs().max().item()
+    assert err <= D_RTOL * yp.abs().max().item(), err
+
+
+@pytest.mark.parametrize("with_state", [True, False])
+@pytest.mark.parametrize("K,L", [(1024, 20), (512, 40), (256, 81)])
+def test_channelize_long_filters_match_plain(dev, launches, K, L, with_state):
+    """Route 1 at the widest banks with the longest filter each takes (its
+    staged rows fill shared memory), against the plain product on fenced
+    views, for one and three streams."""
+    assert cuda_channelize.route(K, L) == 1
+    rng = np.random.default_rng(K + L)
+    M = 37  # odd: a ragged last tile
+    for S in (1, 3):
+        x = fenced(crandn(rng, (S, K * M), dev), S)
+        st = fenced(crandn(rng, (S, L * K - 1), dev), 1) if with_state else None
+        with launches() as n:
+            y, s = chz.channelize(x, K, L, state=st)
+        assert n == only(channelize=1)
+        yp, sp = chz.channelize(x.contiguous(), K, L,
+                                state=None if st is None else st.contiguous(),
+                                impl="xla")
+        assert torch.equal(s, sp)
+        assert bool(torch.isfinite(torch.view_as_real(y)).all())
+        err = (y - yp).abs().max().item()
+        assert err <= D_RTOL * yp.abs().max().item(), (S, err)
+
+
 def direct_tile(K, L):
     """channelize.cu direct_tile: route 2's tile for (K, L), 0 where none
     fits (the bf16 flag took route 2 at every such K before route 3)."""

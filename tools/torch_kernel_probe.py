@@ -47,7 +47,11 @@ where the copy has the register-blocked one).
               them (the trace's two clocks apart).
 
 Kernel D's bf16 route is held against filterbank_fir_plain by chip_smoke.py's
-BF16_* bars (bf16_close) and timed at the config-3 shape too.
+BF16_* bars (bf16_close) and timed at the config-3 shape too.  Kernel D's
+float32 route is also run at both wideband cells' blocks (256 x 786,432 and
+128 x 4,194,304 samples, K = 64, L = 8, no history): every copy's output
+against the tree's (the max abs difference, 0 where the arithmetic is the
+same), then the copies in turns, each with its share of the bound by bytes.
 
 Without --against it times the tree alone.  The banks are chip_smoke.py's:
 the flagship bank (4096 channels, SF10, mtu 68, seed 1234) and, for D, 256
@@ -264,6 +268,29 @@ def probe_d(torch, cs, _cuda, libs, order, use, args, card, dev, sync):
     print(f"time channelize (with the concatenation a one-pointer copy "
           f"needs): {show(ms)} [{card}]", flush=True)
     del x
+    # both wideband cells' blocks (meshtastic-wideband-256, us915-wideband-
+    # 128), no history: every copy against the tree's output, bit for bit,
+    # then in turns, each beside the bound
+    for S, T in ((256, 786_432), (128, 4_194_304)):
+        M = T // K
+        x = cs.awgn((S, T), 1.0, gen, dev)
+        ref = run(x, K)
+        diff = []
+        for which in libs:
+            if which != "tree":
+                use(which)
+                diff.append(f"{which} {(run(x, K) - ref).abs().max().item():g}")
+        use("tree")
+        del ref
+        bnd = cs.bound(2 * S * K * M * 8, S * K * M * (5 * math.log2(K) + 4 * L))
+        ms = in_turns(cs, order, use, lambda: run(x, K), sync)
+        share = ", ".join(f"{w} {100 * bnd['bound_ms'] / min(t):.1f}%"
+                          for w, t in ms.items())
+        print(f"cell shape S={S} K={K} M={M}: max abs difference from the "
+              f"tree: {', '.join(diff) or 'no other copy'}; time {show(ms)}; "
+              f"share of the {bnd['bound_ms']:.3f}-ms bound by "
+              f"{bnd['bound_by']}: {share} [{card}]", flush=True)
+        del x
     if args.sizes:
         for K in (8, 16, 32, 64, 128, 256, 512, 1024, 24, 192):
             M = 4101  # odd: a ragged last tile, and a small plain matrix
